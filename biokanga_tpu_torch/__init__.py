@@ -3,12 +3,15 @@
 A second package beside the JAX one, for one NVIDIA H100.  Module names
 mirror biokanga_tpu so each part has an obvious counterpart; the JAX
 package stays the reference that every part is tested against, bit for
-bit.  This package imports torch and never jax.  Its hand-written CUDA
-kernels live in csrc/ and are built on first use (kernels/); each has a
-plain torch version beside it that runs for CPU tensors.
+bit.  This package imports torch and nothing of jax or of biokanga_tpu:
+the host modules it needs are copied in, at the same module paths.  Its
+hand-written CUDA kernels live in csrc/ and are built on first use
+(kernels/); each has a plain torch version beside it that runs for CPU
+tensors.
 
 Ported so far: single-end short-read alignment (`align`), from the index
-that `python -m biokanga_tpu index` writes to SAM.
+that `python -m biokanga_tpu index` writes to SAM, and PacBio long-read
+error correction (`ecreads`).
 """
 
 __version__ = "0.1.0"

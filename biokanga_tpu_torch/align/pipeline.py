@@ -23,8 +23,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from biokanga_tpu.align.params import AlignParams, DerivedParams
-
 from ..device import I32_MAX
 from ..index.device import DeviceIndex
 from ..ops.extend_packed import (
@@ -35,6 +33,7 @@ from ..ops.extend_packed import (
 )
 from ..ops.lookup import pack_read_kmers, seed_range_lookup
 from ..ops.sort import sort2_rows, sort_rows
+from .params import AlignParams, DerivedParams
 
 
 def _rc_reads(reads: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,129 @@
+"""Copy of biokanga_tpu/align/sam.py: the single-end SAM writer.
+
+Role of the reference's CSAMfile SAM path (libbiokanga/SAMfile.cpp;
+writer invoked from CAligner::WriteBAMReadHits, biokanga/Aligner.cpp:5543).
+v0 emits plain SAM; BAM/BGZF + BAI/CSI indexes follow (SURVEY.md §7.3.6).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..seq.encode import codes_to_ascii, revcomp
+
+
+def sam_header(entry_names, entry_lengths, program="biokanga-tpu", version="0.1.0"):
+    lines = ["@HD\tVN:1.6\tSO:unsorted"]
+    for name, ln in zip(entry_names, entry_lengths):
+        lines.append(f"@SQ\tSN:{name}\tLN:{int(ln)}")
+    lines.append(f"@PG\tID:{program}\tPN:{program}\tVN:{version}")
+    return "\n".join(lines) + "\n"
+
+
+@dataclass
+class SamRecord:
+    qname: str
+    flag: int
+    rname: str
+    pos: int  # 1-based
+    mapq: int
+    cigar: str
+    rnext: str = "*"
+    pnext: int = 0
+    tlen: int = 0
+    seq: str = "*"
+    qual: str = "*"
+    tags: tuple = ()
+
+    def line(self) -> str:
+        fields = [
+            self.qname,
+            str(self.flag),
+            self.rname,
+            str(self.pos),
+            str(self.mapq),
+            self.cigar,
+            self.rnext,
+            str(self.pnext),
+            str(self.tlen),
+            self.seq,
+            self.qual,
+        ]
+        fields.extend(self.tags)
+        return "\t".join(fields)
+
+
+def write_alignments_sam(
+    out,  # file-like (text) or path
+    entry_names,
+    entry_starts,  # (E+1,) absolute genome offsets
+    names,         # list[str] read names
+    reads,         # (B, L) int8 codes (as read from input, i.e. original strand)
+    lengths,       # (B,) int32
+    result,        # dict from AlignEngine.align_batch
+    write_header=True,
+    report_unmapped=True,
+):
+    """Write one aligned block as SAM records.
+
+    Unique hits: FLAG 0/16, POS 1-based within entry, CIGAR '<len>M'
+    (pure Hamming alignment => no indels), NM tag with mismatch count.
+    Unaligned / multialigned reads are emitted as FLAG 4 records when
+    `report_unmapped` (the reference reports them separately via
+    ReportNoneAligned/ReportMultiAlign, Aligner.cpp:678-700).  The port's
+    engine gives no colorspace, soft-clip or indel-CIGAR results, so the
+    JAX writer's branches for those are not copied.
+    """
+    close = False
+    if isinstance(out, str):
+        out = open(out, "w")
+        close = True
+    try:
+        starts = np.asarray(entry_starts)
+        entry_lengths = np.diff(starts)
+        if write_header:
+            out.write(sam_header(entry_names, entry_lengths))
+        unique = result["unique"]
+        locus = result["locus"]
+        is_rc = result["is_rc"]
+        best_mm = result["best_mm"]
+        ent = np.searchsorted(starts, locus, side="right") - 1
+        pos_in_entry = locus - starts[np.clip(ent, 0, len(entry_names) - 1)]
+        B = len(names)
+        lines = []
+        for i in range(B):
+            L = int(lengths[i])
+            codes = reads[i, :L]
+            if unique[i]:
+                rc = bool(is_rc[i])
+                seq = codes_to_ascii(revcomp(codes) if rc else codes).decode()
+                rec = SamRecord(
+                    qname=names[i],
+                    flag=16 if rc else 0,
+                    rname=entry_names[int(ent[i])],
+                    pos=int(pos_in_entry[i]) + 1,
+                    mapq=60,
+                    cigar=f"{L}M",
+                    seq=seq,
+                    qual="*",
+                    tags=(f"NM:i:{int(best_mm[i])}",),
+                )
+            elif report_unmapped:
+                rec = SamRecord(
+                    qname=names[i],
+                    flag=4,
+                    rname="*",
+                    pos=0,
+                    mapq=0,
+                    cigar="*",
+                    seq=codes_to_ascii(codes).decode(),
+                    qual="*",
+                )
+            else:
+                continue
+            lines.append(rec.line())
+        out.write("\n".join(lines) + ("\n" if lines else ""))
+    finally:
+        if close:
+            out.close()

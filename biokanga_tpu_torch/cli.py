@@ -1,10 +1,13 @@
-"""CLI of the PyTorch port: the single-end `align` subcommand.
+"""CLI of the PyTorch port: single-end `align` and PacBio `ecreads`.
 
 Usage:  python -m biokanga_tpu_torch align -i reads.fq -I ref.npz \
             -o out.sam [--device cuda]
+        python -m biokanga_tpu_torch ecreads -i reads.fa -o out.fa \
+            [--device cuda]
 
-It reads the index that `python -m biokanga_tpu index` writes and gives
-the SAM that `python -m biokanga_tpu align` gives on the same inputs.
+`align` reads the index that `python -m biokanga_tpu index` writes and
+gives the SAM that `python -m biokanga_tpu align` gives on the same
+inputs; `ecreads` gives the FASTA of `python -m biokanga_tpu ecreads`.
 The device is explicit: `--device cuda` (the default) raises when CUDA is
 absent, and `--device cpu` runs the kernels' plain versions.  Paired
 ends, SNP calling, indel/splice/chimeric modes, bisulfite, colorspace and
@@ -18,10 +21,21 @@ import sys
 
 import numpy as np
 
-from biokanga_tpu.cli import _expand_response_files
-from biokanga_tpu.utils.diagnostics import StopWatch, open_diagnostics
-
 from .device import resolve_device
+from .utils.diagnostics import StopWatch, open_diagnostics
+
+
+def _expand_response_files(argv: list[str]) -> list[str]:
+    """`@file` arguments expand to the whitespace-split words of the file
+    (copy of biokanga_tpu/cli.py:23-31)."""
+    out: list[str] = []
+    for a in argv:
+        if a.startswith("@") and len(a) > 1:
+            with open(a[1:]) as f:
+                out.extend(f.read().split())
+        else:
+            out.append(a)
+    return out
 
 
 def cmd_align(argv: list[str]) -> int:
@@ -50,17 +64,16 @@ def cmd_align(argv: list[str]) -> int:
     log = open_diagnostics(None, name="biokanga-tpu-torch")
     sw = StopWatch()
 
-    from biokanga_tpu.align.params import AlignParams, Sensitivity
-    from biokanga_tpu.align.sam import SamRecord, write_alignments_sam
-    from biokanga_tpu.index.build import is_bisulfite_index, load_index
-    from biokanga_tpu.index.chunked import is_chunked_index
-    from biokanga_tpu.seq.encode import codes_to_ascii, revcomp
-    from biokanga_tpu.seq.fasta import read_blocks
-    from biokanga_tpu.seq.rds import is_rds, rds_info, read_rds_blocks
-
     from .align.multihit import assign_multihits
+    from .align.params import AlignParams, Sensitivity
     from .align.pipeline import AlignEngine, pad_rows
+    from .align.sam import SamRecord, write_alignments_sam
+    from .index.build import is_bisulfite_index, load_index
+    from .index.chunked import is_chunked_index
     from .index.device import to_device
+    from .seq.encode import codes_to_ascii, revcomp
+    from .seq.fasta import read_blocks
+    from .seq.rds import is_rds, rds_info, read_rds_blocks
 
     if args.out.endswith(".bam"):
         p.error("BAM output is not ported yet; write .sam")
@@ -173,7 +186,61 @@ def cmd_align(argv: list[str]) -> int:
     return 0
 
 
-SUBCOMMANDS = {"align": cmd_align}
+def cmd_ecreads(argv: list[str]) -> int:
+    """`pacbiokanga ecreads` parity, following biokanga_tpu/cli.py:1571-1617."""
+    p = argparse.ArgumentParser(prog="biokanga-tpu-torch ecreads")
+    p.add_argument("-i", "--inreads", action="append", required=True)
+    p.add_argument("-o", "--out", required=True, help="corrected FASTA")
+    p.add_argument("--seed-len", type=int, default=12)
+    p.add_argument("--min-seed-votes", type=int, default=8)
+    p.add_argument("--sw-band", type=int, default=96)
+    p.add_argument("--min-score", type=int, default=60)
+    p.add_argument("--max-targets", type=int, default=48,
+                   help="overlap candidates per probe")
+    p.add_argument("--rounds", type=int, default=2,
+                   help="iterated-consensus rounds (round 2 corrects "
+                        "round 1's output)")
+    p.add_argument("--target-chunk", type=int, default=0,
+                   help="index at most this many target reads at a time "
+                        "(bounds device memory; 0 = all)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="not ported yet (see ROADMAP.md)")
+    p.add_argument("-F", "--log", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default; raises without CUDA) "
+                        "or cpu (the kernels' plain versions)")
+    args = p.parse_args(argv)
+    if args.checkpoint_dir:
+        p.error("--checkpoint-dir: resumable EC (utils/checkpoint) is not "
+                "ported yet; see ROADMAP.md, queue 1")
+    device = resolve_device(args.device)
+    log = open_diagnostics(args.log, name="biokanga-tpu-torch")
+    sw = StopWatch()
+    from .pacbio.ecreads import ECParams, ec_reads
+    from .seq.fasta import read_seqs, write_fasta
+
+    names, reads = [], []
+    for path in args.inreads:
+        for r in read_seqs(path):
+            names.append(r.name)
+            reads.append(r.codes)
+    ecp = ECParams(seed_len=args.seed_len,
+                   min_seed_votes=args.min_seed_votes,
+                   sw_band=args.sw_band, min_overlap_score=args.min_score,
+                   max_targets=args.max_targets)
+    corrected, stats = ec_reads(reads, ecp,
+                                target_chunk=args.target_chunk or None,
+                                rounds=max(1, args.rounds), device=device)
+    write_fasta(args.out, zip(names, corrected))
+    device_time = ("; device time: SW {sw_ms} ms, traceback {trace_ms} ms"
+                   .format(**stats) if "sw_ms" in stats else "")
+    log.info("ecreads: %d reads, %d pairs aligned, %d overlaps used, %.1fs%s",
+             stats["reads"], stats["pairs"], stats["overlaps_used"],
+             sw.elapsed(), device_time)
+    return 0
+
+
+SUBCOMMANDS = {"align": cmd_align, "ecreads": cmd_ecreads}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -13,10 +13,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from biokanga_tpu.index.build import GenomeIndex
-
 from ..device import u32_from_numpy
 from ..ops.extend_packed import PackedGenome, pack_genome
+from .build import GenomeIndex
 
 MAX_CAND_PER_CORE = 4096
 

@@ -1,14 +1,15 @@
 """Build and load the package's CUDA kernels.
 
 Every `csrc/*.cu` file compiles, on first use, into one shared library
-with a plain C interface:
+with a plain C interface: one nvcc per source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/biokanga_tpu_torch/<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <hash>.d/<name>.o csrc/<name>.cu
 
-The library lands in `build/biokanga_tpu_torch/` at the repository root,
-named by a hash of the sources, so an edited source rebuilds and an
-unchanged one loads at once.  It is loaded with ctypes: every pointer
+then one link, `nvcc ... -shared -o <hash>.so <hash>.d/*.o`.  The library
+lands in `build/biokanga_tpu_torch/` at the repository root, named by a
+hash of the sources, so an edited source rebuilds and an unchanged one
+loads at once.  It is loaded with ctypes: every pointer
 and the stream are `c_void_p`, sizes are `c_int`, and every entry point
 returns `cudaGetLastError()` after its launch, which `check` turns into
 an exception.  Nothing here runs at import time.
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "biokanga_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +42,13 @@ _SIGNATURES = {
     #  rcodes, rnlane, lengths, out, B, C, W, stream)
     "hamming_extend_packed": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _P),
+    # (a, bwin, alen, jlo, jhi, best, best_i, best_k, mv or NULL, B, La, T,
+    #  W, match, mismatch, gap_open, gap_ext, stream)
+    "banded_sw": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                  _I, _I, _P),
+    # (mv, best_i, best_k, bwin, out, ins_cnt, ins_base, B, La, Wd, K, T,
+    #  stream)
+    "sw_trace_packed": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -73,19 +81,36 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbiokanga_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(" ".join(cmd) + "\n" + text)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile the sources if no library for their hash exists yet."""
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objdir = out.with_suffix(f".{os.getpid()}.d")
+    objdir.mkdir(parents=True, exist_ok=True)
+    objs = [objdir / (src.stem + ".o") for src in _sources()]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(_sources(), objs)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(
-            "nvcc failed:\n" + " ".join(cmd) + "\n" + r.stdout + r.stderr)
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
     os.replace(tmp, out)
+    shutil.rmtree(objdir, ignore_errors=True)
     return out
 
 

@@ -1,0 +1,107 @@
+"""Copy of biokanga_tpu/seq/rds.py: reading the packed `.rds` container.
+
+Parity role: the reference's CProcRawReads `.rds` preprocessed-read files
+(libbiokanga/ProcRawReads.h:53,75 — V5/V6 records), produced by `kangar`
+(kangar/kangar.cpp), filtered by `filterreads` (filterreads/), and accepted
+as aligner input (biokanga/Aligner.cpp:8312 LoadReads).
+
+TPU-first design: instead of the reference's per-record byte stream
+(header + descriptor + packed bases per read), the container is columnar —
+one global 2-bit-packed base array + an N-position bitmask + per-read
+offset/length columns — so a block of reads decodes with a handful of
+vectorised numpy ops straight into the aligner's fixed-width ReadBlock
+device layout.  Stored as a single .npz (zip) file:
+
+  meta      int64[3]   (format version, n_reads, total_bases)
+  packed    uint8[ceil(total/4)]   4 bases/byte, 2 bits each (N stored as 0)
+  nmask     uint8[ceil(total/8)]   np.packbits mask of N positions
+  offsets   int64[n+1]  base offsets of each read into the global array
+  flags     uint8[n]    bit0: PE second-mate; bit1: duplicate-marked
+  names     uint8[...]  newline-joined read descriptors
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+RDS_VERSION = 1
+FLAG_PE2 = 0x01
+
+
+def unpack_2bit(packed: np.ndarray, nmask: np.ndarray, n: int) -> np.ndarray:
+    """4 bases a byte (2 bits each) + packbits N mask -> int8 codes."""
+    c = ((packed[:, None] >> np.array([0, 2, 4, 6], np.uint8)) & 3)
+    c = c.reshape(-1).astype(np.int8)[:n]
+    isn = np.unpackbits(nmask)[:n].astype(bool)
+    c[isn] = 4
+    return c
+
+
+@dataclass
+class RDSInfo:
+    version: int
+    n_reads: int
+    total_bases: int
+    is_pe: bool
+
+
+def is_rds(path: str) -> bool:
+    if not (path.endswith(".npz") or path.endswith(".rds")):
+        return False
+    try:
+        with np.load(path) as z:
+            return "meta" in z and "packed" in z and "offsets" in z
+    except Exception:
+        return False
+
+
+def rds_info(path: str) -> RDSInfo:
+    with np.load(path) as z:
+        meta = z["meta"]
+        flags = z["flags"]
+        return RDSInfo(int(meta[0]), int(meta[1]), int(meta[2]),
+                       bool((flags & FLAG_PE2).any()))
+
+
+class RDSFile:
+    """Loaded container with vectorised block decode."""
+
+    def __init__(self, path: str):
+        z = np.load(path)
+        self.meta = z["meta"]
+        if int(self.meta[0]) > RDS_VERSION:
+            raise ValueError(f"unsupported rds version {self.meta[0]}")
+        self.n_reads = int(self.meta[1])
+        total = int(self.meta[2])
+        self.codes = unpack_2bit(z["packed"], z["nmask"], total)
+        self.offsets = z["offsets"]
+        self.flags = z["flags"]
+        self.names = (z["names"].tobytes().decode().split("\n")
+                      if z["names"].size else [])
+
+    def lengths(self) -> np.ndarray:
+        return np.diff(self.offsets).astype(np.int32)
+
+
+def read_rds_blocks(path: str, block_size: int = 4096,
+                    max_len: int | None = None):
+    """Yield aligner ReadBlocks from an rds container (every read)."""
+    from .fasta import ReadBlock
+
+    f = RDSFile(path)
+    lens = f.lengths()
+    sel = np.arange(f.n_reads)
+    for s in range(0, len(sel), block_size):
+        ids = sel[s: s + block_size]
+        blens = lens[ids]
+        w = int(max_len if max_len is not None else blens.max(initial=1))
+        codes = np.full((len(ids), w), 4, np.int8)
+        for r, i in enumerate(ids):
+            L = min(int(blens[r]), w)
+            codes[r, :L] = f.codes[f.offsets[i]: f.offsets[i] + L]
+        yield ReadBlock(
+            names=[f.names[i] for i in ids],
+            codes=codes,
+            lengths=np.minimum(blens, w).astype(np.int32),
+        )

@@ -5,21 +5,36 @@
 Phases, each of which raises on failure:
   1. print the card (nvidia-smi name and power limit) and the versions;
   2. build the CUDA kernels from biokanga_tpu_torch/csrc;
-  3. hold every kernel against its plain torch version on the card, at
-     the shapes the align path gives it, and time both;
+  3. hold the align kernels against their plain torch versions on the
+     card, at the shapes the align path gives them, and time both;
   4. align 262,144 simulated 100 bp reads against a 4.6 Mbp genome with
      `python -m biokanga_tpu_torch align --device cuda` (called in
-     process), check that every kernel was launched and that >= 99% of
-     the reads map uniquely to their simulated origin;
+     process), check that every align kernel was launched and that >= 99%
+     of the reads map uniquely to their simulated origin;
   5. align the first 4,096 reads with --device cpu and --device cuda and
-     require byte-identical SAM, also against the big run's records;
-  6. time the align engine alone on the 262,144 reads.
+     require byte-identical SAM, also against the big run's records, and
+     the same on a repeat genome that drives every engine stage;
+  6. time the align engine alone on the 262,144 reads;
+  7. hold the Smith-Waterman kernels (banded_sw_moves, banded_sw_score)
+     and the traceback decode (sw_trace) against their plain versions at
+     error-correction shapes (64 pairs of 10,240 bases, W = 96), time
+     each at one SW chunk (1,024 pairs); then score one 100 kb noisy pair
+     with banded_sw_score, as the JAX package's only caller of that
+     kernel (scripts/bench_longread.py) does;
+  8. correct 24 noisy 1.5 kb reads with `python -m biokanga_tpu_torch
+     ecreads --rounds 2` with --device cpu and --device cuda and require
+     byte-identical FASTA;
+  9. correct the error-correction head-to-head read set (500 x 10 kb CLR
+     reads of a 200 kb genome, scripts/bench_ec_headtohead.py) with the
+     CLI defaults on the card and require 32-mer recovery >= 0.99.
 The last two lines are a JSON object per kernel and the result line.
 Exits non-zero without CUDA or outside the repository.  Needs one card.
 """
 from __future__ import annotations
 
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -37,6 +52,25 @@ READ_LEN = 100
 BATCH = 65_536
 N_PARITY = 4_096
 MIN_TRUE_FRACTION = 0.99
+
+# error correction: SW at EC shapes, and the head-to-head read set
+SW_LA = 10_240
+SW_W = 96
+SW_CHECK_PAIRS = 64
+SW_CHUNK_PAIRS = 1_024
+EC_READS, EC_READ_LEN, EC_GENOME_KB, EC_ERR, EC_SEED = 500, 10_000, 200, 0.07, 3
+MIN_KMER_RECOVERY = 0.99
+
+# least-time bounds (NVIDIA H100 SXM data sheet and Hopper white paper)
+HBM_BYTES_PER_S = 3.35e12
+# 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations per band cell of the SW recurrence: E (2 adds, 1 max),
+# match test and select (2), Hd (1), H0 (4 max), lazy F (3), H (2 max),
+# band masks (2), row max (1) = 18; the move code adds 3 compares, 3
+# selects and a shift-or (8)
+SW_OPS_PER_CELL = 18
+SW_MOVES_OPS_PER_CELL = 26
 
 
 def _timed_ms(fn, iters: int = 10) -> float:
@@ -62,6 +96,19 @@ def _max_abs_err(got, want) -> int:
     if not got.numel():
         return 0
     return int((got.long() - want.long()).abs().max().item())
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least time in ms, "bytes" or "operations") on one H100."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
 
 
 def _sort_values(rng, B, C):
@@ -105,13 +152,24 @@ def check_sorts(dev, rng):
     key = torch.from_numpy(
         rng.integers(0, 512, size=(BATCH, 192), dtype=np.int32)).to(dev)
     val = torch.from_numpy(_sort_values(rng, BATCH, 192)).to(dev)
-    ms = {
-        "sort_rows": (_timed_ms(lambda: sort.sort_rows(x)),
-                      _timed_ms(lambda: sort.sort_rows_plain(x))),
-        "sort2_rows": (_timed_ms(lambda: sort.sort2_rows(key, val)),
-                       _timed_ms(lambda: sort.sort2_rows_plain(key, val))),
+    # the one torch call at the heart of the two-key sort: int64 keys
+    # packed beforehand as (key, val) in high and low words
+    packed = key.to(torch.int64) * 2**32 + (val.to(torch.int64) + 2**31)
+    timing = {
+        "sort_rows": dict(
+            ms=_timed_ms(lambda: sort.sort_rows(x)),
+            plain_ms=_timed_ms(lambda: sort.sort_rows_plain(x)),
+            library_ms=_timed_ms(lambda: torch.sort(x, dim=1)),
+            bound=_bound(2 * _nbytes(x),
+                         x.numel() * math.ceil(math.log2(x.shape[1])))),
+        "sort2_rows": dict(
+            ms=_timed_ms(lambda: sort.sort2_rows(key, val)),
+            plain_ms=_timed_ms(lambda: sort.sort2_rows_plain(key, val)),
+            library_ms=_timed_ms(lambda: torch.sort(packed, dim=1)),
+            bound=_bound(2 * _nbytes(key, val),
+                         key.numel() * math.ceil(math.log2(key.shape[1])))),
     }
-    return err, ms
+    return err, timing
 
 
 def _extend_args(dev, rng, pg, genome, starts, L, B, C):
@@ -170,9 +228,18 @@ def check_extend(dev, rng):
     starts = np.array([0, GENOME_BP // 2, GENOME_BP], np.int64)
     args = _extend_args(dev, rng, ep.pack_genome(genome, dev), genome,
                         starts, READ_LEN, BATCH, 96)
-    ms = (_timed_ms(lambda: ep.hamming_extend_packed(*args)),
-          _timed_ms(lambda: ep.hamming_extend_packed_plain(*args)))
-    return err, ms
+    pg, es, loci, valid, rc, rn, ln = args
+    out = ep.hamming_extend_packed(*args)
+    # per locus and word: xor, two ors, fold (shift, or, and), mask, popc,
+    # add; plus the entry containment
+    n_ops = loci.numel() * (rc.shape[1] * 9 + 8)
+    timing = dict(
+        ms=_timed_ms(lambda: ep.hamming_extend_packed(*args)),
+        plain_ms=_timed_ms(lambda: ep.hamming_extend_packed_plain(*args)),
+        library_ms=None,
+        bound=_bound(_nbytes(pg.rows, pg.n_rows, es, loci, valid, rc, rn, ln,
+                             out), n_ops))
+    return err, timing
 
 
 def _records(path: Path) -> list[str]:
@@ -182,7 +249,7 @@ def _records(path: Path) -> list[str]:
 
 def _true_unique_fraction(path: Path, n_reads: int) -> float:
     """Share of reads with a unique (MAPQ 60) record at their origin."""
-    from biokanga_tpu.sim.simreads import SimReadTruth
+    from biokanga_tpu_torch.sim.simreads import SimReadTruth
 
     ok = 0
     for rec in _records(path):
@@ -201,7 +268,7 @@ def _repeat_case(n_reads: int = 8_192, read_len: int = 150):
     copies and a 400 bp block in four, and reads drawn from it and from
     the repeats: they drive the classic rerun, both rescue-ladder steps,
     the genome N plane and multi-hit assignment."""
-    from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
 
     rng = np.random.default_rng(31)
     seqs = random_genome([("chrA", 200_000), ("chrB", 100_000)], seed=3)
@@ -226,6 +293,342 @@ def _repeat_case(n_reads: int = 8_192, read_len: int = 150):
     return seqs, names, reads
 
 
+# ---------------------------------------------------------------- EC ----
+
+def _clr_copy(rng, w, err):
+    """Vectorised CLR-like noisy copy: of the error events, 10% are
+    substitutions, 60% insertions (after the base), 30% deletions."""
+    x = rng.random(len(w))
+    sub = x < err * 0.1
+    ins = (x >= err * 0.1) & (x < err * 0.7)
+    dele = (x >= err * 0.7) & (x < err)
+    out = w.copy()
+    out[sub] = (out[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+    reps = np.where(dele, 0, np.where(ins, 2, 1))
+    r = np.repeat(out, reps)
+    r[np.cumsum(reps)[ins] - 1] = rng.integers(0, 4, int(ins.sum()))
+    return r.astype(np.int8)
+
+
+def _sw_pairs(rng, B, La, W):
+    """B overlap-like pairs of CLR reads of <= La bases: ragged lengths,
+    diagonals of both signs, Ns in queries and targets.  Returns
+    (a, b, alen, blen, diag) numpy arrays."""
+    genome = rng.integers(0, 4, 400_000, dtype=np.int8)
+    a = np.full((B, La), 4, np.int8)
+    b = np.full((B, La), 4, np.int8)
+    alen = np.zeros(B, np.int32)
+    blen = np.zeros(B, np.int32)
+    diag = np.zeros(B, np.int32)
+    for p in range(B):
+        d = int(rng.integers(-W, W + 1))          # target j ~ query i + d
+        st = int(rng.integers(W, len(genome) - La - 2 * W))
+        q = _clr_copy(rng, genome[st + max(d, 0): st + max(d, 0) + La],
+                      EC_ERR)[:La - int(rng.integers(0, 600))]
+        t = _clr_copy(rng, genome[st + max(-d, 0): st + max(-d, 0) + La],
+                      EC_ERR)[:La - int(rng.integers(0, 600))]
+        a[p, :len(q)], alen[p] = q, len(q)
+        b[p, :len(t)], blen[p] = t, len(t)
+        diag[p] = d + int(rng.integers(-8, 9))
+    for arr, lens in ((a, alen), (b, blen)):
+        rows = rng.integers(0, B, B // 4)
+        cols = (rng.random(B // 4) * lens[rows]).astype(np.int64)
+        arr[rows, cols] = 4
+        arr[rows[: B // 8], cols[: B // 8] // 2] = 4
+    return a, b, alen, blen, diag
+
+
+def _sw_inputs(dev, a, b, alen, blen, diag, La, W):
+    import torch
+
+    from biokanga_tpu_torch.ops.banded_sw import normalize_band
+
+    bwin, jlo, jhi = normalize_band(
+        torch.from_numpy(b).to(dev), torch.from_numpy(blen).to(dev),
+        torch.from_numpy(diag).to(dev), La, W)
+    return (torch.from_numpy(a).to(dev), bwin,
+            torch.from_numpy(alen).to(dev), jlo, jhi)
+
+
+def check_sw(dev, rng):
+    """banded_sw_moves / banded_sw_score / sw_trace against their plain
+    versions at EC shapes, exactly; then each timed at one SW chunk."""
+    import torch
+
+    from biokanga_tpu_torch.ops import banded_sw as bsw
+    from biokanga_tpu_torch.ops import sw_trace
+
+    La, W = SW_LA, SW_W
+    args = _sw_inputs(dev, *_sw_pairs(rng, SW_CHECK_PAIRS, La, W), La, W)
+    got = bsw.banded_sw_moves(*args, W)
+    want = bsw.banded_sw_moves_plain(*args, W)
+    err = {"banded_sw_moves": max(_max_abs_err(g, w)
+                                  for g, w in zip(got, want))}
+    err["banded_sw_score"] = max(
+        _max_abs_err(g, w) for g, w in zip(bsw.banded_sw_score(*args, W),
+                                           want[:3]))
+    best, bi, bk, mv = got
+    dec = sw_trace.traceback_cols_packed(mv, bi, bk, args[1], W, La)
+    dec_plain = sw_trace.traceback_cols_packed_plain(mv, bi, bk, args[1], W,
+                                                     La)
+    err["sw_trace"] = max(_max_abs_err(g, w) for g, w in zip(dec, dec_plain))
+    if any(err.values()):
+        raise AssertionError(f"SW kernels disagree with plain torch: {err}")
+    if int((best > 1000).sum()) < SW_CHECK_PAIRS // 2 or \
+            not bool((dec[0] == 5).any()) or not bool((dec[1] > 0).any()):
+        raise AssertionError("SW check pairs do not look like overlaps")
+    print(f"SW kernels exact against plain torch on {SW_CHECK_PAIRS} pairs "
+          f"of <= {La} bases, W {W}: best scores "
+          f"{int(best.min())}..{int(best.max())}")
+
+    # one SW chunk of the EC path
+    args = _sw_inputs(dev, *_sw_pairs(rng, SW_CHUNK_PAIRS, La, W), La, W)
+    a, bwin, alen, jlo, jhi = args
+    best, bi, bk, mv = bsw.banded_sw_moves(*args, W)
+    out = sw_trace.traceback_cols_packed(mv, bi, bk, bwin, W, La)
+    K = 2 * W + 1
+    cells = float(alen.clamp(max=La).sum()) * K
+    t0 = time.monotonic()
+    bsw.banded_sw_moves_plain(*args, W)
+    torch.cuda.synchronize()
+    moves_plain = (time.monotonic() - t0) * 1e3
+    t0 = time.monotonic()
+    bsw.banded_sw_score_plain(*args, W)
+    torch.cuda.synchronize()
+    score_plain = (time.monotonic() - t0) * 1e3
+    t0 = time.monotonic()
+    sw_trace.traceback_cols_packed_plain(mv, bi, bk, bwin, W, La)
+    torch.cuda.synchronize()
+    trace_plain = (time.monotonic() - t0) * 1e3
+    in_bytes = _nbytes(a, bwin, alen, jlo, jhi)
+    # the decode reads the codes and target bases along each path only
+    path_rows = int((out[0] != 6).sum()) + int(out[1].sum())
+    timing = {
+        "banded_sw_moves": dict(
+            ms=_timed_ms(lambda: bsw.banded_sw_moves(*args, W), 3),
+            plain_ms=moves_plain, library_ms=None,
+            bound=_bound(in_bytes + _nbytes(best, bi, bk, mv),
+                         cells * SW_MOVES_OPS_PER_CELL)),
+        "banded_sw_score": dict(
+            ms=_timed_ms(lambda: bsw.banded_sw_score(*args, W), 3),
+            plain_ms=score_plain, library_ms=None,
+            bound=_bound(in_bytes + _nbytes(best, bi, bk),
+                         cells * SW_OPS_PER_CELL)),
+        "sw_trace": dict(
+            ms=_timed_ms(lambda: sw_trace.traceback_cols_packed(
+                mv, bi, bk, bwin, W, La), 3),
+            plain_ms=trace_plain, library_ms=None,
+            bound=_bound(_nbytes(bi, bk, *out) + 5 * path_rows,
+                         12 * path_rows)),
+    }
+    for name in ("banded_sw_moves", "banded_sw_score"):
+        t = timing[name]
+        print(f"{name}: {SW_CHUNK_PAIRS} pairs x {La} x K {K}: "
+              f"{t['ms']:.4f} ms, {cells / t['ms'] / 1e6:.2f} GCUPS "
+              f"(plain torch {t['plain_ms']:.1f} ms, once)")
+    print(f"sw_trace: {SW_CHUNK_PAIRS} pairs: {timing['sw_trace']['ms']:.4f} "
+          f"ms (plain torch {trace_plain:.1f} ms, once)")
+    return err, timing
+
+
+def long_pair_score(dev, rng):
+    """#6's only consumer in the JAX package scores single long pairs
+    (scripts/bench_longread.py); here one 100 kb pair with 5% error, at
+    the kernel's widest band.  Returns the launches of that run."""
+    from biokanga_tpu_torch.ops import banded_sw as bsw
+
+    L, W = 100_000, bsw.MAX_SW_BAND
+    w = rng.integers(0, 4, L, dtype=np.int8)
+    x = rng.random(L)                            # bench_longread's noise mix
+    keep = ~((x >= 0.035) & (x < 0.05))
+    q = w.copy()
+    q[x < 0.02] = (q[x < 0.02] + rng.integers(1, 4, int((x < 0.02).sum()))
+                   ) % 4
+    reps = np.where(keep, np.where((x >= 0.02) & (x < 0.035), 2, 1), 0)
+    q = np.repeat(q, reps)[:L]
+    a = np.full((1, L), 4, np.int8)
+    a[0, :len(q)] = q
+    args = _sw_inputs(dev, a, w[None, :], np.array([len(q)], np.int32),
+                      np.array([L], np.int32), np.zeros(1, np.int32), L, W)
+    bsw.banded_sw_score.launches = 0
+    t0 = time.monotonic()
+    best, bi, _ = bsw.banded_sw_score(*args, W)
+    score = int(best[0])
+    dt = time.monotonic() - t0
+    launches = bsw.banded_sw_score.launches
+    if launches < 1 or score < 0.75 * len(q):
+        raise AssertionError(f"long pair: score {score}, launches {launches}")
+    print(f"long pair {len(q)} x {L}, W {W}: score {score} at row "
+          f"{int(bi[0])}, {dt * 1e3:.1f} ms wall (one pair, one warp)")
+    return launches
+
+
+def gen_reads(n_reads, L, genome_kb, err, seed=3):
+    """Copy of scripts/bench_ec_headtohead.py gen_reads (burst=False):
+    PacBio CLR-like errors, of all error events 10% substitutions, 60%
+    insertions, 30% deletions."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=genome_kb * 1000, dtype=np.int8)
+    reads, truths = [], []
+    for _ in range(n_reads):
+        st = int(rng.integers(0, len(genome) - L))
+        w = genome[st : st + L].copy()
+        truths.append(w.copy())
+        rate = np.full(L, err)
+        r = []
+        for bi, b in enumerate(w):
+            err_i = rate[bi]
+            x = rng.random()
+            if x < err_i * 0.1:
+                r.append((b + rng.integers(1, 4)) % 4)
+            elif x < err_i * 0.7:
+                r.append(b)
+                r.append(rng.integers(0, 4))
+            elif x < err_i:
+                continue
+            else:
+                r.append(b)
+        reads.append(np.array(r, np.int8))
+    return reads, truths
+
+
+def kmer_set(s: np.ndarray, k: int = 32):
+    """Copy of scripts/bench_ecreads.py kmer_set."""
+    packs = set()
+    v = 0
+    mask = (1 << (2 * k)) - 1
+    run = 0
+    for b in s:
+        if b >= 4:
+            run = 0
+            v = 0
+            continue
+        v = ((v << 2) | int(b)) & mask
+        run += 1
+        if run >= k:
+            packs.add(v)
+    return packs
+
+
+def kmer_recovery(read: np.ndarray, truth_kmers: set, k: int = 32) -> float:
+    """Copy of scripts/bench_ecreads.py kmer_recovery."""
+    n = tot = 0
+    v = 0
+    mask = (1 << (2 * k)) - 1
+    run = 0
+    for b in read:
+        if b >= 4:
+            run = 0
+            v = 0
+            continue
+        v = ((v << 2) | int(b)) & mask
+        run += 1
+        if run >= k:
+            tot += 1
+            n += v in truth_kmers
+    return n / max(tot, 1)
+
+
+def _ecreads(fasta: Path, out: Path, device: str) -> dict:
+    """`python -m biokanga_tpu_torch ecreads` in process; the numbers of
+    its log line."""
+    from biokanga_tpu_torch import cli
+
+    log = out.with_suffix(".log")
+    log.unlink(missing_ok=True)         # the log handler appends
+    rc = cli.main(["ecreads", "-i", str(fasta), "-o", str(out), "-F",
+                   str(log), "--device", device])
+    if rc != 0:
+        raise AssertionError(f"ecreads --device {device} rc={rc}")
+    m = re.search(r"ecreads: (\d+) reads, (\d+) pairs aligned, (\d+) "
+                  r"overlaps used, \S+s(?:; device time: SW (\S+) ms, "
+                  r"traceback (\S+) ms)?", log.read_text())
+    if m is None:
+        raise AssertionError("ecreads wrote no summary line")
+    return {"reads": int(m[1]), "pairs": int(m[2]), "overlaps": int(m[3]),
+            "sw_ms": m[4] and float(m[4]), "trace_ms": m[5] and float(m[5])}
+
+
+def ec_parity(rng):
+    """24 noisy 1.5 kb reads, --rounds 2: --device cpu == --device cuda."""
+    from biokanga_tpu_torch.ops import banded_sw, sw_trace
+    from biokanga_tpu_torch.seq.encode import revcomp
+    from biokanga_tpu_torch.seq.fasta import write_fasta
+
+    genome = rng.integers(0, 4, 3_000, dtype=np.int8)
+    reads = []
+    for i in range(24):
+        st = int(rng.integers(0, 1_500))
+        r = _clr_copy(rng, genome[st: st + 1_500], EC_ERR)
+        r[rng.random(len(r)) < 0.002] = 4
+        reads.append(revcomp(r) if i % 3 == 2 else r)
+    fasta = WORK / "ec_small.fa"
+    write_fasta(str(fasta), ((f"read{i}", r) for i, r in enumerate(reads)))
+    st = _ecreads(fasta, WORK / "ec_small_cpu.fa", "cpu")
+    banded_sw.banded_sw_moves.launches = 0
+    sw_trace.traceback_cols_packed.launches = 0
+    _ecreads(fasta, WORK / "ec_small_cuda.fa", "cuda")
+    launches = (banded_sw.banded_sw_moves.launches,
+                sw_trace.traceback_cols_packed.launches)
+    want = (WORK / "ec_small_cpu.fa").read_bytes()
+    if (WORK / "ec_small_cuda.fa").read_bytes() != want or \
+            min(launches) < 1 or st["overlaps"] < 24:
+        raise AssertionError(f"EC parity: FASTA differs or launches "
+                             f"{launches}, overlaps {st['overlaps']}")
+    print(f"ecreads --rounds 2 on 24 reads of ~1.5 kb: --device cpu == "
+          f"--device cuda byte for byte ({len(want)} bytes, "
+          f"{st['overlaps']} overlaps; SW/decode launches {launches})")
+
+
+def ec_full_width(smi):
+    """The head-to-head EC cell on the card through the CLI defaults."""
+    import torch
+
+    from biokanga_tpu_torch.ops import banded_sw, sw_trace
+    from biokanga_tpu_torch.seq.fasta import read_seqs, write_fasta
+
+    t0 = time.monotonic()
+    reads, truths = gen_reads(EC_READS, EC_READ_LEN, EC_GENOME_KB, EC_ERR,
+                              seed=EC_SEED)
+    fasta = WORK / "ec_h2h.fa"
+    write_fasta(str(fasta), ((f"read{i:06d}", r)
+                             for i, r in enumerate(reads)))
+    print(f"EC read set: {len(reads)} reads, mean "
+          f"{np.mean([len(r) for r in reads]):.1f} bases "
+          f"({time.monotonic() - t0:.1f} s to simulate)")
+    torch.cuda.reset_peak_memory_stats()
+    banded_sw.banded_sw_moves.launches = 0
+    sw_trace.traceback_cols_packed.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    st = _ecreads(fasta, WORK / "ec_h2h_out.fa", "cuda")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"banded_sw_moves": banded_sw.banded_sw_moves.launches,
+                "sw_trace": sw_trace.traceback_cols_packed.launches}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"EC ran no SW kernel: {launches}")
+    corrected = {int(r.name[4:]): r.codes
+                 for r in read_seqs(str(WORK / "ec_h2h_out.fa"))}
+    post = 0.0
+    for i, (r, t) in enumerate(zip(reads, truths)):
+        c = corrected.get(i)
+        post += kmer_recovery(c if c is not None and len(c) else r,
+                              kmer_set(t))
+    post /= len(reads)
+    print(f"ecreads (CLI defaults) on {len(reads)} x {EC_READ_LEN} CLR reads "
+          f"of a {EC_GENOME_KB} kb genome: wall {wall:.2f} s; SW kernel "
+          f"{st['sw_ms']:.1f} ms, traceback kernel {st['trace_ms']:.1f} ms; "
+          f"{st['pairs']} pairs aligned, {st['overlaps']} overlaps used; "
+          f"launches {launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; 32-mer "
+          f"recovery {post:.4f} ({smi})")
+    if post < MIN_KMER_RECOVERY:
+        raise AssertionError(f"32-mer recovery {post:.4f} < "
+                             f"{MIN_KMER_RECOVERY}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -233,16 +636,17 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    from biokanga_tpu.align.params import AlignParams
-    from biokanga_tpu.index.build import build_index, save_index
-    from biokanga_tpu.seq.fasta import write_fastq
-    from biokanga_tpu.sim.simreads import random_genome, simulate_reads
     from biokanga_tpu_torch import cli, kernels
+    from biokanga_tpu_torch.align.params import AlignParams
     from biokanga_tpu_torch.align.pipeline import AlignEngine
+    from biokanga_tpu_torch.index.build import build_index, save_index
     from biokanga_tpu_torch.index.device import to_device
     from biokanga_tpu_torch.ops import extend_packed, sort
+    from biokanga_tpu_torch.seq.fasta import write_fastq
+    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
 
     dev = torch.device("cuda", 0)
+    t_start = time.monotonic()
     # 1. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -259,13 +663,14 @@ def main() -> int:
     print(f"kernels built in {time.monotonic() - t0:.2f} s: "
           f"{lib.relative_to(ROOT)}")
 
-    # 3. kernels against their plain versions
+    # 3. align kernels against their plain versions
     rng = np.random.default_rng(2024)
-    sort_err, sort_ms = check_sorts(dev, rng)
-    ext_err, ext_ms = check_extend(dev, rng)
-    print("kernel checks passed: exact equality at every shape")
+    sort_err, timing = check_sorts(dev, rng)
+    ext_err, timing["hamming_extend_packed"] = check_extend(dev, rng)
+    errs = {**sort_err, "hamming_extend_packed": ext_err}
+    print("align kernel checks passed: exact equality at every shape")
 
-    # 4. end to end through the CLI
+    # 4. align end to end through the CLI
     WORK.mkdir(parents=True, exist_ok=True)
     seqs = random_genome([("chr", GENOME_BP)], seed=42)
     idx = build_index(seqs, lut_bases=10)
@@ -360,28 +765,59 @@ def main() -> int:
     print(f"engine: {max(rates):.1f} reads/s best of 5 epochs "
           f"({', '.join(f'{r:.1f}' for r in rates)}; {N_READS} x {READ_LEN} "
           f"bp, batch {BATCH}, unique {n_unique}) on {smi}")
+    del engine, idx, seqs, reads
+    torch.cuda.empty_cache()
+
+    # 7. SW kernels at EC shapes, and #6 on a long pair
+    sw_err, sw_timing = check_sw(dev, rng)
+    errs.update(sw_err)
+    timing.update(sw_timing)
+    launches["banded_sw_score"] = long_pair_score(dev, rng)
+
+    # 8. EC through the CLI: the plain path against the card
+    ec_parity(rng)
+
+    # 9. EC at full width
+    launches.update(ec_full_width(smi))
 
     src = "biokanga_tpu_torch/csrc/"
     rows = [
-        ("sort_rows", src + "sort_rows.cu", "biokanga_tpu/ops/pallas_sort.py:90",
-         sort_err["sort_rows"], sort_ms["sort_rows"], "(65536, 480) int32"),
-        ("sort2_rows", src + "sort_rows.cu",
-         "biokanga_tpu/ops/pallas_sort.py:98", sort_err["sort2_rows"],
-         sort_ms["sort2_rows"], "(65536, 192) int32 pairs"),
-        ("hamming_extend_packed", src + "hamming_extend.cu",
-         "biokanga_tpu/ops/stream_gather.py:179", ext_err, ext_ms,
+        ("sort_rows", "sort_rows.cu", "biokanga_tpu/ops/pallas_sort.py:90",
+         "(65536, 480) int32"),
+        ("sort2_rows", "sort_rows.cu", "biokanga_tpu/ops/pallas_sort.py:98",
+         "(65536, 192) int32 pairs"),
+        ("hamming_extend_packed", "hamming_extend.cu",
+         "biokanga_tpu/ops/stream_gather.py:179",
          "(65536, 96) loci, 100 bp reads"),
+        ("banded_sw_moves", "banded_sw.cu",
+         "biokanga_tpu/ops/pallas_sw.py:191",
+         f"{SW_CHUNK_PAIRS} pairs x {SW_LA}, W {SW_W}"),
+        ("banded_sw_score", "banded_sw.cu", "biokanga_tpu/ops/pallas_sw.py:53",
+         f"{SW_CHUNK_PAIRS} pairs x {SW_LA}, W {SW_W}"),
+        ("sw_trace", "sw_trace.cu", "biokanga_tpu/ops/sw_trace.py:33",
+         f"{SW_CHUNK_PAIRS} pairs x {SW_LA}, W {SW_W}"),
     ]
-    for name, _, _, _, (ms, plain_ms), shape in rows:
-        print(f"{name} at {shape}: kernel {ms:.4f} ms, plain torch "
-              f"{plain_ms:.4f} ms ({smi})")
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": path, "replaces": rep,
-         "launches": launches[name], "max_abs_err": err, "ms": ms,
-         "plain_ms": plain_ms}
-        for name, path, rep, err, (ms, plain_ms), _ in rows]}))
+    kernels_line = []
+    for name, path, rep, shape in rows:
+        t = timing[name]
+        bound_ms, bound_by = t["bound"]
+        lib_ms = t["library_ms"]
+        print(f"{name} at {shape}: kernel {t['ms']:.4f} ms, plain torch "
+              f"{t['plain_ms']:.4f} ms, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}) ({smi})")
+        kernels_line.append({
+            "name": name, "route": "cuda", "source": src + path,
+            "replaces": rep, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms})
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "biokanga_tpu"))
+    if leaked:
+        raise AssertionError(f"the JAX side was imported: {leaked[:5]}")
+    print(f"chip_smoke: {time.monotonic() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

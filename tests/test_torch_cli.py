@@ -1,12 +1,19 @@
-"""`python -m biokanga_tpu_torch align` against `python -m biokanga_tpu align`.
+"""`python -m biokanga_tpu_torch` against `python -m biokanga_tpu`.
 
-About 1,000 simulated reads (substitutions, Ns, a planted five-copy
-repeat so that multi-hit assignment runs) are aligned by both CLIs
-against the index `biokanga_tpu index` writes; the SAM files must be
-byte-identical.  The port runs with `--device cpu`, its kernels' plain
-versions.  A subprocess run shows the port's CLI never imports jax.
+align: about 1,000 simulated reads (substitutions, Ns, a planted
+five-copy repeat so that multi-hit assignment runs) are aligned by both
+CLIs against the index `biokanga_tpu index` writes; the SAM files must be
+byte-identical.  ecreads: noisy long reads, some reverse-complemented,
+are corrected by both CLIs at one and two rounds and target-chunked; the
+FASTA files must be byte-identical.  The port runs with `--device cpu`,
+its kernels' plain versions.  A subprocess run shows the port's CLI never
+imports jax, and a scan of the sources that no module of the port, and
+not chip_smoke.py, imports jax or the JAX package.
 """
+import ast
+import functools
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -15,6 +22,7 @@ import pytest
 import torch
 
 from biokanga_tpu.cli import main as jax_main
+from biokanga_tpu.pacbio import ecreads as jax_ec
 from biokanga_tpu.seq.fasta import write_fasta, write_fastq
 from biokanga_tpu.sim.simreads import random_genome, simulate_reads
 from biokanga_tpu_torch.cli import main as torch_main
@@ -103,3 +111,72 @@ def test_flags_outside_the_slice_are_rejected(inputs, flag):
                     str(d / "ref.npz"), "-o", str(d / "x.sam"),
                     "--device", "cpu"] + flag)
     assert e.value.code == 2
+
+
+@pytest.fixture(scope="module")
+def long_reads(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_ec_cli")
+    rng = np.random.default_rng(13)
+    true = random_genome([("t", 700)], seed=61)[0][1]
+    reads = []
+    for i in range(10):
+        keep = rng.random(len(true)) > 0.02               # deletions
+        r = true[keep].copy()
+        sub = rng.random(len(r)) < 0.03
+        r[sub] = (r[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        ins = rng.integers(0, len(r), 8)                  # insertions
+        r = np.insert(r, ins, rng.integers(0, 4, 8)).astype(np.int8)
+        reads.append(r[::-1].copy() if i % 4 == 3 else r)
+    reads[5][100:103] = 4
+    write_fasta(str(d / "pb.fa"), ((f"read{i}", r)
+                                   for i, r in enumerate(reads)))
+    return d
+
+
+@pytest.mark.parametrize("opts", [
+    ["--rounds", "1"],
+    ["--rounds", "2", "--min-score", "80"],
+    ["--rounds", "1", "--target-chunk", "4", "--max-targets", "6"],
+])
+def test_ecreads_fasta_is_byte_identical_to_jax_cli(long_reads, opts,
+                                                    monkeypatch):
+    # the JAX package pads each SW chunk to sw_chunk_bytes of pairs (tens
+    # of thousands of pairs here), minutes in interpret mode; votes are
+    # integer sums, so a smaller chunk gives the same FASTA in seconds
+    monkeypatch.setattr(jax_ec, "ECParams", functools.partial(
+        jax_ec.ECParams, sw_chunk_bytes=1 << 23))
+    d = long_reads
+    common = ["-i", str(d / "pb.fa")] + opts
+    assert jax_main(["ecreads", "-o", str(d / "jax.fa")] + common) == 0
+    assert torch_main(["ecreads", "-o", str(d / "torch.fa"), "--device",
+                       "cpu"] + common) == 0
+    want = (d / "jax.fa").read_bytes()
+    assert (d / "torch.fa").read_bytes() == want
+    assert want.count(b">") == 10 and want != (d / "pb.fa").read_bytes()
+
+
+def test_ecreads_refuses_checkpoints(long_reads):
+    with pytest.raises(SystemExit) as e:
+        torch_main(["ecreads", "-i", str(long_reads / "pb.fa"), "-o",
+                    str(long_reads / "x.fa"), "--checkpoint-dir",
+                    str(long_reads / "ck"), "--device", "cpu"])
+    assert e.value.code == 2
+
+
+def _imported_modules(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    root = pathlib.Path(ROOT)
+    files = sorted((root / "biokanga_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [(str(f.relative_to(root)), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "biokanga_tpu")]
+    assert not bad, bad

@@ -8,14 +8,17 @@ imports no jax, so it also runs where jax is not installed:
 Each kernel wrapper must launch its kernel (its launch count rises by
 one) and agree exactly with its plain torch version on the same card
 tensors; the CLI's SAM with `--device cuda` must equal the SAM with
-`--device cpu` byte for byte on a repeat-rich genome.
+`--device cpu` byte for byte on a repeat-rich genome, and so must the
+error-corrected FASTA; the consensus call breaks ties towards the first
+maximum on the card as on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
+from biokanga_tpu_torch.ops import banded_sw as bsw
 from biokanga_tpu_torch.ops import extend_packed as ep
-from biokanga_tpu_torch.ops import sort
+from biokanga_tpu_torch.ops import sort, sw_trace
 
 I32_MAX = 2**31 - 1
 
@@ -112,10 +115,10 @@ def test_hamming_extend_kernel_matches_plain(cuda_device, L):
 
 @pytest.mark.cuda
 def test_cli_sam_on_the_card_equals_cpu(cuda_device, tmp_path):
-    from biokanga_tpu.index.build import build_index, save_index
-    from biokanga_tpu.seq.fasta import write_fastq
-    from biokanga_tpu.sim.simreads import random_genome, simulate_reads
     from biokanga_tpu_torch.cli import main
+    from biokanga_tpu_torch.index.build import build_index, save_index
+    from biokanga_tpu_torch.seq.fasta import write_fastq
+    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
 
     seqs = random_genome([("chrA", 80_000), ("chrB", 40_000)], seed=3)
     g = seqs[0][1]
@@ -142,3 +145,129 @@ def test_cli_sam_on_the_card_equals_cpu(cuda_device, tmp_path):
     cpu_sam = (tmp_path / "cpu.sam").read_bytes()
     assert (tmp_path / "cuda.sam").read_bytes() == cpu_sam
     assert b"\t3\t150M\t" in cpu_sam            # multi-hit assignment ran
+
+
+def _sw_pairs(rng, B, La, W):
+    """Overlap-like pairs: noisy copies, ragged lengths, both diagonal
+    signs, Ns on both sides, one pair with no positive cell."""
+    a = np.full((B, La), 4, np.int8)
+    b = np.full((B, La), 4, np.int8)
+    alen = np.zeros(B, np.int32)
+    blen = np.zeros(B, np.int32)
+    diag = np.zeros(B, np.int32)
+    for p in range(B):
+        src = rng.integers(0, 4, 2 * La + 2 * W).astype(np.int8)
+        d = int(rng.integers(-W, W + 1))
+        q, t = src[max(d, 0):][:La].copy(), src[max(-d, 0):][:La].copy()
+        for x in (q, t):
+            err = rng.random(La) < 0.05
+            x[err] = rng.integers(0, 4, int(err.sum()))
+        keep = rng.random(La) > 0.03
+        t = np.insert(t[keep], rng.integers(0, int(keep.sum()), La // 40),
+                      rng.integers(0, 4, La // 40))[:La]
+        n = La - int(rng.integers(0, La // 8))
+        a[p, :n], alen[p] = q[:n], n
+        m = len(t) - int(rng.integers(0, La // 8))
+        b[p, :m], blen[p] = t[:m], m
+        diag[p] = d + int(rng.integers(-4, 5))
+    a[rng.integers(0, B, B), rng.integers(0, La // 2, B)] = 4
+    b[rng.integers(0, B, B), rng.integers(0, La // 2, B)] = 4
+    a[0] = 4
+    return a, b, alen, blen, diag
+
+
+def _sw_args(dev, a, b, alen, blen, diag, La, W):
+    bwin, jlo, jhi = bsw.normalize_band(
+        torch.from_numpy(b).to(dev), torch.from_numpy(blen).to(dev),
+        torch.from_numpy(diag).to(dev), La, W)
+    return (torch.from_numpy(a).to(dev), bwin,
+            torch.from_numpy(alen).to(dev), jlo, jhi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,La,W", [(96, 2048, 96), (40, 1000, 24),
+                                    (7, 600, 255), (33, 512, 5)])
+def test_banded_sw_kernels_match_plain(cuda_device, B, La, W):
+    rng = np.random.default_rng(La + W)
+    args = _sw_args(cuda_device, *_sw_pairs(rng, B, La, W), La, W)
+    before = (bsw.banded_sw_moves.launches, bsw.banded_sw_score.launches)
+    got = bsw.banded_sw_moves(*args, W)
+    score = bsw.banded_sw_score(*args, W)
+    assert (bsw.banded_sw_moves.launches,
+            bsw.banded_sw_score.launches) == (before[0] + 1, before[1] + 1)
+    want = bsw.banded_sw_moves_plain(*args, W)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(score, want[:3]):
+        assert torch.equal(g, w)
+    assert int(want[0][0]) == 0 and int(want[0].max()) > La // 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,La,W", [(96, 2048, 96), (40, 1000, 24)])
+def test_sw_trace_kernel_matches_plain(cuda_device, B, La, W):
+    rng = np.random.default_rng(B)
+    args = _sw_args(cuda_device, *_sw_pairs(rng, B, La, W), La, W)
+    _, bi, bk, mv = bsw.banded_sw_moves(*args, W)
+    before = sw_trace.traceback_cols_packed.launches
+    got = sw_trace.traceback_cols_packed(mv, bi, bk, args[1], W, La)
+    assert sw_trace.traceback_cols_packed.launches == before + 1
+    want = sw_trace.traceback_cols_packed_plain(mv, bi, bk, args[1], W, La)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    out, ins_cnt, _ = want
+    assert (out == 5).any() and (ins_cnt > 0).any() and (out < 4).any()
+
+
+@pytest.mark.cuda
+def test_consensus_ties_on_the_card_equal_the_cpu(cuda_device):
+    from biokanga_tpu_torch.pacbio import ecreads as ec
+
+    rng = np.random.default_rng(5)
+    N, La = 8, 256
+    got = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        v = ec._Votes(N, La, dev)
+        v.votes[:] = torch.from_numpy(
+            rng.integers(0, 3, (N, La, 7)).astype(np.int32)).to(dev)
+        v.votes[0] = 2                           # five-way ties
+        v.ins_cnt[:] = 3
+        v.ins_base[:] = 1                        # four-way ties
+        probes = torch.full((N, La), 2, dtype=torch.int8, device=dev)
+        plens = torch.full((N,), La, dtype=torch.int32, device=dev)
+        got[dev.type] = [t.cpu() for t in ec._consensus(v, probes, plens, 2)]
+        rng = np.random.default_rng(5)
+    for c, g in zip(got["cpu"], got["cuda"]):
+        assert torch.equal(c, g)
+    call, _, ins_b = got["cuda"]
+    assert (call[0] == 0).all() and (ins_b == 0).all()
+
+
+@pytest.mark.cuda
+def test_ecreads_on_the_card_equals_cpu(cuda_device, tmp_path):
+    from biokanga_tpu_torch.cli import main
+    from biokanga_tpu_torch.seq.encode import revcomp
+    from biokanga_tpu_torch.seq.fasta import write_fasta
+
+    rng = np.random.default_rng(9)
+    true = rng.integers(0, 4, 1_200).astype(np.int8)
+    reads = []
+    for i in range(12):
+        r = true[rng.random(len(true)) > 0.03].copy()
+        sub = rng.random(len(r)) < 0.03
+        r[sub] = (r[sub] + 1) % 4
+        r = np.insert(r, rng.integers(0, len(r), 20), rng.integers(0, 4, 20))
+        reads.append(revcomp(r.astype(np.int8)) if i % 3 == 0
+                     else r.astype(np.int8))
+    write_fasta(str(tmp_path / "pb.fa"),
+                ((f"read{i}", r) for i, r in enumerate(reads)))
+    common = ["-i", str(tmp_path / "pb.fa"), "--target-chunk", "5"]
+    assert main(["ecreads", "-o", str(tmp_path / "cpu.fa"), "--device",
+                 "cpu"] + common) == 0
+    before = bsw.banded_sw_moves.launches
+    assert main(["ecreads", "-o", str(tmp_path / "cuda.fa"), "--device",
+                 "cuda"] + common) == 0
+    assert bsw.banded_sw_moves.launches > before
+    want = (tmp_path / "cpu.fa").read_bytes()
+    assert (tmp_path / "cuda.fa").read_bytes() == want
+    assert want != (tmp_path / "pb.fa").read_bytes()
