@@ -1,4 +1,5 @@
-"""Copy of biokanga_tpu/align/sam.py: the single-end SAM writer.
+"""Copy of biokanga_tpu/align/sam.py: the single-end and paired-end SAM
+writers.
 
 Role of the reference's CSAMfile SAM path (libbiokanga/SAMfile.cpp;
 writer invoked from CAligner::WriteBAMReadHits, biokanga/Aligner.cpp:5543).
@@ -52,6 +53,97 @@ class SamRecord:
         ]
         fields.extend(self.tags)
         return "\t".join(fields)
+
+
+def write_pe_sam(
+    out,
+    entry_names,
+    entry_starts,
+    names1, reads1, len1,
+    names2, reads2, len2,
+    pe_result,           # dict from PEAligner.align_pairs
+    write_header=True,
+    report_unmapped=True,
+):
+    """Write paired-end alignments with proper SAM flag/RNEXT/PNEXT/TLEN
+    semantics (role of WriteBAMReadHits' PE path, Aligner.cpp:5543).  Of
+    a mate's result only unique, locus, is_rc and best_mm are read.  The
+    entry of every locus is looked up once per block, not once per
+    record as in the JAX writer; the records are the same."""
+    close = False
+    if isinstance(out, str):
+        out = open(out, "w")
+        close = True
+    try:
+        starts = np.asarray(entry_starts)
+        if write_header:
+            out.write(sam_header(entry_names, np.diff(starts)))
+        res1, res2 = pe_result["res1"], pe_result["res2"]
+        proper = pe_result["proper"]
+        lines = []
+        N = len(names1)
+        ents, poss = [], []
+        for res in (res1, res2):
+            ent = np.searchsorted(starts, res["locus"][:N], "right") - 1
+            ents.append(ent)
+            poss.append(res["locus"][:N] - starts[ent] + 1)
+        for i in range(N):
+            for mate, (names, reads, lens, res, ores) in enumerate(
+                (
+                    (names1, reads1, len1, res1, res2),
+                    (names2, reads2, len2, res2, res1),
+                )
+            ):
+                L = int(lens[i])
+                codes = reads[i, :L]
+                mapped = bool(res["unique"][i])
+                omapped = bool(ores["unique"][i])
+                flag = 0x1 | (0x40 if mate == 0 else 0x80)
+                if proper[i]:
+                    flag |= 0x2
+                if not mapped:
+                    flag |= 0x4
+                if not omapped:
+                    flag |= 0x8
+                if mapped and res["is_rc"][i]:
+                    flag |= 0x10
+                if omapped and ores["is_rc"][i]:
+                    flag |= 0x20
+                if mapped:
+                    ent = int(ents[mate][i])
+                    pos = int(poss[mate][i])
+                    rname = entry_names[ent]
+                    rc = bool(res["is_rc"][i])
+                    seq = codes_to_ascii(revcomp(codes) if rc else codes).decode()
+                    if omapped:
+                        oent = int(ents[1 - mate][i])
+                        rnext = "=" if oent == ent else entry_names[oent]
+                        pnext = int(poss[1 - mate][i])
+                        if proper[i]:
+                            tl = int(pe_result["insert"][i])
+                            tlen = tl if res["locus"][i] <= ores["locus"][i] else -tl
+                        else:
+                            tlen = 0
+                    else:
+                        rnext, pnext, tlen = "=", pos, 0
+                    rec = SamRecord(
+                        qname=names[i], flag=flag, rname=rname, pos=pos,
+                        mapq=60, cigar=f"{L}M", rnext=rnext, pnext=pnext,
+                        tlen=tlen, seq=seq, qual="*",
+                        tags=(f"NM:i:{int(res['best_mm'][i])}",),
+                    )
+                elif report_unmapped:
+                    rec = SamRecord(
+                        qname=names[i], flag=flag, rname="*", pos=0, mapq=0,
+                        cigar="*", seq=codes_to_ascii(codes).decode(), qual="*",
+                    )
+                else:
+                    continue
+                lines.append(rec.line())
+        out.write("\n".join(lines) + ("\n" if lines else ""))
+    finally:
+        if close:
+            out.close()
 
 
 def write_alignments_sam(

@@ -1,7 +1,10 @@
-"""CLI of the PyTorch port: single-end `align` and PacBio `ecreads`.
+"""CLI of the PyTorch port: `align` (single and paired ends) and PacBio
+`ecreads`.
 
 Usage:  python -m biokanga_tpu_torch align -i reads.fq -I ref.npz \
             -o out.sam [--device cuda]
+        python -m biokanga_tpu_torch align -i r1.fq -u r2.fq -I ref.npz \
+            -o out.sam [-d 100 -D 1000 -E --peinsertdist ins.csv]
         python -m biokanga_tpu_torch ecreads -i reads.fa -o out.fa \
             [--device cuda]
 
@@ -10,9 +13,10 @@ gives the SAM that `python -m biokanga_tpu align` gives on the same
 inputs; `ecreads` gives the FASTA of `python -m biokanga_tpu ecreads`.
 The device is explicit: `--device cuda` (the default) raises when CUDA is
 absent, and `--device cpu` runs the kernels' plain versions.  Paired
-ends, SNP calling, indel/splice/chimeric modes, bisulfite, colorspace and
-chunked indexes are not in this package yet; argparse rejects their
-flags and the index checks below reject their index files.
+ends come as `-u` mate files beside `-i`, or as one PE-interleaved `.rds`
+container.  SNP calling, indel/splice/chimeric modes, bisulfite,
+colorspace and chunked indexes are not in this package yet; argparse
+rejects their flags and the index checks below reject their index files.
 """
 from __future__ import annotations
 
@@ -39,7 +43,8 @@ def _expand_response_files(argv: list[str]) -> list[str]:
 
 
 def cmd_align(argv: list[str]) -> int:
-    """Single-end `align`, following biokanga_tpu/cli.py:510-857."""
+    """`align`, single and paired ends, following
+    biokanga_tpu/cli.py:510-857."""
     p = argparse.ArgumentParser(prog="biokanga-tpu-torch align")
     p.add_argument("-i", "--inreads", action="append", required=True)
     p.add_argument("-I", "--sfx", required=True,
@@ -53,15 +58,24 @@ def cmd_align(argv: list[str]) -> int:
     p.add_argument("-Q", "--strand", default="both",
                    choices=("both", "sense", "antisense"))
     p.add_argument("-R", "--maxmulti", type=int, default=5)
+    p.add_argument("-u", "--pair", action="append", default=None,
+                   help="PE 3' mate file(s); enables paired-end processing")
+    p.add_argument("-d", "--pairminlen", type=int, default=100)
+    p.add_argument("-D", "--pairmaxlen", type=int, default=1000)
+    p.add_argument("-E", "--pairstrand", action="store_true",
+                   help="accept PE mates on the same strand")
+    p.add_argument("--peinsertdist", default=None,
+                   help="PE insert-size distribution CSV")
     p.add_argument("--batch-size", type=int, default=4096)
     p.add_argument("--no-mlassign", action="store_true",
                    help="disable multi-hit assignment clustering")
+    p.add_argument("-F", "--log", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; raises without CUDA) "
                         "or cpu (the kernels' plain versions)")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
-    log = open_diagnostics(None, name="biokanga-tpu-torch")
+    log = open_diagnostics(args.log, name="biokanga-tpu-torch")
     sw = StopWatch()
 
     from .align.multihit import assign_multihits
@@ -80,14 +94,12 @@ def cmd_align(argv: list[str]) -> int:
     if is_bisulfite_index(args.sfx) or is_chunked_index(args.sfx):
         p.error(f"{args.sfx}: bisulfite and chunked indexes are not "
                 f"ported yet")
-    for path in args.inreads:
-        if is_rds(path) and rds_info(path).is_pe:
-            p.error(f"{path}: paired-end input is not ported yet")
 
-    def _input_blocks(path):
+    def _input_blocks(path, mate=None):
         """FASTA/FASTQ or packed .rds container."""
         if is_rds(path):
-            return read_rds_blocks(path, block_size=args.batch_size)
+            return read_rds_blocks(path, block_size=args.batch_size,
+                                   mate=mate)
         return read_blocks(path, block_size=args.batch_size)
 
     idx = load_index(args.sfx)
@@ -106,6 +118,17 @@ def cmd_align(argv: list[str]) -> int:
         batch_size=args.batch_size,
     )
     engine = AlignEngine(didx, params)
+
+    # PE-interleaved rds container with no -u: split mates internally
+    pe_mates = None
+    if (not args.pair and len(args.inreads) == 1
+            and is_rds(args.inreads[0]) and rds_info(args.inreads[0]).is_pe):
+        args.pair = list(args.inreads)
+        pe_mates = (0, 1)
+
+    if args.pair:
+        return _align_pairs(args, engine, idx, _input_blocks, pe_mates, log,
+                            sw)
 
     mh_loci, mh_rows = [], []   # pending multi-hit reads for assignment
     uq_loci, uq_lens = [], []
@@ -182,6 +205,83 @@ def cmd_align(argv: list[str]) -> int:
         " (%.0f reads/s)",
         n_total, n_unique, 100.0 * n_unique / max(n_total, 1), n_multi, n_none,
         sw.elapsed(), n_total / max(sw.elapsed(), 1e-9),
+    )
+    return 0
+
+
+def _align_pairs(args, engine, idx, input_blocks, pe_mates, log, sw) -> int:
+    """The paired-end loop of `align` (biokanga_tpu/cli.py:534-603): one
+    batch in flight on the device while the previous one is paired,
+    rescued and written on the host.  PE mode skips multi-hit assignment,
+    as in the JAX CLI."""
+    from .align.pe import PEAligner, PEParams
+    from .align.pipeline import pad_rows
+    from .align.reports import AlignStats
+    from .align.sam import write_pe_sam
+
+    pe = PEAligner(
+        engine,
+        PEParams(
+            pair_min_len=args.pairminlen,
+            pair_max_len=args.pairmaxlen,
+            pair_same_strand=args.pairstrand,
+        ),
+    )
+    pe_stats = AlignStats()
+    n_pairs = n_proper = 0
+    with open(args.out, "w") as out:
+        first = True
+
+        def emit(pending, blk1, blk2):
+            nonlocal first, n_pairs, n_proper
+            res = pe.finish_pairs(pending)
+            nb = len(blk1.names)
+            sub = lambda d: {
+                k: (v[:nb] if hasattr(v, "__len__") else v)
+                for k, v in d.items()
+            }
+            res_v = {
+                "res1": sub(res["res1"]), "res2": sub(res["res2"]),
+                "proper": res["proper"][:nb],
+                "insert": res["insert"][:nb],
+            }
+            write_pe_sam(
+                out, idx.entry_names, idx.entry_starts,
+                blk1.names, blk1.codes, blk1.lengths,
+                blk2.names, blk2.codes, blk2.lengths,
+                res_v, write_header=first,
+            )
+            first = False
+            n_pairs += nb
+            n_proper += int(res["proper"][:nb].sum())
+            if args.peinsertdist:
+                pe_stats.add_inserts(res["insert"][:nb],
+                                     res["proper"][:nb])
+
+        # the next block's fused align is enqueued before this block's
+        # results are fetched, paired, rescued and written on the host
+        inflight = None
+        for p1, p2 in zip(args.inreads, args.pair):
+            m1, m2 = pe_mates if pe_mates else (None, None)
+            for blk1, blk2 in zip(
+                input_blocks(p1, mate=m1),
+                input_blocks(p2, mate=m2),
+            ):
+                r1, l1 = pad_rows(blk1.codes, blk1.lengths)
+                r2, l2 = pad_rows(blk2.codes, blk2.lengths)
+                nxt = (pe.launch_pairs(r1, l1, r2, l2), blk1, blk2)
+                if inflight is not None:
+                    emit(*inflight)
+                inflight = nxt
+        if inflight is not None:
+            emit(*inflight)
+    if args.peinsertdist:
+        pe_stats.write_csv(args.peinsertdist)
+    log.info(
+        "paired %d pairs: %d proper (%.2f%%), %d mates rescued in %d window "
+        "scans, in %.1fs",
+        n_pairs, n_proper, 100.0 * n_proper / max(n_pairs, 1), pe.rescued,
+        pe.rescue_calls, sw.elapsed(),
     )
     return 0
 

@@ -36,6 +36,9 @@ __host__ __device__ inline int next_pow2(int c) {
 __global__ void sort_rows_kernel(const int32_t* __restrict__ x,
                                  int32_t* __restrict__ out, int C, int P) {
     extern __shared__ int32_t s[];
+    // 64-bit: a fused paired-end batch has 131,072 rows, and B x C would
+    // pass 2^31 at 16,384 values a row (the rescue ladder's wide rows come
+    // in dispatches of 512 and 2,048 rows, far below that)
     const int64_t base = (int64_t)blockIdx.x * C;
     for (int i = threadIdx.x; i < P; i += blockDim.x)
         s[i] = i < C ? x[base + i] : kI32Max;

@@ -49,6 +49,8 @@ _SIGNATURES = {
     # (mv, best_i, best_k, bwin, out, ins_cnt, ins_base, B, La, Wd, K, T,
     #  stream)
     "sw_trace_packed": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (table, idx, n, out, stream)
+    "stream_gather_consume": (_P, _P, _I, _P, _P),
 }
 
 _lock = threading.Lock()

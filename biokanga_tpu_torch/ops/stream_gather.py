@@ -1,0 +1,91 @@
+"""Checksum of gathered 64-byte rows: the kernel of the gather probe.
+
+Counterpart of biokanga_tpu/ops/stream_gather.py `stream_gather_consume`,
+same contract: for a table of R rows of 16 uint32 words and n row indices,
+
+    sum over i, k, w of ((table[idx[i], w] >> 8k) & 0xFF)
+                        ^ ((idx[i] >> 8k) & 0xFF)          mod 2^32.
+
+Every byte of every gathered row enters the sum, so the function's time
+is the time of the gather; scripts/probe_stream_gather_torch.py times it
+against the table's size.  The table holds its uint32 words in int32
+storage (same bits), `idx` is int32 in [0, R); the result is a 0-d int64
+tensor in [0, 2^32) on the inputs' device.
+
+On a CUDA tensor `stream_gather_consume` launches csrc/stream_gather.cu
+or raises; on a CPU tensor it runs `stream_gather_consume_plain`, the
+probe's own reference (scripts/probe_stream_gather.py:54-63) in torch.
+The TPU version's tile sizes are not arguments here: the CUDA kernel
+streams nothing.  `sort_rows=True` sorts the indices first (`torch.sort`,
+outside the kernel): the same sum, with neighbouring rows in neighbouring
+lanes.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from ..device import U32_MASK, u32
+
+ROW_WORDS = 16          # 64 B rows
+
+
+def _check_args(table: torch.Tensor, idx: torch.Tensor) -> None:
+    if (table.dtype != torch.int32 or table.dim() != 2
+            or table.shape[1] != ROW_WORDS):
+        raise ValueError(f"stream_gather_consume: table is "
+                         f"{tuple(table.shape)} {table.dtype}, want "
+                         f"(R, {ROW_WORDS}) int32")
+    if idx.dtype != torch.int32 or idx.dim() != 1:
+        raise ValueError(f"stream_gather_consume: idx is {tuple(idx.shape)} "
+                         f"{idx.dtype}, want (n,) int32")
+    if idx.device != table.device:
+        raise ValueError(f"stream_gather_consume: idx on {idx.device}, "
+                         f"table on {table.device}")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"stream_gather_consume: unsupported device "
+                         f"{table.device}")
+    if idx.numel() and table.shape[0] == 0:
+        raise ValueError("stream_gather_consume: indices into an empty table")
+
+
+def stream_gather_consume_plain(table: torch.Tensor,
+                                idx: torch.Tensor) -> torch.Tensor:
+    rows = u32(table[idx.to(torch.int64)])                 # (n, 16)
+    i64 = idx.to(torch.int64)[:, None]
+    acc = torch.zeros((), dtype=torch.int64, device=table.device)
+    for k in range(4):
+        bk = (rows >> (8 * k)) & 0xFF
+        gk = (i64 >> (8 * k)) & 0xFF
+        acc = acc + (bk ^ gk).sum()
+    return acc & U32_MASK
+
+
+def stream_gather_consume(table: torch.Tensor, idx: torch.Tensor,
+                          sort_rows: bool = False) -> torch.Tensor:
+    """0-d int64 checksum in [0, 2^32) of the rows `idx` of `table`.
+
+    table: (R, 16) int32 bits of uint32 words; idx: (n,) int32 in [0, R)
+    (not checked: an index outside the table reads outside it)."""
+    _check_args(table, idx)
+    if sort_rows:
+        idx = torch.sort(idx).values
+    if table.device.type == "cpu":
+        return stream_gather_consume_plain(table, idx)
+    if idx.shape[0] == 0:
+        return torch.zeros((), dtype=torch.int64, device=table.device)
+    table, idx = table.contiguous(), idx.contiguous()
+    if table.data_ptr() % 16:                  # the kernel loads 16 B words
+        table = table.clone()
+    out = torch.empty(1, dtype=torch.int32, device=table.device)
+    lib = kernels.library()
+    with torch.cuda.device(table.device):
+        err = lib.stream_gather_consume(table.data_ptr(), idx.data_ptr(),
+                                        idx.shape[0], out.data_ptr(),
+                                        kernels.stream_ptr(table.device))
+    kernels.check(err, "stream_gather_consume")
+    stream_gather_consume.launches += 1
+    return u32(out[0])
+
+
+stream_gather_consume.launches = 0

@@ -85,13 +85,21 @@ class RDSFile:
 
 
 def read_rds_blocks(path: str, block_size: int = 4096,
-                    max_len: int | None = None):
-    """Yield aligner ReadBlocks from an rds container (every read)."""
+                    max_len: int | None = None,
+                    mate: int | None = None):
+    """Yield aligner ReadBlocks from an rds container.
+
+    mate: None = all reads; 0 = only first mates; 1 = only second mates
+    (PE-interleaved containers).
+    """
     from .fasta import ReadBlock
 
     f = RDSFile(path)
     lens = f.lengths()
     sel = np.arange(f.n_reads)
+    if mate is not None:
+        want = FLAG_PE2 if mate == 1 else 0
+        sel = sel[(f.flags & FLAG_PE2) == want]
     for s in range(0, len(sel), block_size):
         ids = sel[s: s + block_size]
         blens = lens[ids]

@@ -26,7 +26,24 @@ Phases, each of which raises on failure:
      byte-identical FASTA;
   9. correct the error-correction head-to-head read set (500 x 10 kb CLR
      reads of a 200 kb genome, scripts/bench_ec_headtohead.py) with the
-     CLI defaults on the card and require 32-mer recovery >= 0.99.
+     CLI defaults on the card and require 32-mer recovery >= 0.99;
+ 10. hold the gather checksum kernel (stream_gather_consume) against its
+     plain version at three table sizes (2.3 MB, 128 MB, 2,048 MB; random
+     and sorted indices), time it, then run the gather probe
+     (scripts/probe_stream_gather_torch.py) over its seven table sizes;
+ 11. align 262,144 simulated pairs of 2 x 100 bp (inserts 200-500) against
+     the same genome with `align -i r1.fq -u r2.fq -d 100 -D 600 --device
+     cuda`, check that every align kernel was launched and that >= 99% of
+     the proper pairs have both mates at their simulated origin;
+ 12. align the first 4,096 pairs, and 2,048 pairs of 2 x 150 bp from the
+     repeat genome (with --peinsertdist), with --device cpu and --device
+     cuda and require byte-identical SAM and CSV; the repeat pairs must
+     reach the orphan rescue and rescue at least one mate on the card;
+ 13. time the paired-end engine alone on the 262,144 pairs, with its
+     decomposition: full path, pipelined as the CLI drives it,
+     launch-only, and the host's pairing after the device has drained.
+Phase 3 also holds the extension kernel at the orphan rescue's shape
+(2,048 windows of 500 consecutive loci, some off the genome's ends).
 The last two lines are a JSON object per kernel and the result line.
 Exits non-zero without CUDA or outside the repository.  Needs one card.
 """
@@ -52,6 +69,19 @@ READ_LEN = 100
 BATCH = 65_536
 N_PARITY = 4_096
 MIN_TRUE_FRACTION = 0.99
+
+# paired ends: the bench.py PE configuration
+N_PAIRS = 262_144
+PE_INSERT = (200, 500)
+PE_FLAGS = ["-d", "100", "-D", "600"]
+N_REPEAT_PAIRS = 2_048
+RESCUE_SHAPE = (2_048, 500)            # orphans x consecutive loci
+
+# the gather probe: table sizes held against the plain version here
+GATHER_N = 6_291_456
+GATHER_CHECK_MB = (2.3, 128.0, 2048.0)
+GATHER_LINE_MB = 128.0                 # the size of the kernels line
+GATHER_OPS_PER_WORD = 6                # xor, 2 masks, shift, 2 adds
 
 # error correction: SW at EC shapes, and the head-to-head read set
 SW_LA = 10_240
@@ -128,13 +158,15 @@ def check_sorts(dev, rng):
     from biokanga_tpu_torch.ops import sort
 
     err = {"sort_rows": 0, "sort2_rows": 0}
-    for B, C in ((65_536, 480), (65_536, 384), (65_536, 512), (2_048, 2_048),
-                 (512, 8_192), (512, 24_576), (7, 1_000)):
+    for B, C in ((65_536, 480), (2 * BATCH, 480), (65_536, 384),
+                 (65_536, 512), (2_048, 2_048), (512, 8_192), (512, 24_576),
+                 (7, 1_000)):
         x = torch.from_numpy(_sort_values(rng, B, C)).to(dev)
         err["sort_rows"] = max(err["sort_rows"], _max_abs_err(
             sort.sort_rows(x), sort.sort_rows_plain(x)))
-    for B, C in ((65_536, 192), (65_536, 512), (16_384, 384), (2_048, 2_048),
-                 (512, 3_072), (512, 4_096), (7, 1_000)):
+    for B, C in ((65_536, 192), (2 * BATCH, 192), (65_536, 512),
+                 (16_384, 384), (2_048, 2_048), (512, 3_072), (512, 4_096),
+                 (7, 1_000)):
         key = _sort_values(rng, B, C)
         key = np.where(key == I32_MAX, key,
                        rng.integers(0, 512, size=(B, C))).astype(np.int32)
@@ -147,6 +179,15 @@ def check_sorts(dev, rng):
     if any(err.values()):
         raise AssertionError(f"sort kernels disagree with torch.sort: {err}")
 
+    # the paired-end path fuses both mates into batches of twice the rows
+    x2 = torch.from_numpy(_sort_values(rng, 2 * BATCH, 480)).to(dev)
+    k2 = torch.from_numpy(rng.integers(0, 512, size=(2 * BATCH, 192),
+                                       dtype=np.int32)).to(dev)
+    v2 = torch.from_numpy(_sort_values(rng, 2 * BATCH, 192)).to(dev)
+    print(f"fused PE batch ({2 * BATCH} rows): sort_rows x 480 "
+          f"{_timed_ms(lambda: sort.sort_rows(x2)):.4f} ms, sort2_rows x 192 "
+          f"{_timed_ms(lambda: sort.sort2_rows(k2, v2)):.4f} ms")
+    del x2, k2, v2
     # time at the fast pass's shapes (B = 65,536 reads of 100 bp)
     x = torch.from_numpy(_sort_values(rng, BATCH, 480)).to(dev)
     key = torch.from_numpy(
@@ -223,11 +264,22 @@ def check_extend(dev, rng):
                                     ep.hamming_extend_packed_plain(*args)))
     if err:
         raise AssertionError(f"hamming_extend_packed disagrees: {err}")
+    _check_extend_rescue_shape(dev, rng, pg, genome, starts)
     # time at the fast pass's shape: one strand, 65,536 reads x 96 loci
     genome = rng.integers(0, 4, size=GENOME_BP, dtype=np.int8)
     starts = np.array([0, GENOME_BP // 2, GENOME_BP], np.int64)
     args = _extend_args(dev, rng, ep.pack_genome(genome, dev), genome,
                         starts, READ_LEN, BATCH, 96)
+    args2 = _extend_args(dev, rng, args[0], genome, starts, READ_LEN,
+                         2 * BATCH, 96)
+    if _max_abs_err(ep.hamming_extend_packed(*args2),
+                    ep.hamming_extend_packed_plain(*args2)):
+        raise AssertionError("hamming_extend_packed disagrees at the fused "
+                             "PE batch")
+    print(f"fused PE batch ({2 * BATCH} rows x 96 loci): "
+          f"hamming_extend_packed exact, "
+          f"{_timed_ms(lambda: ep.hamming_extend_packed(*args2)):.4f} ms")
+    del args2
     pg, es, loci, valid, rc, rn, ln = args
     out = ep.hamming_extend_packed(*args)
     # per locus and word: xor, two ors, fold (shift, or, and), mask, popc,
@@ -240,6 +292,47 @@ def check_extend(dev, rng):
         bound=_bound(_nbytes(pg.rows, pg.n_rows, es, loci, valid, rc, rn, ln,
                              out), n_ops))
     return err, timing
+
+
+def _check_extend_rescue_shape(dev, rng, pg, genome, starts):
+    """The extension at the orphan rescue's shape: every locus of a
+    window, the windows running from below 0 to past the genome's end."""
+    import torch
+
+    from biokanga_tpu_torch.ops import extend_packed as ep
+
+    B, Wlen = RESCUE_SHAPE
+    n, L = len(genome), READ_LEN
+    win = np.linspace(-Wlen + 50, n - 60, B).astype(np.int64)
+    src = np.clip(win + rng.integers(0, Wlen - L, B), 0, n - L)
+    reads = genome[src[:, None] + np.arange(L)]
+    sub = rng.random(reads.shape) < 0.03
+    reads[sub] = (reads[sub] + 1) % 4
+    loci = torch.from_numpy(
+        (win[:, None] + np.arange(Wlen)).astype(np.int32)).to(dev)
+    ln = torch.full((B,), L, dtype=torch.int32, device=dev)
+    rc, rn = ep.pack_reads(torch.from_numpy(reads).to(dev), ln)
+    es = torch.from_numpy(starts.astype(np.int32)).to(dev)
+    args = (pg, es, loci, torch.ones_like(loci, dtype=torch.bool), rc, rn, ln)
+    got = ep.hamming_extend_packed(*args)
+    want = ep.hamming_extend_packed_plain(*args)
+    err = _max_abs_err(got, want)
+    found = int((want.min(dim=1).values <= 10).sum())
+    off = int((want[0] == 255).sum()), int((want[-1] == 255).sum())
+    if err or found < B // 2 or min(off) < 40:
+        raise AssertionError(f"extension at the rescue shape: err {err}, "
+                             f"{found} windows hold their read, invalid "
+                             f"loci in the end windows {off}")
+    out_bytes = _nbytes(pg.rows, pg.n_rows, es, loci, args[3], rc, rn, ln,
+                        got)
+    bound_ms, by = _bound(out_bytes, loci.numel() * (rc.shape[1] * 9 + 8))
+    print(f"hamming_extend_packed at the rescue shape ({B} windows x {Wlen} "
+          f"consecutive loci, {L} bp, a 1 Mbp genome with Ns): exact; kernel "
+          f"{_timed_ms(lambda: ep.hamming_extend_packed(*args)):.4f} ms, "
+          f"plain torch "
+          f"{_timed_ms(lambda: ep.hamming_extend_packed_plain(*args), 3):.4f}"
+          f" ms, bound {bound_ms:.4f} ms ({by}); {found} windows hold their "
+          f"read, {off} invalid loci in the first and last window")
 
 
 def _records(path: Path) -> list[str]:
@@ -263,14 +356,11 @@ def _true_unique_fraction(path: Path, n_reads: int) -> float:
     return ok / n_reads
 
 
-def _repeat_case(n_reads: int = 8_192, read_len: int = 150):
+def _repeat_genome():
     """A genome with an N run, a 3 kb tandem repeat, a 120 bp block in 80
-    copies and a 400 bp block in four, and reads drawn from it and from
-    the repeats: they drive the classic rerun, both rescue-ladder steps,
-    the genome N plane and multi-hit assignment."""
-    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
+    copies and a 400 bp block in five."""
+    from biokanga_tpu_torch.sim.simreads import random_genome
 
-    rng = np.random.default_rng(31)
     seqs = random_genome([("chrA", 200_000), ("chrB", 100_000)], seed=3)
     g = seqs[0][1]
     g[30_000:33_000] = np.tile(np.array([0, 1, 2, 3, 3, 1], np.int8), 500)
@@ -282,6 +372,18 @@ def _repeat_case(n_reads: int = 8_192, read_len: int = 150):
         g[dst:dst + 400] = block
     seqs[1][1][5_000:5_400] = block
     seqs[1][1][20_000:20_050] = 4
+    return seqs
+
+
+def _repeat_case(n_reads: int = 8_192, read_len: int = 150):
+    """Reads drawn from the repeat genome and from its repeats: they drive
+    the classic rerun, both rescue-ladder steps, the genome N plane and
+    multi-hit assignment."""
+    from biokanga_tpu_torch.sim.simreads import simulate_reads
+
+    rng = np.random.default_rng(31)
+    seqs = _repeat_genome()
+    g = seqs[0][1]
     names, reads, _ = simulate_reads(seqs, n_reads, read_len=read_len,
                                      sub_rate=0.02, seed=23)
     for i in range(0, 256):
@@ -629,6 +731,337 @@ def ec_full_width(smi):
     return launches
 
 
+# ------------------------------------------------------ gather probe ----
+
+def _probe_module():
+    """scripts/probe_stream_gather_torch.py, the gather kernel's entry
+    point."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import probe_stream_gather_torch
+
+    return probe_stream_gather_torch
+
+
+def check_stream_gather(dev, smi):
+    """stream_gather_consume against its plain version at three table
+    sizes, random and sorted, exactly; each timed beside its bound."""
+    import torch
+
+    from biokanga_tpu_torch.ops import stream_gather as sg
+
+    probe = _probe_module()
+    err, timing = 0, None
+    for mb in GATHER_CHECK_MB:
+        table, idx = probe.make_inputs(mb, GATHER_N, dev)
+        sidx = torch.sort(idx).values
+        want = int(sg.stream_gather_consume_plain(table, idx))
+        for name, got in (
+                ("random", sg.stream_gather_consume(table, idx)),
+                ("sorted", sg.stream_gather_consume(table, sidx)),
+                ("sort_rows", sg.stream_gather_consume(table, idx,
+                                                       sort_rows=True))):
+            err = max(err, abs(int(got) - want))
+            if int(got) != want:
+                raise AssertionError(f"stream_gather_consume, {mb} MB, "
+                                     f"{name}: {int(got)} != {want}")
+        n = idx.numel()
+        # what this run's indices need: each distinct row and each index
+        # read once, one word written.  n x (64 + 4) bytes, every gather
+        # served from device memory, is no lower bound: duplicates and a
+        # table inside L2 go below it
+        distinct = int(torch.unique(idx).numel())
+        bound = _bound(distinct * 64 + n * 4 + 4,
+                       n * 16 * GATHER_OPS_PER_WORD)
+        t = dict(
+            ms=_timed_ms(lambda: sg.stream_gather_consume(table, idx)),
+            sorted_ms=_timed_ms(lambda: sg.stream_gather_consume(table,
+                                                                 sidx)),
+            plain_ms=_timed_ms(
+                lambda: sg.stream_gather_consume_plain(table, idx), 3),
+            library_ms=None, bound=bound)
+        print(f"stream_gather_consume, table {table.numel() * 4 / 1e6:.1f} MB"
+              f" ({table.shape[0]} rows), {n} gathers of {distinct} distinct "
+              f"rows: exact (random, sorted, sort_rows); kernel "
+              f"{t['ms']:.4f} ms random, {t['sorted_ms']:.4f} ms sorted, "
+              f"plain torch {t['plain_ms']:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}; {n * 68 / HBM_BYTES_PER_S * 1e3:.4f} ms if every "
+              f"gather came from device memory) ({smi})")
+        if mb == GATHER_LINE_MB:
+            timing = t
+        del table, idx, sidx
+        torch.cuda.empty_cache()
+    # the kernel's path through the system: the probe, over its own sizes
+    sg.stream_gather_consume.launches = 0
+    if probe.main(["--iters", "3"]) != 0:
+        raise AssertionError("the gather probe failed")
+    launches = sg.stream_gather_consume.launches
+    if launches < len(probe.DEFAULT_MB):
+        raise AssertionError(f"the gather probe launched {launches} kernels")
+    torch.cuda.empty_cache()
+    return err, timing, launches
+
+
+# ------------------------------------------------------ paired ends ----
+
+def _pe_repeat_case(n_pairs: int = N_REPEAT_PAIRS, read_len: int = 150):
+    """Pairs of 2 x 150 bp from the repeat genome of `_repeat_case`.  In
+    every fifth pair one mate lies in the 400 bp block that occurs five
+    times (not unique) while its partner is unique beside it: an orphan
+    that only the windowed rescue can place.  Every ninth pair has a mate
+    with a substitution in each seed core, and some mates carry Ns."""
+    from biokanga_tpu_torch.sim.simreads import simulate_reads
+
+    rng = np.random.default_rng(37)
+    seqs = _repeat_genome()
+    g = seqs[0][1]
+    names, reads, _ = simulate_reads(seqs, n_pairs, read_len=read_len,
+                                     sub_rate=0.02, seed=29, pe=True,
+                                     insert_min=300, insert_max=550)
+
+    def rc(x):
+        return np.where(x >= 4, x, 3 - x)[::-1]
+
+    for i in range(0, n_pairs, 5):
+        s = (1_000, 7_000, 21_000, 150_000)[i // 5 % 4] + \
+            int(rng.integers(10, 240))
+        a, b = g[s:s + read_len], rc(g[s + 330:s + 330 + read_len])
+        reads[2 * i], reads[2 * i + 1] = (a, b) if i % 2 else (b, a)
+    for i in range(3, n_pairs, 9):
+        r = reads[2 * i + i % 2]
+        r[5:140:10] = (r[5:140:10] + 1) % 4
+    for i in range(7, n_pairs, 23):
+        p = int(rng.integers(0, read_len - 5))
+        reads[2 * i, p:p + int(rng.integers(1, 4))] = 4
+    return seqs, names, reads
+
+
+def _write_pairs(stem: str, names, reads, n_pairs: int):
+    from biokanga_tpu_torch.seq.fasta import write_fastq
+
+    for m in (0, 1):
+        write_fastq(str(WORK / f"{stem}{m + 1}.fq"),
+                    ((names[2 * i + m], reads[2 * i + m], None)
+                     for i in range(n_pairs)))
+
+
+def _align_pe(stem: str, ref: str, out: str, device: str, extra=()) -> dict:
+    """`align -i <stem>1.fq -u <stem>2.fq` in process; the numbers of its
+    log line."""
+    from biokanga_tpu_torch import cli
+
+    log = WORK / f"{out}.log"
+    log.unlink(missing_ok=True)         # the log handler appends
+    rc = cli.main(["align", "-i", str(WORK / f"{stem}1.fq"),
+                   "-u", str(WORK / f"{stem}2.fq"), "-I", str(WORK / ref),
+                   "-o", str(WORK / f"{out}.sam"), "-F", str(log),
+                   "--device", device, "--batch-size", str(BATCH),
+                   *PE_FLAGS, *extra])
+    if rc != 0:
+        raise AssertionError(f"align -u --device {device} rc={rc}")
+    m = re.search(r"paired (\d+) pairs: (\d+) proper \(\S+\), (\d+) mates "
+                  r"rescued in (\d+) window scans", log.read_text())
+    if m is None:
+        raise AssertionError("align -u wrote no summary line")
+    return {"pairs": int(m[1]), "proper": int(m[2]), "rescued": int(m[3]),
+            "scans": int(m[4])}
+
+
+def _pe_origin_fractions(path: Path, n_pairs: int) -> tuple[float, float]:
+    """(share of pairs flagged proper, share of the proper pairs with both
+    mates at their simulated origin), from the read names."""
+    from biokanga_tpu_torch.sim.simreads import SimReadTruth
+
+    recs = _records(path)
+    if len(recs) != 2 * n_pairs:
+        raise AssertionError(f"{len(recs)} records for {n_pairs} pairs")
+    proper = at_origin = 0
+    for i in range(0, len(recs), 2):
+        mates = [r.split("\t") for r in recs[i:i + 2]]
+        if not all(int(f[1]) & 2 for f in mates):
+            continue
+        proper += 1
+        ok = True
+        for f in mates:
+            t = SimReadTruth.parse(f[0])
+            ok &= (f[2] == t.chrom and int(f[3]) == t.start
+                   and bool(int(f[1]) & 16) == (t.strand == "-"))
+        at_origin += ok
+    return proper / n_pairs, at_origin / max(proper, 1)
+
+
+def _align_launches() -> dict:
+    from biokanga_tpu_torch.ops import extend_packed, sort
+
+    return {"sort_rows": sort.sort_rows.launches,
+            "sort2_rows": sort.sort2_rows.launches,
+            "hamming_extend_packed":
+                extend_packed.hamming_extend_packed.launches}
+
+
+def _reset_align_launches() -> None:
+    from biokanga_tpu_torch.ops import extend_packed, sort
+
+    for fn in (sort.sort_rows, sort.sort2_rows,
+               extend_packed.hamming_extend_packed):
+        fn.launches = 0
+
+
+def pe_full_width(seqs, smi):
+    """Phase 11: the PE cell through the CLI.  Returns (launches of the
+    run, r1, r2) with the mates as (N_PAIRS, READ_LEN) arrays."""
+    import torch
+
+    from biokanga_tpu_torch.sim.simreads import simulate_reads
+
+    t0 = time.monotonic()
+    names, reads, _ = simulate_reads(
+        seqs, N_PAIRS, read_len=READ_LEN, sub_rate=0.01, seed=17, pe=True,
+        insert_min=PE_INSERT[0], insert_max=PE_INSERT[1])
+    _write_pairs("pe", names, reads, N_PAIRS)
+    _write_pairs("pehead", names, reads, N_PARITY)
+    print(f"PE read set: {N_PAIRS} pairs of 2 x {READ_LEN} bp, inserts "
+          f"{PE_INSERT} ({time.monotonic() - t0:.1f} s to simulate and write)")
+    _reset_align_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    st = _align_pe("pe", "ref.npz", "pe_out", "cuda")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _align_launches()
+    if min(launches.values()) < 1 or st["pairs"] != N_PAIRS:
+        raise AssertionError(f"align -u: launches {launches}, {st}")
+    proper, at_origin = _pe_origin_fractions(WORK / "pe_out.sam", N_PAIRS)
+    print(f"align -u --device cuda: {N_PAIRS} pairs in {wall:.2f} s (CLI "
+          f"wall, index load and I/O included); launches {launches}; proper "
+          f"pairs {proper:.6f}, of them both mates at origin "
+          f"{at_origin:.6f}; {st['rescued']} mates rescued in {st['scans']} "
+          f"window scans ({smi})")
+    if at_origin < MIN_TRUE_FRACTION or proper < MIN_TRUE_FRACTION:
+        raise AssertionError(f"proper {proper:.4%}, at origin "
+                             f"{at_origin:.4%}")
+    return (launches, np.ascontiguousarray(reads[0::2]),
+            np.ascontiguousarray(reads[1::2]))
+
+
+def pe_parity():
+    """Phase 12: --device cpu against --device cuda, SAM (and CSV) byte
+    for byte, on the first pairs of the cell and on the repeat pairs."""
+    from biokanga_tpu_torch.index.build import build_index, save_index
+
+    for d in ("cpu", "cuda"):
+        _align_pe("pehead", "ref.npz", f"pehead_{d}", d)
+    cpu_sam = (WORK / "pehead_cpu.sam").read_bytes()
+    if cpu_sam != (WORK / "pehead_cuda.sam").read_bytes():
+        raise AssertionError("PE SAM differs between --device cpu and cuda")
+    if _records(WORK / "pe_out.sam")[:2 * N_PARITY] != \
+            _records(WORK / "pehead_cpu.sam"):
+        raise AssertionError("first PE records differ from the full run")
+    print(f"PE SAM of the first {N_PARITY} pairs: --device cpu == --device "
+          f"cuda byte for byte ({len(cpu_sam)} bytes)")
+
+    rseqs, rnames, rreads = _pe_repeat_case()
+    save_index(build_index(rseqs, lut_bases=9), str(WORK / "perep.npz"))
+    _write_pairs("perep", rnames, rreads, N_REPEAT_PAIRS)
+    st = {}
+    for d in ("cpu", "cuda"):
+        _reset_align_launches()
+        st[d] = _align_pe("perep", "perep.npz", f"perep_{d}", d,
+                          ["--peinsertdist", str(WORK / f"perep_{d}.csv")])
+    launches = _align_launches()
+    rep_sam = (WORK / "perep_cpu.sam").read_bytes()
+    csv = (WORK / "perep_cpu.csv").read_bytes()
+    if rep_sam != (WORK / "perep_cuda.sam").read_bytes() or \
+            csv != (WORK / "perep_cuda.csv").read_bytes() or \
+            b"InsertBin" not in csv:
+        raise AssertionError("PE repeat SAM or insert CSV differs between "
+                             "cpu and cuda")
+    # the first pair's block mate can only be placed by the rescue
+    first = [r.split("\t") for r in _records(WORK / "perep_cuda.sam")[:2]]
+    # the CPU path scans its orphans in chunks, so only the card's count
+    # of scans is the count of kernel launches
+    same = all(st["cuda"][k] == st["cpu"][k]
+               for k in ("pairs", "proper", "rescued"))
+    if not same or st["cuda"]["rescued"] < 1 or \
+            st["cuda"]["scans"] < 1 or min(launches.values()) < 1 or \
+            not all(int(f[1]) & 2 for f in first):
+        raise AssertionError(f"PE repeat case: {st}, launches {launches}")
+    print(f"repeat genome, {N_REPEAT_PAIRS} pairs of 2 x 150 bp, "
+          f"--peinsertdist: --device cpu == cuda byte for byte (SAM "
+          f"{len(rep_sam)} bytes, CSV {len(csv)} bytes); "
+          f"{st['cuda']['proper']} proper pairs, {st['cuda']['rescued']} "
+          f"mates rescued in {st['cuda']['scans']} window scans on the card; "
+          f"launches {launches}")
+
+
+def pe_engine(idx, r1, r2, dev, smi):
+    """Phase 13: the PE engine alone, reads in host memory, and its
+    decomposition.  reads/s = 2 x pairs / s."""
+    import torch
+
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.align.pe import PEAligner, PEParams
+    from biokanga_tpu_torch.align.pipeline import AlignEngine
+    from biokanga_tpu_torch.index.device import to_device
+
+    pea = PEAligner(AlignEngine(to_device(idx, dev),
+                                AlignParams(batch_size=BATCH)),
+                    PEParams(pair_min_len=100, pair_max_len=600))
+    ln = np.full(BATCH, READ_LEN, np.int32)
+    batches = [(r1[s:s + BATCH], ln, r2[s:s + BATCH], ln)
+               for s in range(0, N_PAIRS, BATCH)]
+    pea.align_pairs(*batches[0])                               # warm-up
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.monotonic() - t0, out
+
+    def full():
+        return sum(int(pea.align_pairs(*b)["proper"].sum()) for b in batches)
+
+    def pipelined():
+        n, inflight = 0, None
+        for b in batches:
+            nxt = pea.launch_pairs(*b)
+            if inflight is not None:
+                n += int(pea.finish_pairs(inflight)["proper"].sum())
+            inflight = nxt
+        return n + int(pea.finish_pairs(inflight)["proper"].sum())
+
+    def launch_only():
+        return [pea.launch_pairs(*b) for b in batches]
+
+    t_full, t_pipe, t_launch, t_finish = [], [], [], []
+    n_proper = 0
+    for _ in range(5):
+        t, n_proper = timed(full)
+        t_full.append(t)
+        t, n_pipe = timed(pipelined)
+        t_pipe.append(t)
+        if n_pipe != n_proper:
+            raise AssertionError("launch/finish differs from align_pairs")
+        t, pending = timed(launch_only)
+        t_launch.append(t)
+        # the device has drained: what is left is copies and host pairing
+        t, _ = timed(lambda: [pea.finish_pairs(p) for p in pending])
+        t_finish.append(t)
+    rate = lambda ts: 2 * N_PAIRS / min(ts)
+    print(f"PE engine: {rate(t_full):.1f} reads/s best of 5 epochs "
+          f"(align_pairs; {', '.join(f'{2 * N_PAIRS / t:.1f}' for t in t_full)}"
+          f"; {N_PAIRS} pairs of 2 x {READ_LEN} bp, batch {BATCH} pairs, "
+          f"{n_proper} proper, {pea.rescued} mates rescued in "
+          f"{pea.rescue_calls} window scans over all epochs) on {smi}")
+    print(f"PE decomposition, best of 5, seconds for {N_PAIRS} pairs: full "
+          f"path {min(t_full):.4f}; pipelined (launch k+1 before finish k) "
+          f"{min(t_pipe):.4f}, {rate(t_pipe):.1f} reads/s; launch-only "
+          f"(launch_pairs of all batches, then synchronize) "
+          f"{min(t_launch):.4f}; host pairing (finish_pairs after the "
+          f"device has drained: copies, classify, rescue) "
+          f"{min(t_finish):.4f} ({smi})")
+
+
 def main() -> int:
     import torch
 
@@ -641,7 +1074,7 @@ def main() -> int:
     from biokanga_tpu_torch.align.pipeline import AlignEngine
     from biokanga_tpu_torch.index.build import build_index, save_index
     from biokanga_tpu_torch.index.device import to_device
-    from biokanga_tpu_torch.ops import extend_packed, sort
+    from biokanga_tpu_torch.ops import sort
     from biokanga_tpu_torch.seq.fasta import write_fastq
     from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
 
@@ -681,24 +1114,19 @@ def main() -> int:
                                          for nm, r in zip(names, reads)))
     write_fastq(str(WORK / "head.fq"), ((names[i], reads[i], None)
                                         for i in range(N_PARITY)))
-    for fn in (sort.sort_rows, sort.sort2_rows,
-               extend_packed.hamming_extend_packed):
-        fn.launches = 0
+    _reset_align_launches()
     t0 = time.monotonic()
     rc = cli.main(["align", "-i", str(WORK / "reads.fq"),
                    "-I", str(WORK / "ref.npz"), "-o", str(WORK / "out.sam"),
                    "--device", "cuda", "--batch-size", str(BATCH)])
     torch.cuda.synchronize()
     cli_s = time.monotonic() - t0
-    launches = {"sort_rows": sort.sort_rows.launches,
-                "sort2_rows": sort.sort2_rows.launches,
-                "hamming_extend_packed":
-                    extend_packed.hamming_extend_packed.launches}
-    if rc != 0 or min(launches.values()) < 1:
-        raise AssertionError(f"align rc={rc}, launches={launches}")
+    se_launches = _align_launches()
+    if rc != 0 or min(se_launches.values()) < 1:
+        raise AssertionError(f"align rc={rc}, launches={se_launches}")
     frac = _true_unique_fraction(WORK / "out.sam", N_READS)
     print(f"align --device cuda: {N_READS} reads in {cli_s:.2f} s (CLI wall, "
-          f"index load and I/O included); launches {launches}; "
+          f"index load and I/O included); launches {se_launches}; "
           f"unique at origin {frac:.6f}")
     if frac < MIN_TRUE_FRACTION:
         raise AssertionError(f"only {frac:.4%} of reads map to their origin")
@@ -765,20 +1193,37 @@ def main() -> int:
     print(f"engine: {max(rates):.1f} reads/s best of 5 epochs "
           f"({', '.join(f'{r:.1f}' for r in rates)}; {N_READS} x {READ_LEN} "
           f"bp, batch {BATCH}, unique {n_unique}) on {smi}")
-    del engine, idx, seqs, reads
+    del engine, reads
     torch.cuda.empty_cache()
 
     # 7. SW kernels at EC shapes, and #6 on a long pair
     sw_err, sw_timing = check_sw(dev, rng)
     errs.update(sw_err)
     timing.update(sw_timing)
-    launches["banded_sw_score"] = long_pair_score(dev, rng)
+    launches = {"banded_sw_score": long_pair_score(dev, rng)}
 
     # 8. EC through the CLI: the plain path against the card
     ec_parity(rng)
 
     # 9. EC at full width
     launches.update(ec_full_width(smi))
+
+    # 10. the gather kernel against its plain version, then its probe
+    (errs["stream_gather_consume"], timing["stream_gather_consume"],
+     launches["stream_gather_consume"]) = check_stream_gather(dev, smi)
+
+    # 11. paired ends end to end through the CLI; kernels #1-#3 are
+    # counted on this run, the newest path through them
+    pe_launches, r1, r2 = pe_full_width(seqs, smi)
+    launches.update(pe_launches)
+
+    # 12. PE: the plain path against the card
+    pe_parity()
+
+    # 13. the PE engine alone and its decomposition
+    pe_engine(idx, r1, r2, dev, smi)
+    del idx, seqs, r1, r2
+    torch.cuda.empty_cache()
 
     src = "biokanga_tpu_torch/csrc/"
     rows = [
@@ -796,6 +1241,9 @@ def main() -> int:
          f"{SW_CHUNK_PAIRS} pairs x {SW_LA}, W {SW_W}"),
         ("sw_trace", "sw_trace.cu", "biokanga_tpu/ops/sw_trace.py:33",
          f"{SW_CHUNK_PAIRS} pairs x {SW_LA}, W {SW_W}"),
+        ("stream_gather_consume", "stream_gather.cu",
+         "biokanga_tpu/ops/stream_gather.py:58",
+         f"{GATHER_N} random rows of a {GATHER_LINE_MB:.0f} MB table"),
     ]
     kernels_line = []
     for name, path, rep, shape in rows:
@@ -809,6 +1257,8 @@ def main() -> int:
         kernels_line.append({
             "name": name, "route": "cuda", "source": src + path,
             "replaces": rep, "launches": launches[name],
+            **({"launches_se_align": se_launches[name]}
+               if name in se_launches else {}),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms})

@@ -1,19 +1,26 @@
-"""Stage profiles of the port's two cells on one CUDA card.
+"""Stage profiles of the port's three cells on one CUDA card.
 
-    python3 profile_torch.py            # both cells
-    python3 profile_torch.py ec         # or one: ec | align
+    python3 profile_torch.py            # all cells
+    python3 profile_torch.py ec         # or some: ec | align | pe | pe_repeat
 
 ec: the error-correction head-to-head read set of chip_smoke.py phase 9
 (500 x 10 kb CLR reads of a 200 kb genome, seed 3) through `ec_reads`
 with the CLI's defaults (2 rounds, 48 targets, W 96).  align: the
 single-end cell of chip_smoke.py phase 6 (262,144 x 100 bp reads against
 a 4.6 Mbp genome, batch 65,536) through `AlignEngine.align_with_rescue`.
+pe: the paired-end cell of chip_smoke.py phase 13 (262,144 pairs of 2 x
+100 bp, inserts 200-500, `-d 100 -D 600`) through `PEAligner`, one batch
+in flight as the CLI drives it (`launch_pairs` of batch k+1 before
+`finish_pairs` of batch k).  pe_repeat: the 2,048 repeat-genome pairs of
+2 x 150 bp of chip_smoke.py phase 12, the only pairs here that reach the
+orphan rescue, as one batch.
 
 Each cell runs once unprofiled (the wall time users see) and once under
 `torch.profiler` with CPU and CUDA activities.  It prints one JSON line
 per cell: the wall times, the device busy time (CUDA kernels and copies
 summed) and the idle share of the profiled wall, the host time of each
-`ec.*` stage range and the time its range spans on the device timeline,
+`ec.*` or `pe.*` stage range and the time its range spans on the device
+timeline,
 and the device time of the busiest kernels.  Needs one card; exits
 non-zero without CUDA.
 """
@@ -25,6 +32,9 @@ import sys
 import time
 
 import numpy as np
+
+
+STAGE_PREFIXES = ("ec.", "pe.")       # record_function ranges of the port
 
 
 def _on_device(evt) -> bool:
@@ -56,12 +66,12 @@ def _profiled(fn):
 def _summary(cell: str, wall: float, wall_prof: float, events,
              extra: dict) -> dict:
     kernels = [e for e in events
-               if _on_device(e) and not e.key.startswith("ec.")]
+               if _on_device(e) and not e.key.startswith(STAGE_PREFIXES)]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=_device_us, reverse=True)[:12]
     stages: dict = {}
     for e in events:
-        if e.key.startswith("ec."):
+        if e.key.startswith(STAGE_PREFIXES):
             st = stages.setdefault(e.key, {"count": e.count, "host_ms": 0.0,
                                            "device_ms": 0.0})
             if _on_device(e):
@@ -135,6 +145,77 @@ def profile_align() -> dict:
                     {"reads": N_READS})
 
 
+def _profile_pairs(cell: str, idx, reads, batch: int) -> dict:
+    """PEAligner over interleaved mates `reads` (2N, L), one batch in
+    flight, unprofiled and profiled."""
+    import torch
+
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.align.pe import PEAligner, PEParams
+    from biokanga_tpu_torch.align.pipeline import AlignEngine, pad_rows
+    from biokanga_tpu_torch.index.device import to_device
+
+    n_pairs, L = len(reads) // 2, reads.shape[1]
+    ln = np.full(n_pairs, L, np.int32)
+    blocks = []
+    for s in range(0, n_pairs, batch):
+        m1 = pad_rows(np.ascontiguousarray(reads[0::2][s:s + batch]),
+                      ln[s:s + batch])
+        m2 = pad_rows(np.ascontiguousarray(reads[1::2][s:s + batch]),
+                      ln[s:s + batch])
+        blocks.append((*m1, *m2))
+    pea = PEAligner(AlignEngine(to_device(idx, torch.device("cuda")),
+                                AlignParams(batch_size=batch)),
+                    PEParams(pair_min_len=100, pair_max_len=600))
+    proper = 0
+
+    def run():
+        nonlocal proper
+        proper, inflight = 0, None
+        for b in blocks:
+            nxt = pea.launch_pairs(*b)
+            if inflight is not None:
+                proper += int(pea.finish_pairs(inflight)["proper"].sum())
+            inflight = nxt
+        proper += int(pea.finish_pairs(inflight)["proper"].sum())
+
+    pea.align_pairs(*blocks[0])                                # warm-up
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    pea.rescued = pea.rescue_calls = 0
+    wall_prof, events = _profiled(run)
+    return _summary(cell, wall, wall_prof, events,
+                    {"pairs": n_pairs, "proper": proper,
+                     "rescued": pea.rescued,
+                     "rescue_calls": pea.rescue_calls})
+
+
+def profile_pe() -> dict:
+    from biokanga_tpu_torch.index.build import build_index
+    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
+    from chip_smoke import BATCH, GENOME_BP, N_PAIRS, PE_INSERT, READ_LEN
+
+    seqs = random_genome([("chr", GENOME_BP)], seed=42)
+    idx = build_index(seqs, lut_bases=10)
+    _, reads, _ = simulate_reads(seqs, N_PAIRS, read_len=READ_LEN,
+                                 sub_rate=0.01, seed=17, pe=True,
+                                 insert_min=PE_INSERT[0],
+                                 insert_max=PE_INSERT[1])
+    return _profile_pairs("pe", idx, reads, BATCH)
+
+
+def profile_pe_repeat() -> dict:
+    from biokanga_tpu_torch.index.build import build_index
+    from chip_smoke import BATCH, _pe_repeat_case
+
+    seqs, _, reads = _pe_repeat_case()
+    return _profile_pairs("pe_repeat", build_index(seqs, lut_bases=9), reads,
+                          BATCH)
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -142,14 +223,15 @@ def main(argv: list[str]) -> int:
         print("profile_torch: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    cells = argv or ["ec", "align"]
+    cells = argv or ["ec", "align", "pe", "pe_repeat"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
     for cell in cells:
-        fn = {"ec": profile_ec, "align": profile_align}[cell]
+        fn = {"ec": profile_ec, "align": profile_align,
+              "pe": profile_pe, "pe_repeat": profile_pe_repeat}[cell]
         print(json.dumps({**fn(), "card": smi}))
     return 0
 

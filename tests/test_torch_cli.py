@@ -3,12 +3,16 @@
 align: about 1,000 simulated reads (substitutions, Ns, a planted
 five-copy repeat so that multi-hit assignment runs) are aligned by both
 CLIs against the index `biokanga_tpu index` writes; the SAM files must be
-byte-identical.  ecreads: noisy long reads, some reverse-complemented,
+byte-identical; paired ends the same (mate files and a PE-interleaved
+`.rds`, with `-d/-D`, `-E` and `--peinsertdist`, whose CSV must be
+byte-identical too) on pairs that need the orphan rescue.  ecreads: noisy
+long reads, some reverse-complemented,
 are corrected by both CLIs at one and two rounds and target-chunked; the
 FASTA files must be byte-identical.  The port runs with `--device cpu`,
 its kernels' plain versions.  A subprocess run shows the port's CLI never
 imports jax, and a scan of the sources that no module of the port, and
-not chip_smoke.py, imports jax or the JAX package.
+not chip_smoke.py, profile_torch.py or the gather probe script, imports
+jax or the JAX package.
 """
 import ast
 import functools
@@ -24,6 +28,7 @@ import torch
 from biokanga_tpu.cli import main as jax_main
 from biokanga_tpu.pacbio import ecreads as jax_ec
 from biokanga_tpu.seq.fasta import write_fasta, write_fastq
+from biokanga_tpu.seq.rds import write_rds
 from biokanga_tpu.sim.simreads import random_genome, simulate_reads
 from biokanga_tpu_torch.cli import main as torch_main
 
@@ -102,7 +107,83 @@ def test_cuda_is_never_replaced_by_the_cpu(inputs, monkeypatch):
                     str(d / "ref.npz"), "-o", str(d / "x.sam")])
 
 
-@pytest.mark.parametrize("flag", [["-u", "mates.fq"], ["-O", "snps.csv"],
+@pytest.fixture(scope="module")
+def pairs(tmp_path_factory):
+    """300 pairs of 2 x 100 bp at 1% substitutions from a genome with a
+    300 bp block in three copies and an N run; in every seventh pair one
+    mate lies in the block (multi-hit: an orphan for the rescue) and in
+    every eleventh one mate has a substitution in every seed core."""
+    d = tmp_path_factory.mktemp("torch_cli_pe")
+    seqs = random_genome([("chr1", 60_000), ("chr2", 35_000)], seed=29)
+    g = seqs[0][1]
+    block = g[8_000:8_300].copy()
+    g[40_000:40_300] = block
+    seqs[1][1][17_000:17_300] = block
+    seqs[1][1][25_000:25_040] = 4
+    write_fasta(str(d / "ref.fa"), seqs)
+    assert jax_main(["index", "-i", str(d / "ref.fa"), "-o",
+                     str(d / "ref.npz"), "--lut-bases", "9"]) == 0
+    n = 300
+    names, reads, _ = simulate_reads(seqs, n, read_len=100, sub_rate=0.01,
+                                     seed=6, pe=True, insert_min=200,
+                                     insert_max=500)
+    rc = lambda x: np.where(x >= 4, x, 3 - x)[::-1]
+    for i in range(0, n, 7):
+        s = (8_000, 40_000)[i % 2] + 30 + i % 50
+        reads[2 * i] = g[s:s + 100]
+        reads[2 * i + 1] = rc(g[s + 320:s + 420])
+    for i in range(3, n, 11):
+        r = reads[2 * i + i % 2]
+        r[4:93:11] = (r[4:93:11] + 1) % 4
+    for i in range(5, n, 40):                    # ragged lengths, Ns
+        reads[2 * i, 50:53] = 4
+    write_fastq(str(d / "r1.fq"), ((nm, r, None) for nm, r in
+                                   zip(names[0::2], reads[0::2])))
+    write_fastq(str(d / "r2.fq"), ((nm, r, None) for nm, r in
+                                   zip(names[1::2], reads[1::2])))
+    write_rds(str(d / "pe.rds.npz"), zip(names, reads), pe_interleaved=True)
+    return d
+
+
+@pytest.mark.parametrize("case,opts", [
+    ("insert-range", ["-d", "100", "-D", "600", "--batch-size", "128"]),
+    ("same-strand", ["-E", "-D", "600"]),
+    ("insert-dist", ["-d", "150", "-D", "450", "--peinsertdist", "ins.csv",
+                     "-s", "8"]),
+    ("rds", ["-D", "600", "--batch-size", "256"]),
+])
+def test_pe_sam_is_byte_identical_to_jax_cli(pairs, case, opts):
+    d = pairs
+    if case == "rds":
+        common = ["-i", str(d / "pe.rds.npz")]
+    else:
+        common = ["-i", str(d / "r1.fq"), "-u", str(d / "r2.fq")]
+    common += ["-I", str(d / "ref.npz")]
+    outs = {}
+    for who, main, extra in (("jax", jax_main, []),
+                             ("torch", torch_main, ["--device", "cpu"])):
+        o = [str(d / f"{who}_{x}") if x == "ins.csv" else x for x in opts]
+        assert main(["align", "-o", str(d / f"{who}.sam")] + common + o
+                    + extra) == 0
+        outs[who] = (d / f"{who}.sam").read_bytes()
+    assert outs["torch"] == outs["jax"]
+    records = [ln.split("\t") for ln in outs["jax"].decode().splitlines()
+               if not ln.startswith("@")]
+    assert len(records) == 600
+    n_proper = sum(int(r[1]) & 2 > 0 for r in records)
+    if case == "same-strand":
+        assert n_proper < 40
+    else:
+        assert n_proper > 400
+        # a mate from the three-copy block is placed by the rescue
+        assert int(records[0][1]) & 2 and records[0][4] == "60"
+    if case == "insert-dist":
+        want = (d / "jax_ins.csv").read_bytes()
+        assert (d / "torch_ins.csv").read_bytes() == want
+        assert b'"InsertBin","Count"' in want
+
+
+@pytest.mark.parametrize("flag", [["--stats", "s.csv"], ["-O", "snps.csv"],
                                   ["-a", "5"], ["-C", "60"]])
 def test_flags_outside_the_slice_are_rejected(inputs, flag):
     d = inputs
@@ -174,8 +255,9 @@ def _imported_modules(path: pathlib.Path):
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     root = pathlib.Path(ROOT)
     files = sorted((root / "biokanga_tpu_torch").rglob("*.py"))
-    files.append(root / "chip_smoke.py")
-    assert len(files) > 20
+    files += [root / "chip_smoke.py", root / "profile_torch.py",
+              root / "scripts" / "probe_stream_gather_torch.py"]
+    assert len(files) > 30
     bad = [(str(f.relative_to(root)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "biokanga_tpu")]

@@ -9,8 +9,9 @@ Each kernel wrapper must launch its kernel (its launch count rises by
 one) and agree exactly with its plain torch version on the same card
 tensors; the CLI's SAM with `--device cuda` must equal the SAM with
 `--device cpu` byte for byte on a repeat-rich genome, and so must the
-error-corrected FASTA; the consensus call breaks ties towards the first
-maximum on the card as on the CPU.
+error-corrected FASTA, and the paired-end SAM with its insert-size CSV
+on pairs that need the orphan rescue; the consensus call breaks ties
+towards the first maximum on the card as on the CPU.
 """
 import numpy as np
 import pytest
@@ -18,7 +19,7 @@ import torch
 
 from biokanga_tpu_torch.ops import banded_sw as bsw
 from biokanga_tpu_torch.ops import extend_packed as ep
-from biokanga_tpu_torch.ops import sort, sw_trace
+from biokanga_tpu_torch.ops import sort, stream_gather, sw_trace
 
 I32_MAX = 2**31 - 1
 
@@ -271,3 +272,142 @@ def test_ecreads_on_the_card_equals_cpu(cuda_device, tmp_path):
     want = (tmp_path / "cpu.fa").read_bytes()
     assert (tmp_path / "cuda.fa").read_bytes() == want
     assert want != (tmp_path / "pb.fa").read_bytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,n", [(36_000, 200_000), (1_000_003, 50_000),
+                                 (1, 1_000), (4_097, 1), (500, 0)])
+def test_stream_gather_kernel_matches_plain(cuda_device, R, n):
+    rng = np.random.default_rng(R + n)
+    table = rng.integers(0, 2**32, size=(R, 16), dtype=np.uint32)
+    table[rng.integers(0, R, max(R // 8, 1))] = 0xFFFFFFFF
+    idx = rng.integers(0, R, size=n, dtype=np.int32)
+    if n > 2:
+        idx[0], idx[-1] = R - 1, 0
+    t = torch.from_numpy(table.view(np.int32)).to(cuda_device)
+    i = torch.from_numpy(idx).to(cuda_device)
+    want = int(stream_gather.stream_gather_consume_plain(t, i))
+    before = stream_gather.stream_gather_consume.launches
+    got = stream_gather.stream_gather_consume(t, i)
+    assert got.dtype == torch.int64 and got.device.type == "cuda"
+    assert int(got) == want
+    assert int(stream_gather.stream_gather_consume(t, i, sort_rows=True)) \
+        == want
+    # a kernel launch per call, none for an empty index vector
+    assert stream_gather.stream_gather_consume.launches == \
+        before + (2 if n else 0)
+    # the same on the CPU's plain version
+    assert int(stream_gather.stream_gather_consume(t.cpu(), i.cpu())) == want
+    # a table whose first word is not 16-byte aligned
+    if R > 1:
+        off = torch.empty(R * 16 + 1, dtype=torch.int32,
+                          device=cuda_device)[1:].view(R, 16)
+        off.copy_(t)
+        assert int(stream_gather.stream_gather_consume(off, i)) == want
+
+
+def _pe_case(n_pairs=600, L=100):
+    """Pairs from a genome with a 300 bp block in three copies: every
+    seventh pair has one mate in the block (an orphan for the rescue),
+    every eleventh a mate with a substitution in every seed core, and
+    the first pairs lie at the genome's start and end, where the rescue
+    window leaves the genome."""
+    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
+
+    seqs = random_genome([("chrA", 90_000), ("chrB", 50_000)], seed=13)
+    g = seqs[0][1]
+    block = g[8_000:8_300].copy()
+    g[40_000:40_300] = block
+    seqs[1][1][17_000:17_300] = block
+    seqs[1][1][25_000:25_040] = 4
+    cat = np.concatenate([s for _, s in seqs])
+    names, reads, _ = simulate_reads(seqs, n_pairs, read_len=L,
+                                     sub_rate=0.01, seed=6, pe=True,
+                                     insert_min=200, insert_max=500)
+    rc = lambda x: np.where(x >= 4, x, 3 - x)[::-1]
+    for i in range(4, n_pairs, 7):
+        s = (8_000, 40_000)[i % 2] + 30 + i % 50
+        reads[2 * i] = g[s:s + L]
+        reads[2 * i + 1] = rc(g[s + 320:s + 420])
+    for i in range(5, n_pairs, 11):
+        r = reads[2 * i + i % 2]
+        r[4:93:11] = (r[4:93:11] + 1) % 4
+    for i, (s, ins) in enumerate(((3, 330), (len(cat) - 410, 410))):
+        for k in (0, 1):
+            a, b = cat[s:s + L].copy(), rc(cat[s + ins - L:s + ins])
+            dead = (a, b)[k]
+            dead[4:93:11] = (dead[4:93:11] + 1) % 4
+            reads[4 * i + 2 * k], reads[4 * i + 2 * k + 1] = a, b
+    return seqs, names, reads
+
+
+@pytest.mark.cuda
+def test_rescue_window_on_the_card_equals_cpu(cuda_device):
+    from biokanga_tpu_torch.align.pe import rescue_window
+    from biokanga_tpu_torch.index.build import build_index
+    from biokanga_tpu_torch.index.device import to_device
+
+    seqs, _, _ = _pe_case(8)
+    idx = build_index(seqs, lut_bases=8)
+    cat = np.concatenate([s for _, s in seqs])
+    n, B, L, Wlen = len(cat), 192, 100, 500
+    rng = np.random.default_rng(3)
+    # windows from 400 below the genome's start to 100 before its end
+    win = np.linspace(-400, n - 100, B).astype(np.int32)
+    src = np.clip(win + rng.integers(0, Wlen - L, B), 0, n - L)
+    reads = cat[src[:, None] + np.arange(L)].astype(np.int8)
+    lens = np.where(rng.random(B) < 0.3, L - rng.integers(1, 30, B),
+                    L).astype(np.int32)
+    reads[np.arange(L)[None, :] >= lens[:, None]] = 4
+    reads[::9] = rng.integers(0, 4, (len(reads[::9]), L))
+    mtm = np.full(B, 10, np.int32)
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        didx = to_device(idx, dev)
+        before = ep.hamming_extend_packed.launches
+        res = rescue_window(didx, *[torch.from_numpy(a).to(dev) for a in
+                                    (win, reads, lens, mtm)], Wlen)
+        assert ep.hamming_extend_packed.launches == \
+            before + (dev.type == "cuda")
+        out[dev.type] = {k: v.cpu() for k, v in res.items()}
+    for k in out["cpu"]:
+        assert torch.equal(out["cpu"][k], out["cuda"][k]), k
+    ok = out["cuda"]["ok"]
+    assert ok[:8].any() and ok[-8:].any() and not ok[::9].any()
+    assert int(ok.sum()) > B // 2
+
+
+@pytest.mark.cuda
+def test_pe_cli_sam_on_the_card_equals_cpu(cuda_device, tmp_path):
+    from biokanga_tpu_torch.cli import main
+    from biokanga_tpu_torch.index.build import build_index, save_index
+    from biokanga_tpu_torch.seq.fasta import write_fastq
+
+    seqs, names, reads = _pe_case()
+    save_index(build_index(seqs, lut_bases=8), str(tmp_path / "ref.npz"))
+    for m in (0, 1):
+        write_fastq(str(tmp_path / f"r{m + 1}.fq"),
+                    ((nm, rd, None) for nm, rd in zip(names[m::2],
+                                                      reads[m::2])))
+    common = ["-i", str(tmp_path / "r1.fq"), "-u", str(tmp_path / "r2.fq"),
+              "-I", str(tmp_path / "ref.npz"), "-d", "100", "-D", "600",
+              "--batch-size", "256"]
+    for dev in ("cpu", "cuda"):
+        before = ep.hamming_extend_packed.launches
+        assert main(["align", "-o", str(tmp_path / f"{dev}.sam"),
+                     "--peinsertdist", str(tmp_path / f"{dev}.csv"),
+                     "-F", str(tmp_path / f"{dev}.log"), "--device", dev]
+                    + common) == 0
+        launched = ep.hamming_extend_packed.launches - before
+        assert (launched > 0) == (dev == "cuda")
+    cpu_sam = (tmp_path / "cpu.sam").read_bytes()
+    assert (tmp_path / "cuda.sam").read_bytes() == cpu_sam
+    assert (tmp_path / "cuda.csv").read_bytes() == \
+        (tmp_path / "cpu.csv").read_bytes()
+    recs = [ln.split("\t") for ln in cpu_sam.decode().splitlines()
+            if not ln.startswith("@")]
+    assert len(recs) == 1_200
+    assert sum(int(r[1]) & 2 > 0 for r in recs) > 1_000
+    # the seed-dead mates at the genome's two ends were rescued
+    assert all(int(r[1]) & 2 for r in recs[:8])
+    assert " 0 mates rescued" not in (tmp_path / "cuda.log").read_text()
