@@ -4,46 +4,45 @@
 // Replaces two TPU kernels of biokanga_tpu/ops/pallas_sw.py: `_kernel_moves`
 // (banded_sw_moves, the error-correction SW step) and `_kernel`
 // (banded_sw_score, the same DP reporting the score and best cell only).
-// One template serves both; MOVES=false compiles the move output out.
 //
 // The DP is the JAX package's, cell for cell.  Pair p aligns query a[p]
 // (rows i < min(alen, La)) against its target band window bwin[p]
 // (bwin[t] = b[t - W + diag], see ops/banded_sw.py normalize_band); band
 // column k in [0, K), K = 2W+1, of row i reads bwin[i + k] and is valid
-// when jlo <= i + k - W < jhi.  Per row, with match/mismatch `sub` (N
-// never matches):
+// when jlo <= i + k - W < jhi.  Per row, with match/mismatch `sub` (the
+// bases match when equal and both below 4):
 //   E  = max(Hup + gap_open, Eup + gap_ext)     (up: column k+1, row i-1)
 //   Hd = H + sub                                (diagonal: column k)
-//   H0 = max(Hd, E, 0, sub > 0 ? sub : 0)
+//   H0 = max(Hd, E, 0, sub > 0 ? sub : 0)  =  max(Hd, E, sub, 0)
 //   F  = max_{k' < k} H0[k'] + gap_open + (k - k' - 1) gap_ext   (lazy F)
 //   H  = max(H0, F, 0);  H and E are NEG outside the band.
 // The move code of a cell is STOP < LEFT (H == F) < UP (H == E) < DIAG
 // (H == Hd), each only where H > 0.  The best cell is the first row whose
 // maximum exceeds the best so far, at its lowest column; a pair with no
-// positive cell reports (0, 0, 0).
+// positive cell reports (0, 0, 0).  With moves, word mv[p][i >> 4][k] holds
+// code(i, k) at bit 2*(i & 15), shape (B, ceil(La/16), K); words of rows at
+// or past alen are 0 (STOP).
 //
-// Design: one warp per pair.  Lane l holds the C consecutive band columns
-// k = l*C .. l*C + C-1 of H and E in registers (C = ceil(K/32) rounded up
-// to a compiled width: 7 at the default W = 96).  Per row:
-//   - the query base is a warp broadcast (__shfl_sync) from 32 bases
-//     staged one per lane every 32 rows;
-//   - the target bases shift down one column: each lane moves its
-//     registers along and takes its last one from the next lane
-//     (__shfl_down_sync); lane 31 takes a base staged every 32 rows;
-//   - the up-neighbour of a lane's last column comes from the next lane
-//     (__shfl_down_sync);
-//   - the lazy-F running max is a per-lane prefix max, a 5-step
-//     __shfl_up_sync scan of the lane totals, then a fix-up;
-//   - the row maximum is one __reduce_max_sync; only when it beats the
-//     best so far (rare) does a __reduce_min_sync find its lowest column.
-// With MOVES, each lane gathers 16 rows of 2-bit codes per column in one
-// 32-bit register and stores one word per column every 16 rows:
-//   mv[p][i >> 4][k] bit 2*(i & 15) = code(i, k),   shape (B, ceil(La/16), K).
-// Words of rows at or past alen are written as 0 (STOP).
+// Layout: the band in registers, lane l holding C consecutive columns
+// (C = ceil(K/32) rounded up to a compiled width: 7 at the default
+// W = 96), one warp a block, so that the loop bounds and every branch on
+// them are warp-uniform (no convergence code around the shuffles).  Per
+// row the warp broadcasts the query base (__shfl_sync of 32 bases staged
+// a lane each), shifts the target bases and takes its up-neighbours from
+// the next lane (__shfl_down_sync), runs the lazy-F prefix max as a
+// per-lane prefix plus a 5-step __shfl_up_sync scan of the lane totals,
+// and finds the row maximum with one __reduce_max_sync (the lowest column
+// only when the best improves, rare).
 //
-// Bound on the H100: integer operations, not bytes.  A cell costs some 20
-// int32 operations (25 with moves) of a strictly serial row recurrence,
-// while the bytes are 2 per row in and, with moves, 4 per 16 cells out.
+// Bound on the H100: integer operations (bytes are 2 per row in and, with
+// moves, 4 per 16 cells out), issued by one warp a pair.  One int32 a cell;
+// Hopper's DPX instructions take the max chains: E is __viaddmax_s32, H0
+// one __vimax3_s32_relu, the lazy-F prefix one __viaddmax_s32 a cell; the
+// band test is one bit of a per-row lane mask; the codes enter their words
+// by a funnel shift, so no shift depends on the row.  One warp a block
+// keeps the shuffles free of convergence code.  16-bit lanes (two columns
+// or two pairs a register) were tried and ran slower at the error
+// correction's chunks of ~1,300 pairs; PERF.md lists each design's times.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,20 +52,38 @@ namespace {
 constexpr int kNeg = -10000000;     // ops/sw.py NEG
 constexpr int kStop = 0, kDiag = 1, kUp = 2, kLeft = 3;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpsPerBlock = 4;
+
+// a query base as compared: 0..3 (or a negative code) itself, else a value
+// no target base takes; a target base likewise
+__device__ __forceinline__ int query_code(int a) {
+    return a < 4 ? a : 0x4000;
+}
+__device__ __forceinline__ int target_code(int b) {
+    return b < 4 ? b : 0x2000;
+}
+
+// columns [lo, hi) of the C a lane holds that are in the band, as a mask
+__device__ __forceinline__ uint32_t band_bits(int lo, int hi, int C) {
+    lo = lo < 0 ? 0 : (lo > C ? C : lo);
+    hi = hi < 0 ? 0 : (hi > C ? C : hi);
+    const uint32_t below_hi = hi >= 32 ? 0xffffffffu : (1u << hi) - 1u;
+    const uint32_t below_lo = lo >= 32 ? 0xffffffffu : (1u << lo) - 1u;
+    return below_hi & ~below_lo;
+}
 
 template <int C, bool MOVES>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+__global__ void __launch_bounds__(32)
 banded_sw_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bwin,
                  const int32_t* __restrict__ alen,
                  const int32_t* __restrict__ jlo,
-                 const int32_t* __restrict__ jhi, int32_t* __restrict__ best_out,
+                 const int32_t* __restrict__ jhi,
+                 int32_t* __restrict__ best_out,
                  int32_t* __restrict__ bi_out, int32_t* __restrict__ bk_out,
                  int32_t* __restrict__ mv, int B, int La, int T, int W,
                  int match, int mismatch, int gap_open, int gap_ext) {
-    const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
-    if (p >= B) return;                       // whole warps leave together
+    const int p = blockIdx.x;                 // one warp a block: p, the
+    const int lane = threadIdx.x;             // loop bounds and every branch
+                                              // on them are warp-uniform
     const int K = 2 * W + 1;
     const int Wd = (La + 15) >> 4;
     const int8_t* ap = a + (int64_t)p * La;
@@ -75,8 +92,12 @@ banded_sw_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bwin,
     n_rows = n_rows < 0 ? 0 : (n_rows > La ? La : n_rows);
     const int lo = jlo[p], hi = jhi[p];
     const int k0 = lane * C;
+    // the band columns of row i are k in [lo + W - i, hi + W - i) and < K
+    const int lo_rel = lo + W - k0;
+    const int hi_rel = hi + W - k0;
+    const int k_rel_end = K - k0;
 
-    int H[C], E[C], bb[C];
+    int H[C], E[C], bb[C], run_k[C], f_k[C];
     uint32_t word[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -84,22 +105,26 @@ banded_sw_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bwin,
         E[c] = kNeg;
         word[c] = 0;
         const int t = k0 + c;
-        bb[c] = t < T ? bp[t] : 4;
+        bb[c] = target_code(t < T ? bp[t] : 4);
+        run_k[c] = -gap_ext * (k0 + c);              // H0 - k * gap_ext
+        f_k[c] = gap_ext * (k0 + c) + gap_open - gap_ext;
     }
     int best = 0, bi = 0, bk = 0;
-    int a_stage = 4, b_stage = 4;
+    int a_stage = 0x4000, b_stage = 0x2000;
 
     for (int i = 0; i < n_rows; ++i) {
         const int r = i & 31;
         if (r == 0) {
-            a_stage = i + lane < La ? ap[i + lane] : 4;
+            a_stage = query_code(i + lane < La ? ap[i + lane] : 4);
             const int t = i + 32 * C + lane;  // enters lane 31 at row i+lane+1
-            b_stage = t < T ? bp[t] : 4;
+            b_stage = target_code(t < T ? bp[t] : 4);
         }
         const int ai = __shfl_sync(kFull, a_stage, r);
         int h_next = __shfl_down_sync(kFull, H[0], 1);
         int e_next = __shfl_down_sync(kFull, E[0], 1);
         if (lane == 31) h_next = e_next = kNeg;
+        const int hi_c = hi_rel - i < k_rel_end ? hi_rel - i : k_rel_end;
+        const uint32_t inb = band_bits(lo_rel - i, hi_c, C);
 
         // E, Hd and H0 (H0 replaces H in place; H[c+1] is still last row's)
         int hd[MOVES ? C : 1];
@@ -109,47 +134,40 @@ banded_sw_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bwin,
         for (int c = 0; c < C; ++c) {
             const int hup = c + 1 < C ? H[c + 1] : h_next;
             const int eup = c + 1 < C ? E[c + 1] : e_next;
-            const int e = max(hup + gap_open, eup + gap_ext);
-            const int bj = bb[c];
-            const int sub = (ai == bj && ai < 4 && bj < 4) ? match : mismatch;
+            const int e = __viaddmax_s32(eup, gap_ext, hup + gap_open);
+            const int sub = ai == bb[c] ? match : mismatch;
             const int d = H[c] + sub;
-            int h0 = max(max(d, e), 0);
-            h0 = max(h0, sub > 0 ? sub : 0);
             if (MOVES) hd[MOVES ? c : 0] = d;
             E[c] = e;
-            H[c] = h0;
-            run_max = max(run_max, h0 - gap_ext * (k0 + c));
+            H[c] = __vimax3_s32_relu(d, e, sub);
+            run_max = __viaddmax_s32(H[c], run_k[c], run_max);
             pm[c] = run_max;
         }
         // lazy F: exclusive prefix max over the band of H0 - gap_ext * k
+        // (a lane below d gets its own value back from __shfl_up_sync)
         int scan = run_max;
 #pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const int y = __shfl_up_sync(kFull, scan, d);
-            if (lane >= d) scan = max(scan, y);
-        }
+        for (int d = 1; d < 32; d <<= 1)
+            scan = max(scan, __shfl_up_sync(kFull, scan, d));
         int excl = __shfl_up_sync(kFull, scan, 1);
         if (lane == 0) excl = kNeg;
 
-        const int j0 = i + k0 - W;
         int row_max = kNeg;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-            const int k = k0 + c;
             const int prev = c == 0 ? excl : max(excl, pm[c - 1]);
-            const int f = prev + gap_ext * k + gap_open - gap_ext;
-            const int j = j0 + c;
-            const bool inb = j >= lo && j < hi && k < K;
-            const int h = inb ? max(max(H[c], f), 0) : kNeg;
-            const int e = inb ? E[c] : kNeg;
+            const int f = prev + f_k[c];
+            const bool in = (inb >> c) & 1u;
+            const int h = in ? __vimax_s32_relu(H[c], f) : kNeg;
+            const int e = in ? E[c] : kNeg;
             if (MOVES) {
-                int code = kStop;
-                if (h > 0) {
-                    if (h == f) code = kLeft;
-                    if (h == e) code = kUp;
-                    if (h == hd[MOVES ? c : 0]) code = kDiag;
-                }
-                word[c] |= (uint32_t)code << (2 * (i & 15));
+                int code = h == f ? kLeft : kStop;
+                code = h == e ? kUp : code;
+                code = h == hd[MOVES ? c : 0] ? kDiag : code;
+                code = h > 0 ? code : kStop;
+                // row i's code enters at bits 30-31 and moves down two bits
+                // a row: after 16 rows row r sits at bit 2*r
+                word[c] = __funnelshift_r(word[c], (uint32_t)code, 2);
             }
             H[c] = h;
             E[c] = e;
@@ -166,10 +184,11 @@ banded_sw_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bwin,
             bi = i;
         }
         if (MOVES && ((i & 15) == 15 || i == n_rows - 1)) {
+            const int sh = 2 * (15 - (i & 15));   // a short last word
             int32_t* dst = mv + ((int64_t)p * Wd + (i >> 4)) * K;
 #pragma unroll
             for (int c = 0; c < C; ++c) {
-                if (k0 + c < K) dst[k0 + c] = (int32_t)word[c];
+                if (k0 + c < K) dst[k0 + c] = (int32_t)(word[c] >> sh);
                 word[c] = 0;
             }
         }
@@ -197,21 +216,26 @@ banded_sw_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bwin,
     }
 }
 
+
+struct Args {
+    const int8_t* a;
+    const int8_t* bwin;
+    const int32_t *alen, *jlo, *jhi;
+    int32_t *best, *bi, *bk, *mv;
+    int B, La, T, W, match, mismatch, gap_open, gap_ext;
+};
+
 template <bool MOVES>
-cudaError_t launch(int cols, const int8_t* a, const int8_t* bwin,
-                   const int32_t* alen, const int32_t* jlo,
-                   const int32_t* jhi, int32_t* best, int32_t* bi, int32_t* bk,
-                   int32_t* mv, int B, int La, int T, int W, int match,
-                   int mismatch, int gap_open, int gap_ext,
-                   cudaStream_t stream) {
-    const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
-    const dim3 block(32 * kWarpsPerBlock);
-#define BIOKANGA_SW_CASE(CC)                                                \
-    if (cols <= 32 * CC) {                                                  \
-        banded_sw_kernel<CC, MOVES><<<grid, block, 0, stream>>>(            \
-            a, bwin, alen, jlo, jhi, best, bi, bk, mv, B, La, T, W, match,  \
-            mismatch, gap_open, gap_ext);                                   \
-        return cudaGetLastError();                                          \
+cudaError_t launch(const Args& x, cudaStream_t stream) {
+    const int cols = 2 * x.W + 1;
+    const dim3 grid(x.B), block(32);
+#define BIOKANGA_SW_CASE(CC)                                                 \
+    if (cols <= 32 * CC) {                                                   \
+        banded_sw_kernel<CC, MOVES><<<grid, block, 0, stream>>>(             \
+            x.a, x.bwin, x.alen, x.jlo, x.jhi, x.best, x.bi, x.bk, x.mv,     \
+            x.B, x.La, x.T, x.W, x.match, x.mismatch, x.gap_open,            \
+            x.gap_ext);                                                      \
+        return cudaGetLastError();                                           \
     }
     BIOKANGA_SW_CASE(1)
     BIOKANGA_SW_CASE(2)
@@ -235,20 +259,10 @@ extern "C" int banded_sw(const void* a, const void* bwin, const void* alen,
                          int gap_ext, void* stream) {
     if (W < 0 || 2 * W + 1 > 512) return (int)cudaErrorInvalidValue;
     if (B <= 0) return (int)cudaGetLastError();
-    const int K = 2 * W + 1;
-    auto s = (cudaStream_t)stream;
-    auto a8 = (const int8_t*)a;
-    auto b8 = (const int8_t*)bwin;
-    auto al = (const int32_t*)alen;
-    auto lo = (const int32_t*)jlo;
-    auto hi = (const int32_t*)jhi;
-    auto o0 = (int32_t*)best;
-    auto o1 = (int32_t*)bi;
-    auto o2 = (int32_t*)bk;
-    const cudaError_t err =
-        mv ? launch<true>(K, a8, b8, al, lo, hi, o0, o1, o2, (int32_t*)mv, B,
-                          La, T, W, match, mismatch, gap_open, gap_ext, s)
-           : launch<false>(K, a8, b8, al, lo, hi, o0, o1, o2, nullptr, B, La,
-                           T, W, match, mismatch, gap_open, gap_ext, s);
-    return (int)err;
+    const Args x{(const int8_t*)a,   (const int8_t*)bwin, (const int32_t*)alen,
+                 (const int32_t*)jlo, (const int32_t*)jhi, (int32_t*)best,
+                 (int32_t*)bi,        (int32_t*)bk,        (int32_t*)mv,
+                 B, La, T, W, match, mismatch, gap_open, gap_ext};
+    const auto s = (cudaStream_t)stream;
+    return (int)(mv ? launch<true>(x, s) : launch<false>(x, s));
 }

@@ -12,7 +12,8 @@ the target has there:
     ins_base (B, La+1, 4) int32: the same insertions by base (N as T).
 
 On a CUDA tensor `traceback_cols_packed` launches csrc/sw_trace.cu (one
-thread per pair) or raises; on a CPU tensor it runs
+warp per pair, the move words of a 64-column window in registers) or
+raises; on a CPU tensor it runs
 `traceback_cols_packed_plain`, a loop over query rows, bottom up, in torch
 over (B, K) tensors that follows the JAX decode line for line.
 """

@@ -17,10 +17,14 @@ Phases, each of which raises on failure:
   6. time the align engine alone on the 262,144 reads;
   7. hold the Smith-Waterman kernels (banded_sw_moves, banded_sw_score)
      and the traceback decode (sw_trace) against their plain versions at
-     error-correction shapes (64 pairs of 10,240 bases, W = 96), time
-     each at one SW chunk (1,024 pairs); then score one 100 kb noisy pair
-     with banded_sw_score, as the JAX package's only caller of that
-     kernel (scripts/bench_longread.py) does;
+     error-correction shapes (64 pairs of 10,240 bases, W = 96) and on
+     the tests' edge cases (decode planes with long LEFT runs and climbs
+     out of the band; scores near and past 2**15), time each at one SW
+     chunk (1,024 pairs) and at the EC cell's chunk size, with the
+     decode's dependent-chain floor;
+     then score one 100 kb noisy pair with banded_sw_score, as the JAX
+     package's only caller of that kernel (scripts/bench_longread.py)
+     does;
   8. correct 24 noisy 1.5 kb reads with `python -m biokanga_tpu_torch
      ecreads --rounds 2` with --device cpu and --device cuda and require
      byte-identical FASTA;
@@ -101,6 +105,11 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # selects and a shift-or (8)
 SW_OPS_PER_CELL = 18
 SW_MOVES_OPS_PER_CELL = 26
+# the decode's dependent chain: one row's step is a shuffle (~24 cycles)
+# and some 6 dependent integer operations (subtract, select, mask, add,
+# compare, select) of ~4 cycles
+TRACE_STEP_CYCLES = 48
+SM_CLOCK_HZ = 1.98e9
 
 
 def _timed_ms(fn, iters: int = 10) -> float:
@@ -452,13 +461,61 @@ def _sw_inputs(dev, a, b, alen, blen, diag, La, W):
             torch.from_numpy(alen).to(dev), jlo, jhi)
 
 
-def check_sw(dev, rng):
-    """banded_sw_moves / banded_sw_score / sw_trace against their plain
-    versions at EC shapes, exactly; then each timed at one SW chunk."""
+def _edge_cases():
+    """tests/sw_edge_cases.py: the inputs the SW and decode tests use."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import sw_edge_cases
+
+    return sw_edge_cases
+
+
+def _check_sw_edges(dev):
+    """The kernels on the tests' edge cases: decode planes with long LEFT
+    runs, runs to column 0 and climbs out of the band; pairs whose scores
+    come near 2**15 and pass it.  Returns the largest error of each
+    kernel."""
     import torch
 
     from biokanga_tpu_torch.ops import banded_sw as bsw
     from biokanga_tpu_torch.ops import sw_trace
+
+    edges = _edge_cases()
+    err = {"sw_trace": 0, "banded_sw_moves": 0, "banded_sw_score": 0}
+    for La, W, B in ((SW_LA, SW_W, 24), (77, 40, 13), (100, 24, 7)):
+        planes = [torch.from_numpy(x).to(dev)
+                  for x in edges.decode_planes(La + W, B, La, W)]
+        got = sw_trace.traceback_cols_packed(*planes, W, La)
+        want = sw_trace.traceback_cols_packed_plain(*planes, W, La)
+        err["sw_trace"] = max(err["sw_trace"], *(_max_abs_err(g, w)
+                                                 for g, w in zip(got, want)))
+    for scoring, past in ((edges.SCORING_BELOW_2_15, False),
+                          (edges.SCORING_PAST_2_15, True)):
+        La, W = (320, 24) if past else (256, 24)
+        args = _sw_inputs(dev, *edges.near_identical_pairs(La, 9, La, W),
+                          La, W)
+        kw = dict(zip(("match", "mismatch", "gap_open", "gap_ext"), scoring))
+        want = bsw.banded_sw_moves_plain(*args, W, **kw)
+        err["banded_sw_moves"] = max(err["banded_sw_moves"], *(
+            _max_abs_err(g, w) for g, w in
+            zip(bsw.banded_sw_moves(*args, W, **kw), want)))
+        err["banded_sw_score"] = max(err["banded_sw_score"], *(
+            _max_abs_err(g, w) for g, w in
+            zip(bsw.banded_sw_score(*args, W, **kw), want[:3])))
+        top = int(want[0].max())
+        if (top > 32_767) != past:
+            raise AssertionError(f"edge pairs scored {top} at {scoring}")
+    return err
+
+
+def check_sw(dev, rng):
+    """banded_sw_moves / banded_sw_score / sw_trace against their plain
+    versions at EC shapes and on the edge cases, exactly; then each timed
+    at one SW chunk of 1,024 pairs and at the EC cell's chunk size."""
+    import torch
+
+    from biokanga_tpu_torch.ops import banded_sw as bsw
+    from biokanga_tpu_torch.ops import sw_trace
+    from biokanga_tpu_torch.pacbio.ecreads import ECParams, _pair_bytes
 
     La, W = SW_LA, SW_W
     args = _sw_inputs(dev, *_sw_pairs(rng, SW_CHECK_PAIRS, La, W), La, W)
@@ -482,9 +539,17 @@ def check_sw(dev, rng):
     print(f"SW kernels exact against plain torch on {SW_CHECK_PAIRS} pairs "
           f"of <= {La} bases, W {W}: best scores "
           f"{int(best.min())}..{int(best.max())}")
+    edge_err = _check_sw_edges(dev)
+    if any(edge_err.values()):
+        raise AssertionError(f"SW kernels disagree on edge cases: {edge_err}")
+    print("SW kernels exact on the edge cases: decode planes with LEFT runs "
+          "past 32 columns, runs to column 0 and climbs out of the band; "
+          "scores near and past 2**15")
 
-    # one SW chunk of the EC path
-    args = _sw_inputs(dev, *_sw_pairs(rng, SW_CHUNK_PAIRS, La, W), La, W)
+    # one SW chunk of the phase's pairs, and the EC cell's chunk size
+    n_ec = ECParams().sw_chunk_bytes // _pair_bytes(La, W)
+    pairs = _sw_pairs(rng, max(SW_CHUNK_PAIRS, n_ec), La, W)
+    args = _sw_inputs(dev, *(x[:SW_CHUNK_PAIRS] for x in pairs), La, W)
     a, bwin, alen, jlo, jhi = args
     best, bi, bk, mv = bsw.banded_sw_moves(*args, W)
     out = sw_trace.traceback_cols_packed(mv, bi, bk, bwin, W, La)
@@ -505,31 +570,46 @@ def check_sw(dev, rng):
     in_bytes = _nbytes(a, bwin, alen, jlo, jhi)
     # the decode reads the codes and target bases along each path only
     path_rows = int((out[0] != 6).sum()) + int(out[1].sum())
+    longest = int((out[0] != 6).sum(1).max())
     timing = {
         "banded_sw_moves": dict(
-            ms=_timed_ms(lambda: bsw.banded_sw_moves(*args, W), 3),
+            ms=_timed_ms(lambda: bsw.banded_sw_moves(*args, W), 5),
             plain_ms=moves_plain, library_ms=None,
             bound=_bound(in_bytes + _nbytes(best, bi, bk, mv),
                          cells * SW_MOVES_OPS_PER_CELL)),
         "banded_sw_score": dict(
-            ms=_timed_ms(lambda: bsw.banded_sw_score(*args, W), 3),
+            ms=_timed_ms(lambda: bsw.banded_sw_score(*args, W), 5),
             plain_ms=score_plain, library_ms=None,
             bound=_bound(in_bytes + _nbytes(best, bi, bk),
                          cells * SW_OPS_PER_CELL)),
         "sw_trace": dict(
             ms=_timed_ms(lambda: sw_trace.traceback_cols_packed(
-                mv, bi, bk, bwin, W, La), 3),
+                mv, bi, bk, bwin, W, La), 5),
             plain_ms=trace_plain, library_ms=None,
             bound=_bound(_nbytes(bi, bk, *out) + 5 * path_rows,
-                         12 * path_rows)),
+                         12 * path_rows),
+            chain_ms=longest * TRACE_STEP_CYCLES / SM_CLOCK_HZ * 1e3),
     }
+    tm, tt = timing["banded_sw_moves"], timing["sw_trace"]
     for name in ("banded_sw_moves", "banded_sw_score"):
         t = timing[name]
         print(f"{name}: {SW_CHUNK_PAIRS} pairs x {La} x K {K}: "
               f"{t['ms']:.4f} ms, {cells / t['ms'] / 1e6:.2f} GCUPS "
               f"(plain torch {t['plain_ms']:.1f} ms, once)")
-    print(f"sw_trace: {SW_CHUNK_PAIRS} pairs: {timing['sw_trace']['ms']:.4f} "
-          f"ms (plain torch {trace_plain:.1f} ms, once)")
+    print(f"sw_trace: {SW_CHUNK_PAIRS} pairs: {tt['ms']:.4f} ms (plain torch "
+          f"{trace_plain:.1f} ms, once); byte bound {tt['bound'][0]:.4f} ms; "
+          f"dependent-chain floor {tt['chain_ms']:.4f} ms ({longest} rows on "
+          f"the longest path x {TRACE_STEP_CYCLES} cycles a step / "
+          f"{SM_CLOCK_HZ / 1e9:.2f} GHz)")
+    args = _sw_inputs(dev, *(x[:n_ec] for x in pairs), La, W)
+    best, bi, bk, mv = bsw.banded_sw_moves(*args, W)
+    tm["ms_ec_chunk"] = _timed_ms(lambda: bsw.banded_sw_moves(*args, W), 5)
+    tt["ms_ec_chunk"] = _timed_ms(lambda: sw_trace.traceback_cols_packed(
+        mv, bi, bk, args[1], W, La), 5)
+    tm["ec_chunk_pairs"] = tt["ec_chunk_pairs"] = n_ec
+    print(f"the EC cell's chunk, {n_ec} pairs x {La}: banded_sw_moves "
+          f"{tm['ms_ec_chunk']:.4f} ms, sw_trace "
+          f"{tt['ms_ec_chunk']:.4f} ms")
     return err, timing
 
 
@@ -1254,6 +1334,8 @@ def main() -> int:
               f"{t['plain_ms']:.4f} ms, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
               f"{bound_ms:.4f} ms ({bound_by}) ({smi})")
+        extra = {k: t[k] for k in ("ms_ec_chunk", "ec_chunk_pairs",
+                                   "chain_ms") if k in t}
         kernels_line.append({
             "name": name, "route": "cuda", "source": src + path,
             "replaces": rep, "launches": launches[name],
@@ -1261,7 +1343,7 @@ def main() -> int:
                if name in se_launches else {}),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms})
+            "bound_by": bound_by, "library_ms": lib_ms, **extra})
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "biokanga_tpu"))
     if leaked:

@@ -94,21 +94,28 @@ def profile_ec() -> dict:
     from chip_smoke import (EC_ERR, EC_GENOME_KB, EC_READ_LEN, EC_READS,
                             EC_SEED, gen_reads)
 
+    from biokanga_tpu_torch.ops import banded_sw, sw_trace
+
     reads, _ = gen_reads(EC_READS, EC_READ_LEN, EC_GENOME_KB, EC_ERR,
                          seed=EC_SEED)
     p = ECParams(max_targets=48)
     dev = torch.device("cuda")
     ec_reads(reads[:40], p, rounds=1, device=dev)             # warm-up
     torch.cuda.synchronize()
+    banded_sw.banded_sw_moves.launches = 0
+    sw_trace.traceback_cols_packed.launches = 0
     t0 = time.monotonic()
     _, st = ec_reads(reads, p, rounds=2, device=dev)
     wall = time.monotonic() - t0
+    launches = {"banded_sw_moves": banded_sw.banded_sw_moves.launches,
+                "sw_trace": sw_trace.traceback_cols_packed.launches}
     wall_prof, events = _profiled(
         lambda: ec_reads(reads, p, rounds=2, device=dev))
     return _summary("ec", wall, wall_prof, events,
                     {"pairs": st["pairs"],
                      "overlaps_used": st["overlaps_used"],
-                     "sw_ms": st["sw_ms"], "trace_ms": st["trace_ms"]})
+                     "sw_ms": st["sw_ms"], "trace_ms": st["trace_ms"],
+                     "launches": launches})
 
 
 def profile_align() -> dict:

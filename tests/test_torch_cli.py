@@ -256,7 +256,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     root = pathlib.Path(ROOT)
     files = sorted((root / "biokanga_tpu_torch").rglob("*.py"))
     files += [root / "chip_smoke.py", root / "profile_torch.py",
-              root / "scripts" / "probe_stream_gather_torch.py"]
+              root / "scripts" / "probe_stream_gather_torch.py",
+              root / "scripts" / "sass_sw_torch.py",
+              root / "scripts" / "bench_sw_torch.py"]
     assert len(files) > 30
     bad = [(str(f.relative_to(root)), m) for f in files
            for m in _imported_modules(f)

@@ -187,7 +187,8 @@ def _sw_args(dev, a, b, alen, blen, diag, La, W):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,La,W", [(96, 2048, 96), (40, 1000, 24),
-                                    (7, 600, 255), (33, 512, 5)])
+                                    (7, 600, 255), (33, 512, 5),
+                                    (3, 300, 96), (130, 777, 40)])
 def test_banded_sw_kernels_match_plain(cuda_device, B, La, W):
     rng = np.random.default_rng(La + W)
     args = _sw_args(cuda_device, *_sw_pairs(rng, B, La, W), La, W)
@@ -205,7 +206,8 @@ def test_banded_sw_kernels_match_plain(cuda_device, B, La, W):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,La,W", [(96, 2048, 96), (40, 1000, 24)])
+@pytest.mark.parametrize("B,La,W", [(96, 2048, 96), (40, 1000, 24),
+                                    (7, 333, 96)])
 def test_sw_trace_kernel_matches_plain(cuda_device, B, La, W):
     rng = np.random.default_rng(B)
     args = _sw_args(cuda_device, *_sw_pairs(rng, B, La, W), La, W)
@@ -218,6 +220,46 @@ def test_sw_trace_kernel_matches_plain(cuda_device, B, La, W):
         assert torch.equal(g, w)
     out, ins_cnt, _ = want
     assert (out == 5).any() and (ins_cnt > 0).any() and (out < 4).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,La,W", [(12, 100, 24), (13, 77, 40),
+                                    (25, 256, 96), (6, 2048, 96),
+                                    (5, 300, 255)])
+def test_sw_trace_kernel_on_edge_planes(cuda_device, B, La, W):
+    from sw_edge_cases import decode_planes
+
+    planes = [torch.from_numpy(x).to(cuda_device)
+              for x in decode_planes(La + W, B, La, W)]
+    before = sw_trace.traceback_cols_packed.launches
+    got = sw_trace.traceback_cols_packed(*planes, W, La)
+    assert sw_trace.traceback_cols_packed.launches == before + 1
+    want = sw_trace.traceback_cols_packed_plain(*planes, W, La)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(want[1].max()) > 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past", [False, True])
+def test_banded_sw_scores_near_and_past_2_15(cuda_device, past):
+    import sw_edge_cases as edges
+
+    La, W, B = (320, 24, 9) if past else (256, 24, 9)
+    scoring = edges.SCORING_PAST_2_15 if past else edges.SCORING_BELOW_2_15
+    kw = dict(zip(("match", "mismatch", "gap_open", "gap_ext"), scoring))
+    args = _sw_args(cuda_device, *edges.near_identical_pairs(La, B, La, W),
+                    La, W)
+    want = bsw.banded_sw_moves_plain(*args, W, **kw)
+    before = (bsw.banded_sw_moves.launches, bsw.banded_sw_score.launches)
+    got = bsw.banded_sw_moves(*args, W, **kw)
+    score = bsw.banded_sw_score(*args, W, **kw)
+    assert (bsw.banded_sw_moves.launches,
+            bsw.banded_sw_score.launches) == (before[0] + 1, before[1] + 1)
+    for g, w in zip((*got, *score), (*want, *want[:3])):
+        assert torch.equal(g, w)
+    top = int(want[0].max())
+    assert top > 32_767 if past else 24_000 < top <= 32_767
 
 
 @pytest.mark.cuda
