@@ -1,145 +1,434 @@
-// Row-wise bitonic sorts for the aligner: one thread block sorts one read.
+// Row-wise sorts for the aligner: one warp sorts one read's row in
+// registers.
 //
 // Replaces the TPU kernels biokanga_tpu/ops/pallas_sort.py `_sort_kernel`
 // (sort_cols, the diagonal dedup sort) and `_sort2_kernel` (sort2_cols,
 // the (mm*2|rc, locus) accept sort).  Those sort a (C, B) matrix along C
 // with reads in lanes; here the layout is (B, C), one read per row.
 //
-// Design: a row of C int32 values (or key/value pairs) is loaded into
-// dynamic shared memory, padded with INT32_MAX up to P = next power of two,
-// sorted in place by a bitonic network of log2(P)*(log2(P)+1)/2 stages,
-// each stage one compare-exchange per thread pair and one __syncthreads,
-// and the first C values are written back.  Padding sorts last, so the
-// result equals a plain ascending sort of the C values.  Compares are
-// signed; the two-key version compares (key, val) lexicographically.
+// Network: a bitonic sort of P = next power of two >= C positions, the
+// rest padded with the largest value, in its form without directions:
+// merging two sorted runs of size/2 compares position i with
+// i ^ (size - 1), then with i ^ stride for stride = size/4 .. 1, the lower
+// position keeping the smaller value.  Padding sorts last, so the first C
+// outputs equal a plain ascending sort.  Pairs sort as one 64-bit key,
+// (key ^ 2^31) << 32 | (val ^ 2^31), whose unsigned order is the signed
+// lexicographic (key, val) order; the pad (INT32_MAX, INT32_MAX) packs to
+// the largest key.
 //
-// Bounds on the H100: each element crosses device memory once in and once
-// out, so the kernel is bound by shared-memory compare-exchange latency
-// and the barrier per stage, not by HBM.  P*4 bytes (one key) or P*8 bytes
-// (two keys) of shared memory cap P at 32,768 and 16,384 (128 KB); the
-// wrapper (ops/sort.py) refuses larger rows.
+// Rows up to 1,024 values (512 pairs): one warp a row.  Lane l holds the
+// V = P/32 consecutive positions l*V .. l*V+V-1 in registers, loaded and
+// stored 16 bytes at a time where the row allows.  Strides below V are
+// compare-exchanges between registers of one lane (min/max at register
+// indices fixed at compile time, V a template parameter); strides >= V
+// take one __shfl_xor_sync a register to lane l ^ (stride/V), each lane
+// keeping the min or the max by whether it is the lower partner.  At
+// P = 512 (the dedup row of 480) 30 of the 45 stages need no shuffle, and
+// nothing waits at a barrier.  One warp a block, so that the compiler sees
+// the row and every branch but its ragged end as the same in all lanes and
+// wraps no shuffle in convergence code; one wave of blocks walks the rows.
+//
+// Wider rows (up to 32,768 values, 16,384 pairs): one block a row.  Each
+// warp sorts chunks of 32*V positions (1,024 values, 512 pairs) in
+// registers as above; each merge above the chunk size then runs its
+// strides >= the chunk through shared memory, one barrier a stage, and
+// its strides below the chunk in registers again.  Shared memory holds the
+// row with one pad slot every V, so that the 32 lanes' runs of V start in
+// different banks.
+//
+// Bounds on the H100: each value crosses device memory once in and once
+// out (65,536 rows of 480 int32: 0.075 ms at 3.35 TB/s).  The network
+// does P/2 * log2 P * (log2 P + 1) / 2 compare-exchanges a row (11,520 at
+// P = 512), each a min and a max in one lane or a shuffle and a min or max
+// in two: 960 integer min/max a lane and row at P = 512, issued at half
+// the rate of other instructions, so the integer pipe sets the time, not
+// HBM.  A pair's compare-exchange is two compares and four selects.
+// Packing a row's INT32_MAX out before sorting (the dedup rows of the
+// align cells are ~90% INT32_MAX) was measured and not kept: it cost rows
+// that are mostly other values ~1% (PERF.md, the sorts' designs tried).
+// The shared-memory row (P plus P/V slots) caps P at 32,768 values and
+// 16,384 pairs; the wrapper (ops/sort.py) refuses larger rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int32_t kI32Max = 0x7fffffff;
-constexpr int kMaxThreads = 1024;
+using u64 = unsigned long long;
 
-__host__ __device__ inline int next_pow2(int c) {
-    int p = 2;
+constexpr int32_t kI32Max = 0x7fffffff;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kSign = 0x80000000u;
+constexpr int kBlockMaxWarps = 16;     // wide path: warps of a row's block
+
+__host__ __device__ constexpr int log2i(int p) {
+    return p <= 1 ? 0 : 1 + log2i(p >> 1);
+}
+
+int next_pow2(int c) {
+    int p = 1;
     while (p < c) p <<= 1;
     return p;
 }
 
-__global__ void sort_rows_kernel(const int32_t* __restrict__ x,
-                                 int32_t* __restrict__ out, int C, int P) {
-    extern __shared__ int32_t s[];
-    // 64-bit: a fused paired-end batch has 131,072 rows, and B x C would
-    // pass 2^31 at 16,384 values a row (the rescue ladder's wide rows come
-    // in dispatches of 512 and 2,048 rows, far below that)
-    const int64_t base = (int64_t)blockIdx.x * C;
-    for (int i = threadIdx.x; i < P; i += blockDim.x)
-        s[i] = i < C ? x[base + i] : kI32Max;
-    __syncthreads();
-    const int half = P >> 1;
-    for (int size = 2; size <= P; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-            for (int t = threadIdx.x; t < half; t += blockDim.x) {
-                const int lo = 2 * t - (t & (stride - 1));
-                const int hi = lo + stride;
-                const bool up = (lo & size) == 0;
-                const int32_t a = s[lo], b = s[hi];
-                if ((a > b) == up) {
-                    s[lo] = b;
-                    s[hi] = a;
-                }
-            }
-            __syncthreads();
-        }
-    }
-    for (int i = threadIdx.x; i < C; i += blockDim.x) out[base + i] = s[i];
+// compare-exchange: a takes the smaller, b the larger
+__device__ __forceinline__ void cx(int32_t& a, int32_t& b) {
+    const int32_t lo = min(a, b);
+    b = max(a, b);
+    a = lo;
+}
+__device__ __forceinline__ void cx(u64& a, u64& b) {
+    const bool s = b < a;
+    const u64 lo = s ? b : a;
+    b = s ? a : b;
+    a = lo;
 }
 
-__global__ void sort2_rows_kernel(const int32_t* __restrict__ key,
-                                  const int32_t* __restrict__ val,
-                                  int32_t* __restrict__ out_key,
-                                  int32_t* __restrict__ out_val, int C,
-                                  int P) {
-    extern __shared__ int32_t s[];
-    int32_t* sk = s;
-    int32_t* sv = s + P;
-    const int64_t base = (int64_t)blockIdx.x * C;
-    for (int i = threadIdx.x; i < P; i += blockDim.x) {
-        const bool in = i < C;
-        sk[i] = in ? key[base + i] : kI32Max;
-        sv[i] = in ? val[base + i] : kI32Max;
-    }
-    __syncthreads();
-    const int half = P >> 1;
-    for (int size = 2; size <= P; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-            for (int t = threadIdx.x; t < half; t += blockDim.x) {
-                const int lo = 2 * t - (t & (stride - 1));
-                const int hi = lo + stride;
-                const bool up = (lo & size) == 0;
-                const int32_t ka = sk[lo], kb = sk[hi];
-                const int32_t va = sv[lo], vb = sv[hi];
-                const bool gt = (ka > kb) || (ka == kb && va > vb);
-                if (gt == up) {
-                    sk[lo] = kb;
-                    sk[hi] = ka;
-                    sv[lo] = vb;
-                    sv[hi] = va;
-                }
+// what a lane keeps of (own v, partner's w): the lower partner the
+// smaller, the upper partner the larger
+__device__ __forceinline__ int32_t keep(int32_t v, int32_t w, bool lower) {
+    return lower ? min(v, w) : max(v, w);
+}
+__device__ __forceinline__ u64 keep(u64 v, u64 w, bool lower) {
+    return (w < v) == lower ? w : v;
+}
+
+// The first stage of the merge of two sorted runs of size/2: position i
+// against i ^ (size - 1).  Position i = lane * V + r.
+template <typename T, int V>
+__device__ __forceinline__ void flip(T (&x)[V], int size, int lane) {
+    if (size <= V) {
+#pragma unroll
+        for (int r = 0; r < V; ++r)
+            if (!(r & (size >> 1))) cx(x[r], x[r ^ (size - 1)]);
+    } else {
+        // the partner lane is lane ^ (size/V - 1), its register V-1-r
+        const int m = size / V - 1;
+        const bool lower = !(lane & (size / V >> 1));
+        if constexpr (V == 1) {
+            x[0] = keep(x[0], __shfl_xor_sync(kFull, x[0], m), lower);
+        } else {
+#pragma unroll
+            for (int r = 0; r < V / 2; ++r) {
+                const T a = __shfl_xor_sync(kFull, x[V - 1 - r], m);
+                const T b = __shfl_xor_sync(kFull, x[r], m);
+                x[r] = keep(x[r], a, lower);
+                x[V - 1 - r] = keep(x[V - 1 - r], b, lower);
             }
-            __syncthreads();
         }
-    }
-    for (int i = threadIdx.x; i < C; i += blockDim.x) {
-        out_key[base + i] = sk[i];
-        out_val[base + i] = sv[i];
     }
 }
 
-// Opt a kernel in to more than 48 KB of dynamic shared memory when needed.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-    if (smem <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
+// A later stage of a merge: position i against i ^ s.
+template <typename T, int V>
+__device__ __forceinline__ void half_clean(T (&x)[V], int s, int lane) {
+    if (s < V) {
+#pragma unroll
+        for (int r = 0; r < V; ++r)
+            if (!(r & s)) cx(x[r], x[r | s]);
+    } else {
+        const int m = s / V;
+        const bool lower = !(lane & m);
+#pragma unroll
+        for (int r = 0; r < V; ++r)
+            x[r] = keep(x[r], __shfl_xor_sync(kFull, x[r], m), lower);
+    }
 }
+
+// Sort the warp's 32 * V positions ascending.
+template <typename T, int V>
+__device__ __forceinline__ void warp_sort(T (&x)[V], int lane) {
+    constexpr int kLog = log2i(32 * V);
+#pragma unroll
+    for (int k = 1; k <= kLog; ++k) {
+        flip(x, 1 << k, lane);
+#pragma unroll
+        for (int j = k - 2; j >= 0; --j) half_clean(x, 1 << j, lane);
+    }
+}
+
+// The strides below 32 * V of a merge whose larger strides are done.
+template <typename T, int V>
+__device__ __forceinline__ void warp_merge(T (&x)[V], int lane) {
+    constexpr int kLog = log2i(32 * V);
+#pragma unroll
+    for (int j = kLog - 1; j >= 0; --j) half_clean(x, 1 << j, lane);
+}
+
+// Device-memory access of the one-key sort.
+struct OneKey {
+    using T = int32_t;
+    static constexpr T kPad = kI32Max;
+    const int32_t* __restrict__ x;
+    int32_t* __restrict__ out;
+
+    __device__ T load(int64_t i) const { return __ldg(x + i); }
+    __device__ void store(int64_t i, T v) const { out[i] = v; }
+    __device__ void load4(int64_t i, T& a, T& b, T& c, T& d) const {
+        const int4 q = __ldg(reinterpret_cast<const int4*>(x + i));
+        a = q.x;
+        b = q.y;
+        c = q.z;
+        d = q.w;
+    }
+    __device__ void store4(int64_t i, T a, T b, T c, T d) const {
+        *reinterpret_cast<int4*>(out + i) = make_int4(a, b, c, d);
+    }
+};
+
+__device__ __forceinline__ u64 pack(int32_t k, int32_t v) {
+    return (u64)((uint32_t)k ^ kSign) << 32 | ((uint32_t)v ^ kSign);
+}
+__device__ __forceinline__ int32_t key_of(u64 p) {
+    return (int32_t)((uint32_t)(p >> 32) ^ kSign);
+}
+__device__ __forceinline__ int32_t val_of(u64 p) {
+    return (int32_t)((uint32_t)p ^ kSign);
+}
+
+// Device-memory access of the two-key sort: (key, val) as one 64-bit key.
+struct TwoKey {
+    using T = u64;
+    static constexpr T kPad = ~0ull;    // pack(INT32_MAX, INT32_MAX)
+    const int32_t* __restrict__ key;
+    const int32_t* __restrict__ val;
+    int32_t* __restrict__ out_key;
+    int32_t* __restrict__ out_val;
+
+    __device__ T load(int64_t i) const {
+        return pack(__ldg(key + i), __ldg(val + i));
+    }
+    __device__ void store(int64_t i, T v) const {
+        out_key[i] = key_of(v);
+        out_val[i] = val_of(v);
+    }
+    __device__ void load4(int64_t i, T& a, T& b, T& c, T& d) const {
+        const int4 k = __ldg(reinterpret_cast<const int4*>(key + i));
+        const int4 v = __ldg(reinterpret_cast<const int4*>(val + i));
+        a = pack(k.x, v.x);
+        b = pack(k.y, v.y);
+        c = pack(k.z, v.z);
+        d = pack(k.w, v.w);
+    }
+    __device__ void store4(int64_t i, T a, T b, T c, T d) const {
+        *reinterpret_cast<int4*>(out_key + i) =
+            make_int4(key_of(a), key_of(b), key_of(c), key_of(d));
+        *reinterpret_cast<int4*>(out_val + i) =
+            make_int4(val_of(a), val_of(b), val_of(c), val_of(d));
+    }
+};
+
+// Positions first .. first+V-1 of the row at `base`, padded past C.
+// `vec`: C % 4 == 0 and every pointer 16-byte aligned, so a run of 4 is
+// wholly inside the row or wholly past it.
+template <class Rows, int V>
+__device__ __forceinline__ void load_run(const Rows& rows,
+                                         typename Rows::T (&x)[V],
+                                         int64_t base, int first, int C,
+                                         bool vec) {
+    if constexpr (V % 4 == 0) {
+        if (vec) {
+#pragma unroll
+            for (int q = 0; q < V; q += 4) {
+                if (first + q < C) {
+                    rows.load4(base + first + q, x[q], x[q + 1], x[q + 2],
+                               x[q + 3]);
+                } else {
+                    x[q] = x[q + 1] = x[q + 2] = x[q + 3] = Rows::kPad;
+                }
+            }
+            return;
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < V; ++r)
+        x[r] = first + r < C ? rows.load(base + first + r) : Rows::kPad;
+}
+
+template <class Rows, int V>
+__device__ __forceinline__ void store_run(const Rows& rows,
+                                          const typename Rows::T (&x)[V],
+                                          int64_t base, int first, int C,
+                                          bool vec) {
+    if constexpr (V % 4 == 0) {
+        if (vec) {
+#pragma unroll
+            for (int q = 0; q < V; q += 4)
+                if (first + q < C)
+                    rows.store4(base + first + q, x[q], x[q + 1], x[q + 2],
+                                x[q + 3]);
+            return;
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < V; ++r)
+        if (first + r < C) rows.store(base + first + r, x[r]);
+}
+
+// Rows of up to 32 * V positions: one warp a row, grid-stride.
+template <class Rows, int V>
+__global__ void __launch_bounds__(32)
+    sort_rows_warp(Rows rows, int B, int C, bool vec) {
+    // one warp a block: the row, the loop bounds and every branch but the
+    // row's ragged end are the same in all lanes, and the compiler sees it
+    const int lane = threadIdx.x;
+    for (int row = blockIdx.x; row < B; row += gridDim.x) {
+        // 64-bit: a fused paired-end batch has 131,072 rows, and B x C
+        // would pass 2^31 at 16,384 values a row
+        const int64_t base = (int64_t)row * C;
+        typename Rows::T x[V];
+        load_run(rows, x, base, lane * V, C, vec);
+        warp_sort(x, lane);
+        store_run(rows, x, base, lane * V, C, vec);
+    }
+}
+
+// Rows of P > 32 * V positions: one block a row, P / (32 * V) chunks
+// shared by up to kBlockMaxWarps warps.
+template <class Rows, int V>
+__global__ void __launch_bounds__(kBlockMaxWarps * 32)
+    sort_rows_block(Rows rows, int C, int P, bool vec) {
+    using T = typename Rows::T;
+    constexpr int kChunk = 32 * V;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* s = reinterpret_cast<T*>(smem_raw);
+    const int lane = threadIdx.x & 31;
+    // the warp's index, as the compiler can see, is the same in all lanes
+    const int warp = __shfl_sync(kFull, (int)threadIdx.x, 0) >> 5;
+    const int warps = blockDim.x >> 5;
+    const int chunks = P / kChunk;
+    const int64_t base = (int64_t)blockIdx.x * C;
+    T x[V];
+
+    for (int c = warp; c < chunks; c += warps) {
+        const int first = c * kChunk + lane * V;
+        load_run(rows, x, base, first, C, vec);
+        warp_sort(x, lane);
+#pragma unroll
+        for (int r = 0; r < V; ++r) s[first + first / V + r] = x[r];
+    }
+    __syncthreads();
+    for (int size = 2 * kChunk; size <= P; size <<= 1) {
+        const int half = size >> 1;
+        for (int t = threadIdx.x; t < P / 2; t += blockDim.x) {
+            const int lo = 2 * t - (t & (half - 1));
+            const int hi = lo ^ (size - 1);
+            cx(s[lo + lo / V], s[hi + hi / V]);
+        }
+        __syncthreads();
+        for (int st = size >> 2; st >= kChunk; st >>= 1) {
+            for (int t = threadIdx.x; t < P / 2; t += blockDim.x) {
+                const int lo = 2 * t - (t & (st - 1));
+                const int hi = lo + st;
+                cx(s[lo + lo / V], s[hi + hi / V]);
+            }
+            __syncthreads();
+        }
+        // a lane reads and writes only its own run: no barrier inside
+        for (int c = warp; c < chunks; c += warps) {
+            const int first = c * kChunk + lane * V;
+#pragma unroll
+            for (int r = 0; r < V; ++r) x[r] = s[first + first / V + r];
+            warp_merge(x, lane);
+            if (size == P) {
+                store_run(rows, x, base, first, C, vec);
+            } else {
+#pragma unroll
+                for (int r = 0; r < V; ++r) s[first + first / V + r] = x[r];
+            }
+        }
+        __syncthreads();
+    }
+}
+
+constexpr int kMaxDevices = 64;
+
+template <class Rows, int V>
+cudaError_t launch_warp(const Rows& rows, int B, int C, bool vec,
+                        cudaStream_t stream) {
+    const auto kernel = sort_rows_warp<Rows, V>;
+    // one wave of the kernel's one-warp blocks on each card, asked of the
+    // runtime on the first launch there and kept
+    static std::atomic<int> waves[kMaxDevices];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    int wave = waves[dev].load(std::memory_order_relaxed);
+    if (wave == 0) {
+        int sms = 0, per_sm = 0;
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kernel, 32, 0);
+        if (err != cudaSuccess) return err;
+        wave = sms * per_sm > 0 ? sms * per_sm : 1;
+        waves[dev].store(wave, std::memory_order_relaxed);
+    }
+    const int grid = B < wave ? B : wave;
+    kernel<<<grid, 32, 0, stream>>>(rows, B, C, vec);
+    return cudaGetLastError();
+}
+
+template <class Rows, int V>
+cudaError_t launch_block(const Rows& rows, int B, int C, int P, bool vec,
+                         cudaStream_t stream) {
+    const int chunks = P / (32 * V);
+    const int warps = chunks < kBlockMaxWarps ? chunks : kBlockMaxWarps;
+    const size_t smem = (size_t)(P + P / V) * sizeof(typename Rows::T);
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            sort_rows_block<Rows, V>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+    }
+    sort_rows_block<Rows, V><<<B, warps * 32, smem, stream>>>(rows, C, P,
+                                                              vec);
+    return cudaGetLastError();
+}
+
+// The warp kernel with the least V that holds C, or the block kernel
+// past 32 * VMax positions.
+template <class Rows, int V, int VMax>
+cudaError_t launch_fit(const Rows& rows, int B, int C, bool vec,
+                       cudaStream_t stream) {
+    if constexpr (V < VMax) {
+        if (C > 32 * V)
+            return launch_fit<Rows, 2 * V, VMax>(rows, B, C, vec, stream);
+    } else {
+        if (C > 32 * V)
+            return launch_block<Rows, V>(rows, B, C, next_pow2(C), vec,
+                                         stream);
+    }
+    return launch_warp<Rows, V>(rows, B, C, vec, stream);
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
 extern "C" int sort_rows_i32(const void* x, void* out, int B, int C,
                              void* stream) {
     if (B <= 0 || C <= 0) return (int)cudaGetLastError();
-    const int P = next_pow2(C);
-    const int threads = P / 2 < kMaxThreads ? P / 2 : kMaxThreads;
-    const size_t smem = (size_t)P * sizeof(int32_t);
-    cudaError_t err = allow_smem(sort_rows_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    sort_rows_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-        (const int32_t*)x, (int32_t*)out, C, P);
-    return (int)cudaGetLastError();
+    const OneKey rows{(const int32_t*)x, (int32_t*)out};
+    const bool vec = C % 4 == 0 && aligned16(x) && aligned16(out);
+    return (int)launch_fit<OneKey, 1, 32>(rows, B, C, vec,
+                                          (cudaStream_t)stream);
 }
 
 extern "C" int sort2_rows_i32(const void* key, const void* val,
                               void* out_key, void* out_val, int B, int C,
                               void* stream) {
     if (B <= 0 || C <= 0) return (int)cudaGetLastError();
-    const int P = next_pow2(C);
-    const int threads = P / 2 < kMaxThreads ? P / 2 : kMaxThreads;
-    const size_t smem = 2 * (size_t)P * sizeof(int32_t);
-    cudaError_t err = allow_smem(sort2_rows_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    sort2_rows_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-        (const int32_t*)key, (const int32_t*)val, (int32_t*)out_key,
-        (int32_t*)out_val, C, P);
-    return (int)cudaGetLastError();
+    const TwoKey rows{(const int32_t*)key, (const int32_t*)val,
+                      (int32_t*)out_key, (int32_t*)out_val};
+    const bool vec = C % 4 == 0 && aligned16(key) && aligned16(val) &&
+                     aligned16(out_key) && aligned16(out_val);
+    return (int)launch_fit<TwoKey, 1, 16>(rows, B, C, vec,
+                                          (cudaStream_t)stream);
 }
 
 extern "C" const char* biokanga_cuda_error_string(int err) {

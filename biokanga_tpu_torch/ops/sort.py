@@ -8,10 +8,11 @@ matrix is sorted along C, one read per row:
     sort2_rows(key, val)   == (key, val) sorted lexicographically per row
 
 On a CUDA tensor each wrapper launches its kernel from csrc/sort_rows.cu
-(one thread block per row, a bitonic network in shared memory, see the
-source note there) or raises; on a CPU tensor it runs the plain version
-beside it.  Rows longer than the kernel's shared-memory reach are refused
-on every device, so the two paths accept the same inputs.
+(a bitonic network; one warp a row with the row in registers up to 1,024
+values or 512 pairs, one block a row through shared memory past that; see
+the source note there) or raises; on a CPU tensor it runs the plain
+version beside it.  Rows longer than the kernel's shared-memory reach are
+refused on every device, so the two paths accept the same inputs.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ import torch
 
 from .. import kernels
 
-# shared-memory reach of csrc/sort_rows.cu: 128 KB per row
+# shared-memory reach of csrc/sort_rows.cu's block path: a row of P
+# values or pairs and P/32 or P/16 pad slots, 132 KB and 136 KB
 MAX_SORT_C = 32_768
 MAX_SORT2_C = 16_384
 

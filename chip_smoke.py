@@ -6,7 +6,10 @@ Phases, each of which raises on failure:
   1. print the card (nvidia-smi name and power limit) and the versions;
   2. build the CUDA kernels from biokanga_tpu_torch/csrc;
   3. hold the align kernels against their plain torch versions on the
-     card, at the shapes the align path gives them, and time both;
+     card, at the shapes the align path gives them (the sorts also at
+     every width of their dispatch: one warp a row up to 1,024 values or
+     512 pairs, one block a row past that), and time both; the sorts
+     beside torch.sort and their bounds at the SE and fused PE shapes;
   4. align 262,144 simulated 100 bp reads against a 4.6 Mbp genome with
      `python -m biokanga_tpu_torch align --device cuda` (called in
      process), check that every align kernel was launched and that >= 99%
@@ -160,8 +163,44 @@ def _sort_values(rng, B, C):
     return x
 
 
+def _network_cx(B: int, C: int) -> int:
+    """Compare-exchanges of the bitonic network csrc/sort_rows.cu runs on
+    (B, C): P/2 a stage, log2 P (log2 P + 1) / 2 stages, P = 2^ceil(log2 C)
+    (at least 32, a warp's width)."""
+    k = max(5, math.ceil(math.log2(C)))
+    return B * (2**k // 2) * k * (k + 1) // 2
+
+
+def _sort_timing(inputs) -> dict:
+    """Kernel, plain and torch.sort times of sort_rows (one input) or
+    sort2_rows (key, val) on card tensors, with the bound at their shape."""
+    import torch
+
+    from biokanga_tpu_torch.ops import sort
+
+    B, C = inputs[0].shape
+    if len(inputs) == 1:
+        kernel, plain = sort.sort_rows, sort.sort_rows_plain
+        keys = inputs[0]
+    else:
+        key, val = inputs
+        kernel, plain = sort.sort2_rows, sort.sort2_rows_plain
+        # the one torch call at the heart of the two-key sort: int64 keys
+        # packed beforehand as (key, val) in high and low words
+        keys = key.to(torch.int64) * 2**32 + (val.to(torch.int64) + 2**31)
+    return dict(ms=_timed_ms(lambda: kernel(*inputs)),
+                plain_ms=_timed_ms(lambda: plain(*inputs)),
+                library_ms=_timed_ms(lambda: torch.sort(keys, dim=1)),
+                bound=_bound(2 * _nbytes(*inputs),
+                             B * C * math.ceil(math.log2(C))),
+                network_cx=_network_cx(B, C))
+
+
 def check_sorts(dev, rng):
-    """sort_rows / sort2_rows against their plain versions on the card."""
+    """sort_rows / sort2_rows against their plain versions on the card, at
+    widths that take every path of the kernels' dispatch (one warp a row
+    up to 1,024 values or 512 pairs, one block a row past that), then
+    timed at the fast pass's shapes, SE and fused PE."""
     import torch
 
     from biokanga_tpu_torch.ops import sort
@@ -169,13 +208,18 @@ def check_sorts(dev, rng):
     err = {"sort_rows": 0, "sort2_rows": 0}
     for B, C in ((65_536, 480), (2 * BATCH, 480), (65_536, 384),
                  (65_536, 512), (2_048, 2_048), (512, 8_192), (512, 24_576),
-                 (7, 1_000)):
+                 (7, 1_000), (1, 1), (7, 31), (25, 32), (33, 33), (7, 64),
+                 (25, 65), (33, 128), (4_097, 129), (65, 256), (4_097, 257),
+                 (65, 513), (65_536, 720), (4_097, 1_024), (4_097, 1_025),
+                 (16_385, 1_440)):
         x = torch.from_numpy(_sort_values(rng, B, C)).to(dev)
         err["sort_rows"] = max(err["sort_rows"], _max_abs_err(
             sort.sort_rows(x), sort.sort_rows_plain(x)))
     for B, C in ((65_536, 192), (2 * BATCH, 192), (65_536, 512),
                  (16_384, 384), (2_048, 2_048), (512, 3_072), (512, 4_096),
-                 (7, 1_000)):
+                 (7, 1_000), (1, 1), (7, 32), (25, 33), (33, 64),
+                 (4_097, 65), (65, 128), (7, 129), (25, 256), (33, 257),
+                 (4_097, 513)):
         key = _sort_values(rng, B, C)
         key = np.where(key == I32_MAX, key,
                        rng.integers(0, 512, size=(B, C))).astype(np.int32)
@@ -188,37 +232,27 @@ def check_sorts(dev, rng):
     if any(err.values()):
         raise AssertionError(f"sort kernels disagree with torch.sort: {err}")
 
-    # the paired-end path fuses both mates into batches of twice the rows
-    x2 = torch.from_numpy(_sort_values(rng, 2 * BATCH, 480)).to(dev)
-    k2 = torch.from_numpy(rng.integers(0, 512, size=(2 * BATCH, 192),
-                                       dtype=np.int32)).to(dev)
-    v2 = torch.from_numpy(_sort_values(rng, 2 * BATCH, 192)).to(dev)
-    print(f"fused PE batch ({2 * BATCH} rows): sort_rows x 480 "
-          f"{_timed_ms(lambda: sort.sort_rows(x2)):.4f} ms, sort2_rows x 192 "
-          f"{_timed_ms(lambda: sort.sort2_rows(k2, v2)):.4f} ms")
-    del x2, k2, v2
-    # time at the fast pass's shapes (B = 65,536 reads of 100 bp)
-    x = torch.from_numpy(_sort_values(rng, BATCH, 480)).to(dev)
-    key = torch.from_numpy(
-        rng.integers(0, 512, size=(BATCH, 192), dtype=np.int32)).to(dev)
-    val = torch.from_numpy(_sort_values(rng, BATCH, 192)).to(dev)
-    # the one torch call at the heart of the two-key sort: int64 keys
-    # packed beforehand as (key, val) in high and low words
-    packed = key.to(torch.int64) * 2**32 + (val.to(torch.int64) + 2**31)
-    timing = {
-        "sort_rows": dict(
-            ms=_timed_ms(lambda: sort.sort_rows(x)),
-            plain_ms=_timed_ms(lambda: sort.sort_rows_plain(x)),
-            library_ms=_timed_ms(lambda: torch.sort(x, dim=1)),
-            bound=_bound(2 * _nbytes(x),
-                         x.numel() * math.ceil(math.log2(x.shape[1])))),
-        "sort2_rows": dict(
-            ms=_timed_ms(lambda: sort.sort2_rows(key, val)),
-            plain_ms=_timed_ms(lambda: sort.sort2_rows_plain(key, val)),
-            library_ms=_timed_ms(lambda: torch.sort(packed, dim=1)),
-            bound=_bound(2 * _nbytes(key, val),
-                         key.numel() * math.ceil(math.log2(key.shape[1])))),
-    }
+    # time at the fast pass's shapes: B = 65,536 reads of 100 bp, and the
+    # paired-end path's fused batches of both mates, twice the rows
+    timing = {}
+    for B in (BATCH, 2 * BATCH):
+        x = torch.from_numpy(_sort_values(rng, B, 480)).to(dev)
+        key = torch.from_numpy(
+            rng.integers(0, 512, size=(B, 192), dtype=np.int32)).to(dev)
+        val = torch.from_numpy(_sort_values(rng, B, 192)).to(dev)
+        for name, inputs, what in (("sort_rows", (x,), "480"),
+                                   ("sort2_rows", (key, val), "192 pairs")):
+            t = _sort_timing(inputs)
+            print(f"{name} at ({B}, {what}): kernel {t['ms']:.4f} ms, plain "
+                  f"torch {t['plain_ms']:.4f} ms, torch.sort "
+                  f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
+                  f"({t['bound'][1]}); network {t['network_cx']} "
+                  f"compare-exchanges")
+            if B == BATCH:
+                timing[name] = t
+            else:
+                timing[name]["ms_fused_pe"] = t["ms"]
+        del x, key, val
     return err, timing
 
 
@@ -1335,7 +1369,8 @@ def main() -> int:
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
               f"{bound_ms:.4f} ms ({bound_by}) ({smi})")
         extra = {k: t[k] for k in ("ms_ec_chunk", "ec_chunk_pairs",
-                                   "chain_ms") if k in t}
+                                   "chain_ms", "ms_fused_pe")
+                 if k in t}
         kernels_line.append({
             "name": name, "route": "cuda", "source": src + path,
             "replaces": rep, "launches": launches[name],

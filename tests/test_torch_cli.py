@@ -11,8 +11,8 @@ are corrected by both CLIs at one and two rounds and target-chunked; the
 FASTA files must be byte-identical.  The port runs with `--device cpu`,
 its kernels' plain versions.  A subprocess run shows the port's CLI never
 imports jax, and a scan of the sources that no module of the port, and
-not chip_smoke.py, profile_torch.py or the gather probe script, imports
-jax or the JAX package.
+not chip_smoke.py, profile_torch.py or the port's probe, SASS and bench
+scripts, imports jax or the JAX package.
 """
 import ast
 import functools
@@ -258,7 +258,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     files += [root / "chip_smoke.py", root / "profile_torch.py",
               root / "scripts" / "probe_stream_gather_torch.py",
               root / "scripts" / "sass_sw_torch.py",
-              root / "scripts" / "bench_sw_torch.py"]
+              root / "scripts" / "bench_sw_torch.py",
+              root / "scripts" / "bench_sort_torch.py"]
     assert len(files) > 30
     bad = [(str(f.relative_to(root)), m) for f in files
            for m in _imported_modules(f)

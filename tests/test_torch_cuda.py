@@ -40,9 +40,30 @@ def _values(rng, B, C):
     return x
 
 
+# the sort kernels' dispatch: one warp a row up to 1,024 values (512
+# pairs), one warp a block and one wave of blocks (at most 132 SMs x 32
+# blocks on an H100), each walking rows grid-stride; one block a row past
+# that.  The warp kernel holds V = 1, 2, 4, ... values a lane, the least V
+# with 32 V >= C: the one-key sort switches at 32, 64, 128, 256 and 512
+# values, the pair sort at 32, 64, 128 and 256 pairs.  The widths sit on
+# each side of every switch, and 4,225 rows make some warp take a second
+# row.
+SORT_BATCHES = (1, 7, 4_225)
+
+
+def _sort_shapes(widths, warp_max, fixed):
+    """fixed (B, C), then every width at every batch (at most 65 rows of
+    the block path, whose blocks take one row each)."""
+    grid = [(min(B, 65) if C > warp_max else B, C)
+            for C in widths for B in SORT_BATCHES]
+    return fixed + [bc for k, bc in enumerate(grid) if bc not in grid[:k]]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,C", [(4096, 480), (512, 2048), (64, 8192),
-                                 (8, 24576), (3, 1000), (5, 1)])
+@pytest.mark.parametrize("B,C", _sort_shapes(
+    [1, 31, 32, 33, 64, 65, 128, 129, 256, 257, 480, 512, 513, 720, 1024,
+     1025, 1440, 24576], 1024,
+    [(4096, 480), (512, 2048), (64, 8192), (8, 24576), (3, 1000), (5, 1)]))
 def test_sort_rows_kernel_matches_plain(cuda_device, B, C):
     x = torch.from_numpy(_values(np.random.default_rng(C), B, C)).to(
         cuda_device)
@@ -50,21 +71,75 @@ def test_sort_rows_kernel_matches_plain(cuda_device, B, C):
     got = sort.sort_rows(x)
     assert sort.sort_rows.launches == before + 1
     assert torch.equal(got, sort.sort_rows_plain(x))
+    # rows that start off 16-byte alignment take the scalar loads
+    if B > 1:
+        y = x.reshape(-1)[1:1 + (B - 1) * C].view(B - 1, C)
+        assert torch.equal(sort.sort_rows(y), sort.sort_rows_plain(y))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,C", [(4096, 192), (512, 3072), (64, 16384),
-                                 (3, 1000)])
+@pytest.mark.parametrize("B,C", _sort_shapes(
+    [1, 32, 33, 64, 65, 128, 129, 192, 256, 257, 384, 512, 513, 4096], 512,
+    [(4096, 192), (512, 3072), (64, 16384), (3, 1000)]))
 def test_sort2_rows_kernel_matches_plain(cuda_device, B, C):
     rng = np.random.default_rng(C + 1)
     key = np.where(rng.random((B, C)) < 0.1, I32_MAX,
-                   rng.integers(0, 512, size=(B, C))).astype(np.int32)
+                   rng.integers(-3, 512, size=(B, C))).astype(np.int32)
     key = torch.from_numpy(key).to(cuda_device)
     val = torch.from_numpy(_values(rng, B, C)).to(cuda_device)
     before = sort.sort2_rows.launches
     got = sort.sort2_rows(key, val)
     assert sort.sort2_rows.launches == before + 1
     for g, w in zip(got, sort.sort2_rows_plain(key, val)):
+        assert torch.equal(g, w)
+
+
+def _edge_rows(kind, B, C, rng):
+    if kind == "all_max":
+        return np.full((B, C), I32_MAX, np.int32)
+    if kind == "no_max":
+        x = rng.integers(-2**31, 2**31 - 1, size=(B, C), dtype=np.int64)
+        return x.astype(np.int32)
+    if kind == "one_value":
+        return np.full((B, C), -5, np.int32)
+    if kind == "min_and_max":
+        pick = rng.random((B, C))
+        x = np.where(pick < 0.4, -2**31, np.where(pick < 0.8, I32_MAX, 0))
+        return x.astype(np.int32)
+    raise ValueError(kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 33, 480, 720, 1025, 2048])
+@pytest.mark.parametrize("kind", ["all_max", "no_max", "one_value",
+                                  "min_and_max"])
+def test_sort_rows_kernel_edge_rows(cuda_device, kind, C):
+    rng = np.random.default_rng(C)
+    B = 17
+    x = _edge_rows(kind, B, C, rng)
+    x[B // 2] = _values(rng, 1, C)[0]          # one mixed row among them
+    x = torch.from_numpy(x).to(cuda_device)
+    assert torch.equal(sort.sort_rows(x), sort.sort_rows_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 192, 513, 4096])
+@pytest.mark.parametrize("kind", ["all_max", "one_value", "min_and_max",
+                                  "equal_keys"])
+def test_sort2_rows_kernel_edge_rows(cuda_device, kind, C):
+    rng = np.random.default_rng(C + 11)
+    B = 17
+    if kind == "equal_keys":
+        # one key a row, values INT32_MAX, INT32_MIN and ties
+        key = np.full((B, C), 7, np.int32)
+        val = _edge_rows("min_and_max", B, C, rng)
+    else:
+        key = _edge_rows(kind, B, C, rng)
+        val = _edge_rows(kind, B, C, rng)
+    key, val = (torch.from_numpy(key).to(cuda_device),
+                torch.from_numpy(val).to(cuda_device))
+    for g, w in zip(sort.sort2_rows(key, val),
+                    sort.sort2_rows_plain(key, val)):
         assert torch.equal(g, w)
 
 
