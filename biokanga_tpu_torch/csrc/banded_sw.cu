@@ -43,6 +43,20 @@
 // keeps the shuffles free of convergence code.  16-bit lanes (two columns
 // or two pairs a register) were tried and ran slower at the error
 // correction's chunks of ~1,300 pairs; PERF.md lists each design's times.
+//
+// Bands past one warp's 512 columns (W > 255, up to W = 4,095): one block
+// a pair, the band split across up to 16 warps of C = 4, 8 or 16 columns
+// a lane (the least C that needs no more than 16 warps), each warp running
+// the row as above.  A row crosses warps three times, through shared
+// memory: the up-neighbour of a warp's last lane (the next warp's first
+// column of the last row), the carry of the lazy-F prefix (the maximum of
+// the lower warps' totals) and the row maximum.  The up-neighbours of row
+// i+1 are written with row i's maxima, so a row takes two barriers; a new
+// best cell takes a third, for its lowest column.  Registers are the
+// limit at 512 threads a block (128 a thread): the lazy F runs as the
+// recurrence F[c] = max(F[c-1] + gap_ext, H0[c-1] + gap_open) inside a
+// lane, whose maxima are those of the prefix form, so no per-column
+// prefix or offset array is kept.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -217,6 +231,185 @@ banded_sw_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bwin,
 }
 
 
+// The same DP, one block a pair: warp w holds columns [32 C w, 32 C (w+1))
+// of the band, lane l of it C consecutive columns from 32 C w + C l.
+constexpr int kWideWarps = 16;
+
+template <int C, bool MOVES>
+__global__ void __launch_bounds__(kWideWarps * 32)
+banded_sw_wide(const int8_t* __restrict__ a, const int8_t* __restrict__ bwin,
+               const int32_t* __restrict__ alen,
+               const int32_t* __restrict__ jlo,
+               const int32_t* __restrict__ jhi,
+               int32_t* __restrict__ best_out, int32_t* __restrict__ bi_out,
+               int32_t* __restrict__ bk_out, int32_t* __restrict__ mv, int B,
+               int La, int T, int W, int match, int mismatch, int gap_open,
+               int gap_ext) {
+    // one block a pair: p, the loop bounds and every branch on them are
+    // block-uniform; the warp index is broadcast so the compiler sees it
+    // is warp-uniform
+    __shared__ int s_h[kWideWarps], s_e[kWideWarps], s_tot[kWideWarps],
+        s_max[kWideWarps], s_k[kWideWarps];
+    const int p = blockIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int warp = __shfl_sync(kFull, (int)threadIdx.x, 0) >> 5;
+    const int nw = blockDim.x >> 5;
+    const int K = 2 * W + 1;
+    const int Wd = (La + 15) >> 4;
+    const int8_t* ap = a + (int64_t)p * La;
+    const int8_t* bp = bwin + (int64_t)p * T;
+    int n_rows = alen[p];
+    n_rows = n_rows < 0 ? 0 : (n_rows > La ? La : n_rows);
+    const int lo = jlo[p], hi = jhi[p];
+    const int k0 = (warp * 32 + lane) * C;
+    const int lo_rel = lo + W - k0;
+    const int hi_rel = hi + W - k0;
+    const int k_rel_end = K - k0;
+    const int f0 = gap_ext * k0 + gap_open - gap_ext;   // F offset at k0
+
+    int H[C], E[C], bb[C];
+    uint32_t word[MOVES ? C : 1];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+        H[c] = 0;
+        E[c] = kNeg;
+        if (MOVES) word[MOVES ? c : 0] = 0;
+        const int t = k0 + c;
+        bb[c] = target_code(t < T ? bp[t] : 4);
+    }
+    if (lane == 0) {
+        s_h[warp] = 0;
+        s_e[warp] = kNeg;
+    }
+    __syncthreads();
+    int best = 0, bi = 0, bk = 0;
+    int a_stage = 0x4000, b_stage = 0x2000;
+
+    for (int i = 0; i < n_rows; ++i) {
+        const int r = i & 31;
+        if (r == 0) {
+            a_stage = query_code(i + lane < La ? ap[i + lane] : 4);
+            // enters this warp's lane 31 at row i+lane+1
+            const int t = i + 32 * C * (warp + 1) + lane;
+            b_stage = target_code(t < T ? bp[t] : 4);
+        }
+        const int ai = __shfl_sync(kFull, a_stage, r);
+        int h_next = __shfl_down_sync(kFull, H[0], 1);
+        int e_next = __shfl_down_sync(kFull, E[0], 1);
+        if (lane == 31) {
+            const bool last = warp + 1 == nw;
+            h_next = last ? kNeg : s_h[warp + 1];
+            e_next = last ? kNeg : s_e[warp + 1];
+        }
+        const int hi_c = hi_rel - i < k_rel_end ? hi_rel - i : k_rel_end;
+        const uint32_t inb = band_bits(lo_rel - i, hi_c, C);
+
+        // E, Hd and H0 (H0 replaces H in place; H[c+1] is still last row's)
+        int hd[MOVES ? C : 1];
+        int run_max = kNeg;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+            const int hup = c + 1 < C ? H[c + 1] : h_next;
+            const int eup = c + 1 < C ? E[c + 1] : e_next;
+            const int e = __viaddmax_s32(eup, gap_ext, hup + gap_open);
+            const int sub = ai == bb[c] ? match : mismatch;
+            const int d = H[c] + sub;
+            if (MOVES) hd[MOVES ? c : 0] = d;
+            E[c] = e;
+            H[c] = __vimax3_s32_relu(d, e, sub);
+            run_max = __viaddmax_s32(H[c], -gap_ext * (k0 + c), run_max);
+        }
+        // lazy F: the exclusive prefix max of H0 - gap_ext * k over the
+        // lower lanes of the warp, then over the lower warps
+        int scan = run_max;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1)
+            scan = max(scan, __shfl_up_sync(kFull, scan, d));
+        int excl = __shfl_up_sync(kFull, scan, 1);
+        if (lane == 0) excl = kNeg;
+        if (lane == 31) s_tot[warp] = scan;
+        __syncthreads();
+        excl = max(excl, __reduce_max_sync(
+                             kFull, lane < warp ? s_tot[lane] : kNeg));
+
+        int row_max = kNeg;
+        int f = excl + f0;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+            const bool in = (inb >> c) & 1u;
+            const int h0 = H[c];
+            const int h = in ? __vimax_s32_relu(h0, f) : kNeg;
+            const int e = in ? E[c] : kNeg;
+            if (MOVES) {
+                int code = h == f ? kLeft : kStop;
+                code = h == e ? kUp : code;
+                code = h == hd[MOVES ? c : 0] ? kDiag : code;
+                code = h > 0 ? code : kStop;
+                word[MOVES ? c : 0] =
+                    __funnelshift_r(word[MOVES ? c : 0], (uint32_t)code, 2);
+            }
+            f = __viaddmax_s32(f, gap_ext, h0 + gap_open);
+            H[c] = h;
+            E[c] = e;
+            row_max = max(row_max, h);
+        }
+        // the row maximum, and the up-neighbours of row i+1
+        const int wmax = __reduce_max_sync(kFull, row_max);
+        if (lane == 0) {
+            s_max[warp] = wmax;
+            s_h[warp] = H[0];
+            s_e[warp] = E[0];
+        }
+        __syncthreads();
+        const int rb = __reduce_max_sync(kFull,
+                                         lane < nw ? s_max[lane] : kNeg);
+        if (rb > best) {                      // block-uniform
+            int kk = 0x7fffffff;
+#pragma unroll
+            for (int c = C - 1; c >= 0; --c)
+                if (H[c] == rb) kk = k0 + c;
+            kk = __reduce_min_sync(kFull, kk);
+            if (lane == 0) s_k[warp] = kk;
+            __syncthreads();
+            bk = __reduce_min_sync(kFull,
+                                   lane < nw ? s_k[lane] : 0x7fffffff);
+            best = rb;
+            bi = i;
+        }
+        if (MOVES && ((i & 15) == 15 || i == n_rows - 1)) {
+            const int sh = 2 * (15 - (i & 15));   // a short last word
+            int32_t* dst = mv + ((int64_t)p * Wd + (i >> 4)) * K;
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                if (k0 + c < K)
+                    dst[k0 + c] = (int32_t)(word[MOVES ? c : 0] >> sh);
+                word[MOVES ? c : 0] = 0;
+            }
+        }
+
+        // target window of row i+1: one column down
+        const int from_next = __shfl_down_sync(kFull, bb[0], 1);
+        const int top = __shfl_sync(kFull, b_stage, r);
+#pragma unroll
+        for (int c = 0; c + 1 < C; ++c) bb[c] = bb[c + 1];
+        bb[C - 1] = lane == 31 ? top : from_next;
+    }
+
+    if (MOVES) {                              // rows >= alen: all STOP
+        for (int w = (n_rows + 15) >> 4; w < Wd; ++w) {
+            int32_t* dst = mv + ((int64_t)p * Wd + w) * K;
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+                if (k0 + c < K) dst[k0 + c] = 0;
+        }
+    }
+    if (threadIdx.x == 0) {
+        best_out[p] = best;
+        bi_out[p] = bi;
+        bk_out[p] = bk;
+    }
+}
+
 struct Args {
     const int8_t* a;
     const int8_t* bwin;
@@ -244,6 +437,19 @@ cudaError_t launch(const Args& x, cudaStream_t stream) {
     BIOKANGA_SW_CASE(8)
     BIOKANGA_SW_CASE(16)
 #undef BIOKANGA_SW_CASE
+#define BIOKANGA_SW_WIDE(CC)                                                 \
+    if (cols <= kWideWarps * 32 * CC) {                                      \
+        const int warps = (cols + 32 * CC - 1) / (32 * CC);                  \
+        banded_sw_wide<CC, MOVES><<<grid, warps * 32, 0, stream>>>(          \
+            x.a, x.bwin, x.alen, x.jlo, x.jhi, x.best, x.bi, x.bk, x.mv,     \
+            x.B, x.La, x.T, x.W, x.match, x.mismatch, x.gap_open,            \
+            x.gap_ext);                                                      \
+        return cudaGetLastError();                                           \
+    }
+    BIOKANGA_SW_WIDE(4)
+    BIOKANGA_SW_WIDE(8)
+    BIOKANGA_SW_WIDE(16)
+#undef BIOKANGA_SW_WIDE
     return cudaErrorInvalidValue;
 }
 
@@ -251,13 +457,15 @@ cudaError_t launch(const Args& x, cudaStream_t stream) {
 
 // a (B, La) int8; bwin (B, T) int8, T >= ceil(La/16)*16 + 2W; alen, jlo,
 // jhi (B,) int32; best, bi, bk (B,) int32 out; mv (B, ceil(La/16), 2W+1)
-// int32 out, or null for the score-only kernel.  W <= 255.
+// int32 out, or null for the score-only kernel.  W <= 4,095: one warp a
+// pair up to W = 255, one block of up to 16 warps past that.
 extern "C" int banded_sw(const void* a, const void* bwin, const void* alen,
                          const void* jlo, const void* jhi, void* best,
                          void* bi, void* bk, void* mv, int B, int La, int T,
                          int W, int match, int mismatch, int gap_open,
                          int gap_ext, void* stream) {
-    if (W < 0 || 2 * W + 1 > 512) return (int)cudaErrorInvalidValue;
+    if (W < 0 || 2 * W + 1 > kWideWarps * 32 * 16)
+        return (int)cudaErrorInvalidValue;
     if (B <= 0) return (int)cudaGetLastError();
     const Args x{(const int8_t*)a,   (const int8_t*)bwin, (const int32_t*)alen,
                  (const int32_t*)jlo, (const int32_t*)jhi, (int32_t*)best,

@@ -46,8 +46,23 @@
 // Packing a row's INT32_MAX out before sorting (the dedup rows of the
 // align cells are ~90% INT32_MAX) was measured and not kept: it cost rows
 // that are mostly other values ~1% (PERF.md, the sorts' designs tried).
-// The shared-memory row (P plus P/V slots) caps P at 32,768 values and
-// 16,384 pairs; the wrapper (ops/sort.py) refuses larger rows.
+// The shared-memory row (P plus P/V slots) caps the block path at 32,768
+// values and 16,384 pairs.
+//
+// Rows past 32,768 values (the rescue ladder's dedup rows of reads past
+// 400 bp: up to 369 cores x 1,024 positions at 4,096 bp) take the same
+// network over a scratch row of P = 2^ceil(log2 C) positions in device
+// memory that the wrapper allocates: the block path sorts each chunk of
+// 32,768 positions, reading the row padded with INT32_MAX, into the
+// scratch row; each merge above the chunk then runs all its strides >=
+// the chunk in one pass over device memory (a thread holds one column and
+// its mirror of each of the merge's chunks in registers) and finishes its
+// strides below the chunk in shared memory and registers, one block a
+// chunk, as the block path does; the last merge writes the first C
+// positions out.  A row of P = 2^19 takes 1 + 4 + 4 launches, each a pass
+// over the scratch rows: the passes' bytes bound it.  P stops at 2^21
+// (64 chunks in a thread's registers).  Only the one-key sort has this
+// path; the accept sort is at most 3,072 pairs wide.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -373,18 +388,24 @@ cudaError_t launch_warp(const Rows& rows, int B, int C, bool vec,
     return cudaGetLastError();
 }
 
+// Past 48 KB a kernel takes dynamic shared memory only once allowed to.
+cudaError_t smem_attr(const void* kernel, size_t smem) {
+    return smem > 48 * 1024
+               ? cudaFuncSetAttribute(
+                     kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                     (int)smem)
+               : cudaSuccess;
+}
+
 template <class Rows, int V>
 cudaError_t launch_block(const Rows& rows, int B, int C, int P, bool vec,
                          cudaStream_t stream) {
     const int chunks = P / (32 * V);
     const int warps = chunks < kBlockMaxWarps ? chunks : kBlockMaxWarps;
     const size_t smem = (size_t)(P + P / V) * sizeof(typename Rows::T);
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            sort_rows_block<Rows, V>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return err;
-    }
+    const cudaError_t err =
+        smem_attr((const void*)sort_rows_block<Rows, V>, smem);
+    if (err != cudaSuccess) return err;
     sort_rows_block<Rows, V><<<B, warps * 32, smem, stream>>>(rows, C, P,
                                                               vec);
     return cudaGetLastError();
@@ -408,6 +429,185 @@ cudaError_t launch_fit(const Rows& rows, int B, int C, bool vec,
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+// ---- rows past the block path: a scratch row of P positions ----------
+
+constexpr int kWideChunk = 32 * 1024;  // positions a block sorts or merges
+constexpr int kWideV = 32;             // values a lane (a warp: 1,024)
+
+// Reads a (B, C) row as the first C of P = 2^log_p positions, the rest
+// INT32_MAX; writes positions to the (B, P) scratch rows.  With vec, C is
+// a multiple of 4 and x is 16-byte aligned, so a run of 4 positions is
+// wholly inside the row or wholly past it.
+struct PaddedIn {
+    using T = int32_t;
+    static constexpr T kPad = kI32Max;
+    const int32_t* __restrict__ x;
+    int32_t* __restrict__ s;
+    int C, log_p;
+
+    __device__ T load(int64_t i) const {
+        const int col = (int)(i & ((1 << log_p) - 1));
+        return col < C ? __ldg(x + (i >> log_p) * C + col) : kPad;
+    }
+    __device__ void load4(int64_t i, T& a, T& b, T& c, T& d) const {
+        const int col = (int)(i & ((1 << log_p) - 1));
+        if (col < C) {
+            const int4 q = __ldg(
+                reinterpret_cast<const int4*>(x + (i >> log_p) * C + col));
+            a = q.x;
+            b = q.y;
+            c = q.z;
+            d = q.w;
+        } else {
+            a = b = c = d = kPad;
+        }
+    }
+    __device__ void store(int64_t i, T v) const { s[i] = v; }
+    __device__ void store4(int64_t i, T a, T b, T c, T d) const {
+        *reinterpret_cast<int4*>(s + i) = make_int4(a, b, c, d);
+    }
+};
+
+// Writes the first C of each row's P positions to the (B, C) output.
+struct PaddedOut {
+    using T = int32_t;
+    int32_t* __restrict__ out;
+    int C, log_p;
+
+    __device__ void store(int64_t i, T v) const {
+        const int col = (int)(i & ((1 << log_p) - 1));
+        if (col < C) out[(i >> log_p) * C + col] = v;
+    }
+    __device__ void store4(int64_t i, T a, T b, T c, T d) const {
+        const int col = (int)(i & ((1 << log_p) - 1));
+        if (col < C)
+            *reinterpret_cast<int4*>(out + (i >> log_p) * C + col) =
+                make_int4(a, b, c, d);
+    }
+};
+
+// Writes positions back to the scratch rows (where the tail read them).
+struct ScratchOut {
+    using T = int32_t;
+    int32_t* s;
+
+    __device__ void store(int64_t i, T v) const { s[i] = v; }
+    __device__ void store4(int64_t i, T a, T b, T c, T d) const {
+        *reinterpret_cast<int4*>(s + i) = make_int4(a, b, c, d);
+    }
+};
+
+// The stages of a merge of size M * kWideChunk at strides >= kWideChunk,
+// in one pass over the scratch rows (their B * P positions as one array:
+// every merge lies inside a row).  Thread t takes, in one merge, column c
+// < kWideChunk / 2 and its mirror kWideChunk - 1 - c of the M chunks: x[j]
+// at chunk j, column c, y[j] at chunk j, column kWideChunk - 1 - c.  The
+// first stage pairs position i with i ^ (size - 1), that is x[j] with
+// y[M-1-j], the lower position keeping the smaller value; each later
+// stage at stride s * kWideChunk pairs x[j] with x[j + s] and y[j] with
+// y[j + s].  Neighbouring threads take neighbouring columns, so the loads
+// and stores of a warp are contiguous.
+template <int M>
+__global__ void __launch_bounds__(256)
+    sort_wide_level(int32_t* __restrict__ s, int64_t threads) {
+    constexpr int K = kWideChunk, HALF = K / 2;
+    for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+         t < threads; t += (int64_t)gridDim.x * blockDim.x) {
+        const int c = (int)(t % HALF);
+        int32_t* base = s + (t / HALF) * (int64_t)M * K;
+        int32_t x[M], y[M];
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+            x[j] = base[j * K + c];
+            y[j] = base[j * K + K - 1 - c];
+        }
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+            if (j < M / 2)
+                cx(x[j], y[M - 1 - j]);
+            else
+                cx(y[M - 1 - j], x[j]);
+        }
+#pragma unroll
+        for (int st = M / 4; st >= 1; st >>= 1) {
+#pragma unroll
+            for (int j = 0; j < M; ++j) {
+                if (!(j & st)) {
+                    cx(x[j], x[j | st]);
+                    cx(y[j], y[j | st]);
+                }
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+            base[j * K + c] = x[j];
+            base[j * K + K - 1 - c] = y[j];
+        }
+    }
+}
+
+// The strides below kWideChunk of a merge whose larger strides are done:
+// one block a chunk of the scratch rows, strides >= 1,024 through shared
+// memory (one pad slot every V), the rest in registers, then the chunk to
+// `dst` (back to scratch, or the output after the last merge; `vec` as
+// for the block path).  A block reads all of its chunk before it writes.
+// `src` is read with plain loads, not the read-only path: below the last
+// merge `dst` writes the same scratch rows in this kernel.
+template <class Dst>
+__global__ void __launch_bounds__(kBlockMaxWarps * 32)
+    sort_wide_tail(const int32_t* src, Dst dst, bool vec) {
+    constexpr int V = kWideV, kChunk = 32 * V, P = kWideChunk;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    int32_t* s = reinterpret_cast<int32_t*>(smem_raw);
+    const int lane = threadIdx.x & 31;
+    const int warp = __shfl_sync(kFull, (int)threadIdx.x, 0) >> 5;
+    const int warps = blockDim.x >> 5;
+    const int64_t base = (int64_t)blockIdx.x * P;
+    int32_t x[V];
+
+    for (int c = warp; c < P / kChunk; c += warps) {
+        const int first = c * kChunk + lane * V;
+#pragma unroll
+        for (int q = 0; q < V; q += 4) {
+            const int4 v =
+                *reinterpret_cast<const int4*>(src + base + first + q);
+            s[first + first / V + q] = v.x;
+            s[first + first / V + q + 1] = v.y;
+            s[first + first / V + q + 2] = v.z;
+            s[first + first / V + q + 3] = v.w;
+        }
+    }
+    __syncthreads();
+    for (int st = P >> 1; st >= kChunk; st >>= 1) {
+        for (int t = threadIdx.x; t < P / 2; t += blockDim.x) {
+            const int lo = 2 * t - (t & (st - 1));
+            const int hi = lo + st;
+            cx(s[lo + lo / V], s[hi + hi / V]);
+        }
+        __syncthreads();
+    }
+    for (int c = warp; c < P / kChunk; c += warps) {
+        const int first = c * kChunk + lane * V;
+#pragma unroll
+        for (int r = 0; r < V; ++r) x[r] = s[first + first / V + r];
+        warp_merge(x, lane);
+        store_run(dst, x, base, first, P, vec);
+    }
+}
+
+template <class Dst>
+cudaError_t launch_tail(const int32_t* src, const Dst& dst, int64_t chunks,
+                        bool vec, cudaStream_t stream) {
+    const size_t smem =
+        (size_t)(kWideChunk + kWideChunk / kWideV) * sizeof(int32_t);
+    const cudaError_t err =
+        smem_attr((const void*)sort_wide_tail<Dst>, smem);
+    if (err != cudaSuccess) return err;
+    sort_wide_tail<Dst><<<(unsigned)chunks, kBlockMaxWarps * 32, smem,
+                          stream>>>(src, dst, vec);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int sort_rows_i32(const void* x, void* out, int B, int C,
@@ -417,6 +617,53 @@ extern "C" int sort_rows_i32(const void* x, void* out, int B, int C,
     const bool vec = C % 4 == 0 && aligned16(x) && aligned16(out);
     return (int)launch_fit<OneKey, 1, 32>(rows, B, C, vec,
                                           (cudaStream_t)stream);
+}
+
+// Rows of 32,768 < C <= 2^21 values: scratch holds B rows of
+// P = 2^ceil(log2 C) int32, 16-byte aligned (the wrapper's torch.empty).
+extern "C" int sort_rows_wide_i32(const void* x, void* out, void* scratch,
+                                  int B, int C, int P, void* stream) {
+    if (B <= 0 || C <= 0) return (int)cudaGetLastError();
+    const int log_p = log2i(P);
+    if (C <= kWideChunk || P != 1 << log_p || P < C || P > 64 * kWideChunk)
+        return (int)cudaErrorInvalidValue;
+    const auto st = (cudaStream_t)stream;
+    int32_t* s = (int32_t*)scratch;
+    const int64_t chunks = (int64_t)B * (P / kWideChunk);
+    const bool vec = C % 4 == 0 && aligned16(x) && aligned16(out) &&
+                     aligned16(scratch);
+    // each chunk of each padded row sorted into scratch by the block path
+    cudaError_t err = launch_block<PaddedIn, kWideV>(
+        PaddedIn{(const int32_t*)x, s, C, log_p}, (int)chunks, kWideChunk,
+        kWideChunk, vec, st);
+    if (err != cudaSuccess) return (int)err;
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return (int)err;
+    for (int m = 2; m * kWideChunk <= P; m <<= 1) {
+        // a thread a column pair of a merge of m chunks
+        const int64_t n = (int64_t)B * P / (2 * m);
+        const int64_t want = (n + 255) / 256;
+        const unsigned grid = (unsigned)(want < 16 * sms ? want : 16 * sms);
+        switch (m) {
+            case 2: sort_wide_level<2><<<grid, 256, 0, st>>>(s, n); break;
+            case 4: sort_wide_level<4><<<grid, 256, 0, st>>>(s, n); break;
+            case 8: sort_wide_level<8><<<grid, 256, 0, st>>>(s, n); break;
+            case 16: sort_wide_level<16><<<grid, 256, 0, st>>>(s, n); break;
+            case 32: sort_wide_level<32><<<grid, 256, 0, st>>>(s, n); break;
+            case 64: sort_wide_level<64><<<grid, 256, 0, st>>>(s, n); break;
+            default: return (int)cudaErrorInvalidValue;
+        }
+        err = m * kWideChunk == P
+                  ? launch_tail(s, PaddedOut{(int32_t*)out, C, log_p}, chunks,
+                                vec, st)
+                  : launch_tail(s, ScratchOut{s}, chunks, true, st);
+        if (err != cudaSuccess) return (int)err;
+    }
+    return (int)cudaGetLastError();
 }
 
 extern "C" int sort2_rows_i32(const void* key, const void* val,

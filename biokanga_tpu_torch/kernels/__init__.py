@@ -36,6 +36,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # (x, out, B, C, stream)
     "sort_rows_i32": (_P, _P, _I, _I, _P),
+    # (x, out, scratch, B, C, P, stream)
+    "sort_rows_wide_i32": (_P, _P, _P, _I, _I, _I, _P),
     # (key, val, out_key, out_val, B, C, stream)
     "sort2_rows_i32": (_P, _P, _P, _P, _I, _I, _P),
     # (rows, n_rows, R, genome_len, entry_starts, n_starts, loci, valid,

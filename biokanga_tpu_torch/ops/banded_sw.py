@@ -18,9 +18,11 @@ ops/sw_trace.traceback_cols_packed; the JAX package pads the columns to
 256 lanes and the rows to a multiple of 128, which changes no decoded
 output.
 
-On a CUDA tensor each wrapper launches csrc/banded_sw.cu or raises; on a
-CPU tensor it runs the plain version beside it, a loop over query rows in
-torch over (B, K) tensors.  Both refuse the same inputs.
+On a CUDA tensor each wrapper launches csrc/banded_sw.cu (one warp a
+pair up to W = 255, one block a pair up to W = 4,095) or raises, also for
+a wider band; on a CPU tensor it runs the plain version beside it, a loop
+over query rows in torch over (B, K) tensors, at any W.  Both refuse the
+same scoring and shapes.
 """
 from __future__ import annotations
 
@@ -39,8 +41,10 @@ from .sw import (
     TB_UP,
 )
 
-# widest band csrc/banded_sw.cu holds in registers: K = 2W+1 <= 16 * 32
+# widest band of csrc/banded_sw.cu's one-warp path (K = 2W+1 <= 16 * 32)
+# and of its block path (16 warps of 32 lanes x 16 columns)
 MAX_SW_BAND = 255
+MAX_SW_BAND_CUDA = 4_095
 
 
 def _round_up(x: int, m: int) -> int:
@@ -82,9 +86,12 @@ def _check(name: str, a, bwin, alen, jlo, jhi, W: int, match: int,
         raise ValueError(
             f"{name}: custom scoring with match + gap_open >= 0 breaks the "
             f"lazy-F out-of-band invariant")
-    if not 0 <= W <= MAX_SW_BAND:
-        raise ValueError(f"{name}: band half-width {W} outside 0..{MAX_SW_BAND}"
-                         f" (the kernel's register band)")
+    if W < 0:
+        raise ValueError(f"{name}: band half-width {W} is negative")
+    if a.device.type == "cuda" and W > MAX_SW_BAND_CUDA:
+        raise ValueError(f"{name}: band half-width {W} outside "
+                         f"0..{MAX_SW_BAND_CUDA}, the card kernel's reach "
+                         f"(16 warps x 512 columns)")
     if a.dim() != 2 or a.dtype != torch.int8:
         raise ValueError(f"{name}: a must be (B, La) int8, got "
                          f"{tuple(a.shape)} {a.dtype}")

@@ -183,19 +183,24 @@ def hamming_extend_packed_plain(pg, entry_starts, loci, valid, rcodes,
     ent_b = torch.searchsorted(starts, last, right=True)
     valid = valid & (loci64 >= 0) & (last < n) & (ent_a == ent_b)
 
-    x = gather_window_words(pg.rows, loci, W) ^ u32(rcodes)[:, None, :]
-    x = x | u32(rnlane)[:, None, :]
+    # the words of valid candidates only: (N, W) for N of them
+    row, col = valid.nonzero(as_tuple=True)
+    at = loci[row, col]
+    x = gather_window_words(pg.rows, at, W) ^ u32(rcodes)[row]
+    x = x | u32(rnlane)[row]
     if pg.n_rows is not None:
-        x = x | gather_window_words(pg.n_rows, loci, W)
+        x = x | gather_window_words(pg.n_rows, at, W)
     lanes = (x | (x >> 1)) & 0x55555555
 
     # keep the first clamp(len - 16j, 0, 16) lanes of word j (MSB-first)
     wb = torch.arange(W, device=loci.device) * 16
-    v = torch.clamp(lengths.to(torch.int64)[:, None] - wb[None, :], 0, 16)
+    v = torch.clamp(lengths.to(torch.int64)[row, None] - wb[None, :], 0, 16)
     lane_mask = torch.where(v == 0, 0, (0x55555555 << (2 * (16 - v))) & U32_MASK)
-    mm = popcount32(lanes & lane_mask[:, None, :]).sum(-1)
-    return torch.where(valid, torch.clamp(mm, max=MM_INVALID - 1),
-                       MM_INVALID).to(torch.uint8)
+    mm = popcount32(lanes & lane_mask).sum(-1)
+    out = torch.full((B, C), MM_INVALID, dtype=torch.uint8,
+                     device=loci.device)
+    out[row, col] = torch.clamp(mm, max=MM_INVALID - 1).to(torch.uint8)
+    return out
 
 
 def hamming_extend_packed(pg: PackedGenome, entry_starts, loci, valid,

@@ -9,10 +9,13 @@ matrix is sorted along C, one read per row:
 
 On a CUDA tensor each wrapper launches its kernel from csrc/sort_rows.cu
 (a bitonic network; one warp a row with the row in registers up to 1,024
-values or 512 pairs, one block a row through shared memory past that; see
-the source note there) or raises; on a CPU tensor it runs the plain
-version beside it.  Rows longer than the kernel's shared-memory reach are
-refused on every device, so the two paths accept the same inputs.
+values or 512 pairs, one block a row through shared memory up to 32,768
+values or 16,384 pairs, and for the dedup sort a scratch row in device
+memory past that, up to 2^21 values; see the source note there) or
+raises; on a CPU tensor it runs the plain version beside it, at any
+width.  The align path's widest dedup row is 369 cores x 1,024 positions
+(4,096 bp reads, `-m ultra`).  `sort2_rows` refuses pair rows past 16,384
+on every device, so its two paths accept the same inputs.
 """
 from __future__ import annotations
 
@@ -21,16 +24,18 @@ import torch
 from .. import kernels
 
 # shared-memory reach of csrc/sort_rows.cu's block path: a row of P
-# values or pairs and P/32 or P/16 pad slots, 132 KB and 136 KB
+# values or pairs and P/32 or P/16 pad slots, 132 KB and 136 KB.  Wider
+# one-key rows take the scratch-row path; wider pair rows are refused.
 MAX_SORT_C = 32_768
 MAX_SORT2_C = 16_384
+MAX_WIDE_SORT_C = 1 << 21               # the scratch-row path's reach
 
 
-def _check_rows(name: str, x: torch.Tensor, limit: int) -> None:
+def _check_rows(name: str, x: torch.Tensor, limit: int | None) -> None:
     if x.dtype != torch.int32 or x.dim() != 2:
         raise ValueError(f"{name}: want a (B, C) int32 tensor, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    if x.shape[1] > limit:
+    if limit is not None and x.shape[1] > limit:
         raise ValueError(
             f"{name}: rows of {x.shape[1]} values exceed the sort kernel's "
             f"limit of {limit} (shared memory); longer reads are not "
@@ -53,18 +58,31 @@ def sort2_rows_plain(key: torch.Tensor, val: torch.Tensor):
 
 def sort_rows(x: torch.Tensor) -> torch.Tensor:
     """Ascending sort of each row of a (B, C) int32 tensor."""
-    _check_rows("sort_rows", x, MAX_SORT_C)
+    _check_rows("sort_rows", x, None)
     if x.device.type == "cpu":
         return sort_rows_plain(x)
+    B, C = x.shape
+    if C > MAX_WIDE_SORT_C:
+        raise ValueError(f"sort_rows: rows of {C} values exceed the card "
+                         f"kernel's limit of {MAX_WIDE_SORT_C}")
     x = x.contiguous()
     out = torch.empty_like(x)
-    B, C = x.shape
     if B and C:
         lib = kernels.library()
+        stream = kernels.stream_ptr(x.device)
         with torch.cuda.device(x.device):
-            err = lib.sort_rows_i32(x.data_ptr(), out.data_ptr(), B, C,
-                                    kernels.stream_ptr(x.device))
-        kernels.check(err, "sort_rows_i32")
+            if C <= MAX_SORT_C:
+                err = lib.sort_rows_i32(x.data_ptr(), out.data_ptr(), B, C,
+                                        stream)
+            else:
+                P = 1 << (C - 1).bit_length()
+                scratch = torch.empty((B, P), dtype=torch.int32,
+                                      device=x.device)
+                err = lib.sort_rows_wide_i32(x.data_ptr(), out.data_ptr(),
+                                             scratch.data_ptr(), B, C, P,
+                                             stream)
+        kernels.check(err, "sort_rows_i32" if C <= MAX_SORT_C
+                      else "sort_rows_wide_i32")
         sort_rows.launches += 1
     return out
 

@@ -8,15 +8,19 @@ Phases, each of which raises on failure:
   3. hold the align kernels against their plain torch versions on the
      card, at the shapes the align path gives them (the sorts also at
      every width of their dispatch: one warp a row up to 1,024 values or
-     512 pairs, one block a row past that), and time both; the sorts
-     beside torch.sort and their bounds at the SE and fused PE shapes;
+     512 pairs, one block a row up to 32,768, a scratch row past that, the
+     rescue ladder's dedup rows of reads up to 4,096 bp), and time both;
+     the sorts beside torch.sort and their bounds at the SE and fused PE
+     shapes and at the wide rows; the extension also on every case of
+     tests/extend_edge_cases.py and on a 100,000-contig genome;
   4. align 262,144 simulated 100 bp reads against a 4.6 Mbp genome with
      `python -m biokanga_tpu_torch align --device cuda` (called in
      process), check that every align kernel was launched and that >= 99%
      of the reads map uniquely to their simulated origin;
   5. align the first 4,096 reads with --device cpu and --device cuda and
      require byte-identical SAM, also against the big run's records, and
-     the same on a repeat genome that drives every engine stage;
+     the same on a repeat genome that drives every engine stage, and on
+     500 bp reads from a 2 kb repeat whose rescue rows pass 32,768 values;
   6. time the align engine alone on the 262,144 reads;
   7. hold the Smith-Waterman kernels (banded_sw_moves, banded_sw_score)
      and the traceback decode (sw_trace) against their plain versions at
@@ -24,13 +28,14 @@ Phases, each of which raises on failure:
      the tests' edge cases (decode planes with long LEFT runs and climbs
      out of the band; scores near and past 2**15), time each at one SW
      chunk (1,024 pairs) and at the EC cell's chunk size, with the
-     decode's dependent-chain floor;
+     decode's dependent-chain floor; the same at W = 256 and 320 (one
+     block a pair), checked on 16 pairs and timed at their EC chunks;
      then score one 100 kb noisy pair with banded_sw_score, as the JAX
      package's only caller of that kernel (scripts/bench_longread.py)
      does;
   8. correct 24 noisy 1.5 kb reads with `python -m biokanga_tpu_torch
      ecreads --rounds 2` with --device cpu and --device cuda and require
-     byte-identical FASTA;
+     byte-identical FASTA, at the default band and with --sw-band 256;
   9. correct the error-correction head-to-head read set (500 x 10 kb CLR
      reads of a 200 kb genome, scripts/bench_ec_headtohead.py) with the
      CLI defaults on the card and require 32-mer recovery >= 0.99;
@@ -53,6 +58,8 @@ Phase 3 also holds the extension kernel at the orphan rescue's shape
 (2,048 windows of 500 consecutive loci, some off the genome's ends).
 The last two lines are a JSON object per kernel and the result line.
 Exits non-zero without CUDA or outside the repository.  Needs one card.
+
+    python3 chip_smoke.py
 """
 from __future__ import annotations
 
@@ -83,6 +90,13 @@ PE_INSERT = (200, 500)
 PE_FLAGS = ["-d", "100", "-D", "600"]
 N_REPEAT_PAIRS = 2_048
 RESCUE_SHAPE = (2_048, 500)            # orphans x consecutive loci
+# dedup rows past the block sort: (1, 32,769), the ladder's step 2 at
+# 500 bp (40 cores x 1,024) and at 4,096 bp with -m ultra (369 x 1,024),
+# and the scratch-row path's widest row
+WIDE_SORT_SHAPES = ((1, 32_769), (512, 40_960), (512, 377_856),
+                    (2, 1 << 21))
+LONG_READ_LEN = 500                    # phase 5's repeat reads
+CONTIGS, CONTIG_LEN = 100_000, 1_000   # a draft assembly's entries
 
 # the gather probe: table sizes held against the plain version here
 GATHER_N = 6_291_456
@@ -95,6 +109,10 @@ SW_LA = 10_240
 SW_W = 96
 SW_CHECK_PAIRS = 64
 SW_CHUNK_PAIRS = 1_024
+WIDE_SW_BANDS = (256, 320)             # one block a pair
+WIDE_SW_CHECK_PAIRS = 16
+LONG_PAIR_W = 255                      # bench_longread's band
+EC_WIDE_BAND = 256
 EC_READS, EC_READ_LEN, EC_GENOME_KB, EC_ERR, EC_SEED = 500, 10_000, 200, 0.07, 3
 MIN_KMER_RECOVERY = 0.99
 
@@ -231,6 +249,8 @@ def check_sorts(dev, rng):
                                 _max_abs_err(gv, wv))
     if any(err.values()):
         raise AssertionError(f"sort kernels disagree with torch.sort: {err}")
+    wide = _check_wide_sort(dev)
+    err["sort_rows"] = max(err["sort_rows"], wide.pop("err"))
 
     # time at the fast pass's shapes: B = 65,536 reads of 100 bp, and the
     # paired-end path's fused batches of both mates, twice the rows
@@ -253,7 +273,63 @@ def check_sorts(dev, rng):
             else:
                 timing[name]["ms_fused_pe"] = t["ms"]
         del x, key, val
+    timing["sort_rows"]["wide"] = wide
     return err, timing
+
+
+def _wide_rows(dev, B, C, kind, seed):
+    """(B, C) int32 rows on the card: random (bit 31 set in about half,
+    30% INT32_MAX), all INT32_MAX, or a handful of values repeated."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "all_max":
+        return torch.full((B, C), I32_MAX, dtype=torch.int32, device=dev)
+    if kind == "dups":
+        return torch.randint(-3, 4, (B, C), dtype=torch.int32, device=dev,
+                             generator=gen)
+    x = torch.randint(-2**31, 2**31 - 1, (B, C), dtype=torch.int32,
+                      device=dev, generator=gen)
+    pad = torch.rand((B, C), device=dev, generator=gen) < 0.3
+    return x.masked_fill_(pad, I32_MAX)
+
+
+def _check_wide_sort(dev) -> dict:
+    """sort_rows past the block path (scratch rows in device memory) at
+    WIDE_SORT_SHAPES, exactly, also off 16-byte alignment; timed at the
+    rescue ladder's shapes.  Returns {"err": e, "BxC": timing, ...}."""
+    import torch
+
+    from biokanga_tpu_torch.ops import sort
+
+    out = {"err": 0}
+    for B, C in WIDE_SORT_SHAPES:
+        for k, kind in enumerate(("random", "all_max", "dups")):
+            x = _wide_rows(dev, B, C, kind, C + k)
+            out["err"] = max(out["err"], _max_abs_err(
+                sort.sort_rows(x), sort.sort_rows_plain(x)))
+            if B > 1:
+                y = x.reshape(-1)[1:1 + (B - 1) * C].view(B - 1, C)
+                out["err"] = max(out["err"], _max_abs_err(
+                    sort.sort_rows(y), sort.sort_rows_plain(y)))
+            del x
+    if out["err"]:
+        raise AssertionError(f"wide sort_rows disagrees: {out['err']}")
+    print(f"sort_rows past 32,768 values exact at {WIDE_SORT_SHAPES} on "
+          f"random, all-INT32_MAX and duplicate rows")
+    for B, C in WIDE_SORT_SHAPES[1:3]:
+        x = _wide_rows(dev, B, C, "random", 7)
+        t = _sort_timing((x,))
+        out[f"{B}x{C}"] = dict(ms=t["ms"], plain_ms=t["plain_ms"],
+                               library_ms=t["library_ms"],
+                               bound_ms=t["bound"][0], bound_by=t["bound"][1])
+        print(f"sort_rows at ({B}, {C}): kernel {t['ms']:.4f} ms, plain "
+              f"torch {t['plain_ms']:.4f} ms, torch.sort "
+              f"{t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
+              f"({t['bound'][1]})")
+        del x
+    torch.cuda.empty_cache()
+    return out
 
 
 def _extend_args(dev, rng, pg, genome, starts, L, B, C):
@@ -287,8 +363,105 @@ def _extend_args(dev, rng, pg, genome, starts, L, B, C):
             torch.from_numpy(rng.random((B, C)) < 0.9).to(dev), rc, rn, ln)
 
 
+def contig_genome(rng):
+    """A draft assembly: CONTIGS entries of CONTIG_LEN random bases."""
+    n = CONTIGS * CONTIG_LEN
+    genome = rng.integers(0, 4, size=n, dtype=np.int8)
+    starts = np.arange(0, n + 1, CONTIG_LEN, dtype=np.int64)
+    return genome, starts
+
+
+def extend_runner(lib, a, out, stream):
+    """A call of `lib`'s extension on hamming_extend_packed's arguments `a`
+    (contiguous card tensors) into `out`; returns the CUDA error code."""
+    pg, es, loci, valid, rc, rn, ln = a
+    B, C = loci.shape
+    ptrs = (pg.rows.data_ptr(),
+            None if pg.n_rows is None else pg.n_rows.data_ptr(),
+            pg.rows.shape[0], pg.length, es.data_ptr(), es.shape[0],
+            loci.data_ptr(), valid.data_ptr(), rc.data_ptr(), rn.data_ptr(),
+            ln.data_ptr(), out.data_ptr(), B, C, rc.shape[1], stream)
+    return lambda: lib.hamming_extend_packed(*ptrs)
+
+
+def _extend_kernel_ms(a) -> float:
+    """Device time of the extension kernel on hamming_extend_packed's
+    arguments `a`, called through its C entry point, so that the wrapper's
+    host time (its checks, ~0.02-0.05 ms) cannot hide a shorter kernel."""
+    import torch
+
+    from biokanga_tpu_torch import kernels
+
+    a = tuple(t.contiguous() if torch.is_tensor(t) else t for t in a)
+    out = torch.empty(a[2].shape, dtype=torch.uint8, device=a[2].device)
+    stream = torch.cuda.current_stream(a[2].device).cuda_stream
+    return _timed_ms(extend_runner(kernels.library(), a, out, stream))
+
+
+def _extend_ops(pg, es, loci, valid, ln, out) -> int:
+    """Integer operations hamming_extend_packed needs on these inputs.
+    Every candidate tests its flag (1).  A flagged one tests its range
+    (2); one inside the genome searches the entry starts (2 a step, and
+    the last compare).  One that passes all three counts the words of its
+    read, ceil(len / 16) of them: a funnel shift, one LOP3 for the XOR
+    and the OR of the read's N lanes, a shift and one LOP3 for the fold
+    and the mask, __popc and an add (6); with the genome's N plane, its
+    funnel shift and OR (2 more); then the clamp and the store (2)."""
+    B, C = loci.shape
+    last = loci.long() + ln.long()[:, None] - 1
+    ranged = valid & (loci >= 0) & (last < pg.length)
+    hit = out != 255
+    words = ((ln.long() + 15) // 16)[:, None].expand(B, C)
+    per_word = 8 if pg.has_n else 6
+    steps = int(es.numel()).bit_length()
+    return int(loci.numel() + 2 * int(valid.sum())
+               + (2 * steps + 1) * int(ranged.sum())
+               + per_word * int(words[hit].sum()) + 2 * int(hit.sum()))
+
+
+def _check_extend_edges(dev) -> int:
+    """hamming_extend_packed on every case of tests/extend_edge_cases.py
+    (read lengths 1 to 4,096, N plane or none, 1 to 100,000 entries, loci
+    off the genome, B = 1, odd C), also off 16-byte alignment."""
+    import torch
+
+    from biokanga_tpu_torch.ops import extend_packed as ep
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import extend_edge_cases as edges
+
+    def off(t):                                # same values, 1 element on
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    err = 0
+    for case in edges.cases():
+        genome, starts, reads, lens, loci, valid = edges.extend_case(*case)
+        pg = ep.pack_genome(genome, dev)
+        ln = torch.from_numpy(lens).to(dev)
+        rc, rn = ep.pack_reads(torch.from_numpy(reads).to(dev), ln)
+        args = (pg, torch.from_numpy(starts.astype(np.int32)).to(dev),
+                torch.from_numpy(loci).to(dev),
+                torch.from_numpy(valid).to(dev), rc, rn, ln)
+        want = ep.hamming_extend_packed_plain(*args)
+        moved = ep.PackedGenome(off(pg.rows), None if pg.n_rows is None
+                                else off(pg.n_rows), pg.length)
+        err = max(err, _max_abs_err(ep.hamming_extend_packed(*args), want),
+                  _max_abs_err(ep.hamming_extend_packed(
+                      moved, *(off(t) for t in args[1:])), want))
+    if err:
+        raise AssertionError(f"hamming_extend_packed disagrees on the edge "
+                             f"cases: {err}")
+    print(f"hamming_extend_packed exact on the {len(edges.cases())} edge "
+          f"cases, aligned and off 16-byte alignment")
+    return err
+
+
 def check_extend(dev, rng):
     """hamming_extend_packed against its plain version on the card."""
+    import torch
+
     from biokanga_tpu_torch.ops import extend_packed as ep
 
     n = 1_000_000
@@ -308,6 +481,7 @@ def check_extend(dev, rng):
     if err:
         raise AssertionError(f"hamming_extend_packed disagrees: {err}")
     _check_extend_rescue_shape(dev, rng, pg, genome, starts)
+    err = max(err, _check_extend_edges(dev))
     # time at the fast pass's shape: one strand, 65,536 reads x 96 loci
     genome = rng.integers(0, 4, size=GENOME_BP, dtype=np.int8)
     starts = np.array([0, GENOME_BP // 2, GENOME_BP], np.int64)
@@ -319,21 +493,31 @@ def check_extend(dev, rng):
                     ep.hamming_extend_packed_plain(*args2)):
         raise AssertionError("hamming_extend_packed disagrees at the fused "
                              "PE batch")
+    ms_pe = _extend_kernel_ms(args2)
     print(f"fused PE batch ({2 * BATCH} rows x 96 loci): "
-          f"hamming_extend_packed exact, "
-          f"{_timed_ms(lambda: ep.hamming_extend_packed(*args2)):.4f} ms")
-    del args2
+          f"hamming_extend_packed exact, {ms_pe:.4f} ms")
+    g3, s3 = contig_genome(rng)
+    args3 = _extend_args(dev, rng, ep.pack_genome(g3, dev), g3, s3,
+                         READ_LEN, BATCH, 96)
+    if _max_abs_err(ep.hamming_extend_packed(*args3),
+                    ep.hamming_extend_packed_plain(*args3)):
+        raise AssertionError("hamming_extend_packed disagrees on "
+                             f"{CONTIGS} contigs")
+    ms_contigs = _extend_kernel_ms(args3)
+    print(f"{CONTIGS} contigs of {CONTIG_LEN} bases ({BATCH} "
+          f"rows x 96 loci): hamming_extend_packed exact, "
+          f"{ms_contigs:.4f} ms")
     pg, es, loci, valid, rc, rn, ln = args
     out = ep.hamming_extend_packed(*args)
-    # per locus and word: xor, two ors, fold (shift, or, and), mask, popc,
-    # add; plus the entry containment
-    n_ops = loci.numel() * (rc.shape[1] * 9 + 8)
+    n_ops = _extend_ops(pg, es, loci, valid, ln, out)
     timing = dict(
-        ms=_timed_ms(lambda: ep.hamming_extend_packed(*args)),
+        ms=_extend_kernel_ms(args),
+        wrapper_ms=_timed_ms(lambda: ep.hamming_extend_packed(*args)),
         plain_ms=_timed_ms(lambda: ep.hamming_extend_packed_plain(*args)),
-        library_ms=None,
+        library_ms=None, ms_fused_pe=ms_pe, ms_contigs=ms_contigs,
         bound=_bound(_nbytes(pg.rows, pg.n_rows, es, loci, valid, rc, rn, ln,
                              out), n_ops))
+    del args2, args3
     return err, timing
 
 
@@ -368,10 +552,11 @@ def _check_extend_rescue_shape(dev, rng, pg, genome, starts):
                              f"loci in the end windows {off}")
     out_bytes = _nbytes(pg.rows, pg.n_rows, es, loci, args[3], rc, rn, ln,
                         got)
-    bound_ms, by = _bound(out_bytes, loci.numel() * (rc.shape[1] * 9 + 8))
+    bound_ms, by = _bound(out_bytes,
+                          _extend_ops(pg, es, loci, args[3], ln, got))
     print(f"hamming_extend_packed at the rescue shape ({B} windows x {Wlen} "
           f"consecutive loci, {L} bp, a 1 Mbp genome with Ns): exact; kernel "
-          f"{_timed_ms(lambda: ep.hamming_extend_packed(*args)):.4f} ms, "
+          f"{_extend_kernel_ms(args):.4f} ms, "
           f"plain torch "
           f"{_timed_ms(lambda: ep.hamming_extend_packed_plain(*args), 3):.4f}"
           f" ms, bound {bound_ms:.4f} ms ({by}); {found} windows hold their "
@@ -436,6 +621,63 @@ def _repeat_case(n_reads: int = 8_192, read_len: int = 150):
         p = int(rng.integers(0, read_len - 5))
         reads[i, p:p + int(rng.integers(1, 5))] = 4
     return seqs, names, reads
+
+
+def long_read_parity():
+    """Phase 5c: 500 bp reads, half from a 2 kb block in 150 copies of a
+    400 kbp genome, at 3% substitutions: the rescue ladder's step 2 sorts
+    dedup rows of 40 cores x 1,024 positions.  --device cpu == cuda."""
+    from biokanga_tpu_torch import cli
+    from biokanga_tpu_torch.align import pipeline
+    from biokanga_tpu_torch.index.build import build_index, save_index
+    from biokanga_tpu_torch.seq.fasta import write_fastq
+    from biokanga_tpu_torch.sim.simreads import random_genome
+
+    rng = np.random.default_rng(41)
+    L, n_reads = LONG_READ_LEN, 256
+    seqs = random_genome([("chr1", 400_000)], seed=11)
+    g = seqs[0][1]
+    block = g[1_000:3_000].copy()
+    for c in range(150):
+        g[5_000 + 2_100 * c: 7_000 + 2_100 * c] = block
+    save_index(build_index(seqs, lut_bases=9), str(WORK / "long.npz"))
+    reads = []
+    for i in range(n_reads):
+        s = (1_000 + int(rng.integers(0, 2_000 - L)) if i % 2 == 0
+             else int(rng.integers(0, len(g) - L)))
+        r = g[s:s + L].copy()
+        sub = rng.random(L) < 0.03
+        r[sub] = (r[sub] + 1 + rng.integers(0, 3, int(sub.sum()))) % 4
+        reads.append(r)
+    write_fastq(str(WORK / "long.fq"),
+                ((f"r{i}", r, None) for i, r in enumerate(reads)))
+    widths = {}
+    sort_rows = pipeline.sort_rows
+    try:
+        for d in ("cpu", "cuda"):
+            widths[d] = []
+            pipeline.sort_rows = lambda x, w=widths[d]: (
+                w.append(x.shape[1]), sort_rows(x))[1]
+            _reset_align_launches()
+            rc = cli.main(["align", "-i", str(WORK / "long.fq"),
+                           "-I", str(WORK / "long.npz"),
+                           "-o", str(WORK / f"long_{d}.sam"), "--device", d])
+            if rc != 0:
+                raise AssertionError(f"align 500 bp --device {d} rc={rc}")
+    finally:
+        pipeline.sort_rows = sort_rows
+    launches = _align_launches()
+    sam = (WORK / "long_cpu.sam").read_bytes()
+    wide = sum(w > 32_768 for w in widths["cuda"])
+    if sam != (WORK / "long_cuda.sam").read_bytes() or not wide or \
+            min(launches.values()) < 1:
+        raise AssertionError(f"500 bp SAM differs between cpu and cuda, or "
+                             f"no dedup row past 32,768 ({widths['cuda']}), "
+                             f"or launches {launches}")
+    print(f"{n_reads} reads of {L} bp from a 2 kb block in 150 copies: "
+          f"--device cpu == cuda byte for byte ({len(sam)} bytes); {wide} "
+          f"dedup sorts of rows up to {max(widths['cuda'])} values on the "
+          f"card; launches {launches}")
 
 
 # ---------------------------------------------------------------- EC ----
@@ -644,7 +886,83 @@ def check_sw(dev, rng):
     print(f"the EC cell's chunk, {n_ec} pairs x {La}: banded_sw_moves "
           f"{tm['ms_ec_chunk']:.4f} ms, sw_trace "
           f"{tt['ms_ec_chunk']:.4f} ms")
+    for W in WIDE_SW_BANDS:
+        wide = _check_wide_sw(dev, rng, pairs, W)
+        for name in ("banded_sw_moves", "banded_sw_score", "sw_trace"):
+            err[name] = max(err[name], wide[name].pop("err"))
+            timing[name].setdefault("wide", {})[f"W{W}"] = wide[name]
     return err, timing
+
+
+def _check_wide_sw(dev, rng, pairs, W):
+    """The SW kernels and the decode at a band past the one-warp path (one
+    block a pair): exact on WIDE_SW_CHECK_PAIRS new pairs, then timed at
+    the EC cell's chunk size for this band on the first of `pairs`."""
+    import torch
+
+    from biokanga_tpu_torch.ops import banded_sw as bsw
+    from biokanga_tpu_torch.ops import sw_trace
+    from biokanga_tpu_torch.pacbio.ecreads import ECParams, _pair_bytes
+
+    La, K = SW_LA, 2 * W + 1
+    args = _sw_inputs(dev, *_sw_pairs(rng, WIDE_SW_CHECK_PAIRS, La, W), La,
+                      W)
+    out = {}
+    t0 = time.monotonic()
+    want = bsw.banded_sw_moves_plain(*args, W)
+    torch.cuda.synchronize()
+    moves_plain = (time.monotonic() - t0) * 1e3
+    t0 = time.monotonic()
+    bsw.banded_sw_score_plain(*args, W)
+    torch.cuda.synchronize()
+    score_plain = (time.monotonic() - t0) * 1e3
+    _, bi, bk, mv = want
+    t0 = time.monotonic()
+    dec_want = sw_trace.traceback_cols_packed_plain(mv, bi, bk, args[1], W,
+                                                    La)
+    torch.cuda.synchronize()
+    trace_plain = (time.monotonic() - t0) * 1e3
+    errs = {
+        "banded_sw_moves": max(_max_abs_err(g, w) for g, w in
+                               zip(bsw.banded_sw_moves(*args, W), want)),
+        "banded_sw_score": max(_max_abs_err(g, w) for g, w in
+                               zip(bsw.banded_sw_score(*args, W), want[:3])),
+        "sw_trace": max(_max_abs_err(g, w) for g, w in zip(
+            sw_trace.traceback_cols_packed(mv, bi, bk, args[1], W, La),
+            dec_want))}
+    if any(errs.values()) or int(want[0].max()) < La // 10:
+        raise AssertionError(f"SW kernels at W {W}: {errs}, best "
+                             f"{int(want[0].max())}")
+    n = ECParams().sw_chunk_bytes // _pair_bytes(La, W)
+    a, bwin, alen, jlo, jhi = args = _sw_inputs(
+        dev, *(x[:n] for x in pairs), La, W)
+    best, bi, bk, mv = bsw.banded_sw_moves(*args, W)
+    dec = sw_trace.traceback_cols_packed(mv, bi, bk, bwin, W, La)
+    cells = float(alen.clamp(max=La).sum()) * K
+    in_bytes = _nbytes(a, bwin, alen, jlo, jhi)
+    path_rows = int((dec[0] != 6).sum()) + int(dec[1].sum())
+    for name, fn, plain_ms, bound in (
+            ("banded_sw_moves", lambda: bsw.banded_sw_moves(*args, W),
+             moves_plain, _bound(in_bytes + _nbytes(best, bi, bk, mv),
+                                 cells * SW_MOVES_OPS_PER_CELL)),
+            ("banded_sw_score", lambda: bsw.banded_sw_score(*args, W),
+             score_plain, _bound(in_bytes + _nbytes(best, bi, bk),
+                                 cells * SW_OPS_PER_CELL)),
+            ("sw_trace", lambda: sw_trace.traceback_cols_packed(
+                mv, bi, bk, bwin, W, La), trace_plain,
+             _bound(_nbytes(bi, bk, *dec) + 5 * path_rows, 12 * path_rows))):
+        ms = _timed_ms(fn, 3)
+        out[name] = dict(err=errs[name], ms=ms, pairs=n,
+                         plain_ms_check_pairs=plain_ms, bound_ms=bound[0],
+                         bound_by=bound[1])
+        print(f"{name} at W {W} (one block a pair): exact on "
+              f"{WIDE_SW_CHECK_PAIRS} pairs (plain torch {plain_ms:.1f} ms, "
+              f"once); {n} pairs x {La} x K {K}: {ms:.4f} ms"
+              + (f", {cells / ms / 1e6:.2f} GCUPS" if name != "sw_trace"
+                 else "") + f", bound {bound[0]:.4f} ms ({bound[1]})")
+    del mv, args
+    torch.cuda.empty_cache()
+    return out
 
 
 def long_pair_score(dev, rng):
@@ -653,7 +971,7 @@ def long_pair_score(dev, rng):
     the kernel's widest band.  Returns the launches of that run."""
     from biokanga_tpu_torch.ops import banded_sw as bsw
 
-    L, W = 100_000, bsw.MAX_SW_BAND
+    L, W = 100_000, LONG_PAIR_W
     w = rng.integers(0, 4, L, dtype=np.int8)
     x = rng.random(L)                            # bench_longread's noise mix
     keep = ~((x >= 0.035) & (x < 0.05))
@@ -745,7 +1063,7 @@ def kmer_recovery(read: np.ndarray, truth_kmers: set, k: int = 32) -> float:
     return n / max(tot, 1)
 
 
-def _ecreads(fasta: Path, out: Path, device: str) -> dict:
+def _ecreads(fasta: Path, out: Path, device: str, extra=()) -> dict:
     """`python -m biokanga_tpu_torch ecreads` in process; the numbers of
     its log line."""
     from biokanga_tpu_torch import cli
@@ -753,7 +1071,7 @@ def _ecreads(fasta: Path, out: Path, device: str) -> dict:
     log = out.with_suffix(".log")
     log.unlink(missing_ok=True)         # the log handler appends
     rc = cli.main(["ecreads", "-i", str(fasta), "-o", str(out), "-F",
-                   str(log), "--device", device])
+                   str(log), "--device", device, *extra])
     if rc != 0:
         raise AssertionError(f"ecreads --device {device} rc={rc}")
     m = re.search(r"ecreads: (\d+) reads, (\d+) pairs aligned, (\d+) "
@@ -766,7 +1084,8 @@ def _ecreads(fasta: Path, out: Path, device: str) -> dict:
 
 
 def ec_parity(rng):
-    """24 noisy 1.5 kb reads, --rounds 2: --device cpu == --device cuda."""
+    """24 noisy 1.5 kb reads, --rounds 2: --device cpu == --device cuda, at
+    the default band and at --sw-band 256 (one block a pair)."""
     from biokanga_tpu_torch.ops import banded_sw, sw_trace
     from biokanga_tpu_torch.seq.encode import revcomp
     from biokanga_tpu_torch.seq.fasta import write_fasta
@@ -780,20 +1099,24 @@ def ec_parity(rng):
         reads.append(revcomp(r) if i % 3 == 2 else r)
     fasta = WORK / "ec_small.fa"
     write_fasta(str(fasta), ((f"read{i}", r) for i, r in enumerate(reads)))
-    st = _ecreads(fasta, WORK / "ec_small_cpu.fa", "cpu")
-    banded_sw.banded_sw_moves.launches = 0
-    sw_trace.traceback_cols_packed.launches = 0
-    _ecreads(fasta, WORK / "ec_small_cuda.fa", "cuda")
-    launches = (banded_sw.banded_sw_moves.launches,
-                sw_trace.traceback_cols_packed.launches)
-    want = (WORK / "ec_small_cpu.fa").read_bytes()
-    if (WORK / "ec_small_cuda.fa").read_bytes() != want or \
-            min(launches) < 1 or st["overlaps"] < 24:
-        raise AssertionError(f"EC parity: FASTA differs or launches "
-                             f"{launches}, overlaps {st['overlaps']}")
-    print(f"ecreads --rounds 2 on 24 reads of ~1.5 kb: --device cpu == "
-          f"--device cuda byte for byte ({len(want)} bytes, "
-          f"{st['overlaps']} overlaps; SW/decode launches {launches})")
+    for extra in ((), ("--sw-band", str(EC_WIDE_BAND))):
+        tag = "_".join(("ec_small",) + extra[1:])
+        st = _ecreads(fasta, WORK / f"{tag}_cpu.fa", "cpu", extra)
+        banded_sw.banded_sw_moves.launches = 0
+        sw_trace.traceback_cols_packed.launches = 0
+        _ecreads(fasta, WORK / f"{tag}_cuda.fa", "cuda", extra)
+        launches = (banded_sw.banded_sw_moves.launches,
+                    sw_trace.traceback_cols_packed.launches)
+        want = (WORK / f"{tag}_cpu.fa").read_bytes()
+        if (WORK / f"{tag}_cuda.fa").read_bytes() != want or \
+                min(launches) < 1 or st["overlaps"] < 24:
+            raise AssertionError(f"EC parity {extra}: FASTA differs or "
+                                 f"launches {launches}, overlaps "
+                                 f"{st['overlaps']}")
+        print(f"ecreads --rounds 2 {' '.join(extra)} on 24 reads of ~1.5 kb: "
+              f"--device cpu == --device cuda byte for byte ({len(want)} "
+              f"bytes, {st['overlaps']} overlaps; SW/decode launches "
+              f"{launches})")
 
 
 def ec_full_width(smi):
@@ -1288,6 +1611,8 @@ def main() -> int:
     print(f"repeat genome, {len(rreads)} x 150 bp: --device cpu == cuda byte "
           f"for byte; {sort.sort_rows.launches} dedup sorts on the card, "
           f"{n_assigned} multi-hit reads assigned")
+    # 5c. reads past 400 bp: dedup rows past the block sort
+    long_read_parity()
 
     # 6. the align engine alone: index on the card, reads in host memory
     engine = AlignEngine(to_device(idx, dev), AlignParams(batch_size=BATCH))
@@ -1369,7 +1694,8 @@ def main() -> int:
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
               f"{bound_ms:.4f} ms ({bound_by}) ({smi})")
         extra = {k: t[k] for k in ("ms_ec_chunk", "ec_chunk_pairs",
-                                   "chain_ms", "ms_fused_pe")
+                                   "chain_ms", "ms_fused_pe", "ms_contigs",
+                                   "wrapper_ms", "wide")
                  if k in t}
         kernels_line.append({
             "name": name, "route": "cuda", "source": src + path,

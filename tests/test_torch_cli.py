@@ -5,10 +5,11 @@ five-copy repeat so that multi-hit assignment runs) are aligned by both
 CLIs against the index `biokanga_tpu index` writes; the SAM files must be
 byte-identical; paired ends the same (mate files and a PE-interleaved
 `.rds`, with `-d/-D`, `-E` and `--peinsertdist`, whose CSV must be
-byte-identical too) on pairs that need the orphan rescue.  ecreads: noisy
-long reads, some reverse-complemented,
-are corrected by both CLIs at one and two rounds and target-chunked; the
-FASTA files must be byte-identical.  The port runs with `--device cpu`,
+byte-identical too) on pairs that need the orphan rescue; 500 bp reads
+from a 2 kb repeat, whose rescue rows pass the block sort's 32,768
+values, the same.  ecreads: noisy long reads, some reverse-complemented,
+are corrected by both CLIs at one and two rounds, target-chunked and with
+SW bands past 255; the FASTA files must be byte-identical.  The port runs with `--device cpu`,
 its kernels' plain versions.  A subprocess run shows the port's CLI never
 imports jax, and a scan of the sources that no module of the port, and
 not chip_smoke.py, profile_torch.py or the port's probe, SASS and bench
@@ -236,6 +237,67 @@ def test_ecreads_fasta_is_byte_identical_to_jax_cli(long_reads, opts,
     assert want.count(b">") == 10 and want != (d / "pb.fa").read_bytes()
 
 
+@pytest.mark.parametrize("band", [256, 320])
+def test_ecreads_wide_band_is_byte_identical_to_jax_cli(long_reads, band,
+                                                        monkeypatch):
+    """Bands past the one-warp SW path (W > 255), as CLR users with
+    indel-heavy reads set them."""
+    monkeypatch.setattr(jax_ec, "ECParams", functools.partial(
+        jax_ec.ECParams, sw_chunk_bytes=1 << 23))
+    d = long_reads
+    common = ["-i", str(d / "pb.fa"), "--rounds", "1", "--sw-band",
+              str(band)]
+    assert jax_main(["ecreads", "-o", str(d / "jax.fa")] + common) == 0
+    assert torch_main(["ecreads", "-o", str(d / "torch.fa"), "--device",
+                       "cpu"] + common) == 0
+    want = (d / "jax.fa").read_bytes()
+    assert (d / "torch.fa").read_bytes() == want
+    assert want.count(b">") == 10 and want != (d / "pb.fa").read_bytes()
+
+
+def test_align_500bp_reads_past_the_block_sort(tmp_path, monkeypatch):
+    """Reads of 500 bp from a 2 kb block in 60 copies reach rescue step
+    2, whose dedup rows (40 cores x 1,024 positions) pass the block sort's
+    32,768 values; the SAM must equal the JAX CLI's."""
+    from biokanga_tpu_torch.align import pipeline
+
+    d = tmp_path
+    rng = np.random.default_rng(3)
+    L, glen = 500, 150_000
+    seqs = random_genome([("chr1", glen)], seed=11)
+    g = seqs[0][1]
+    block = g[1_000:3_000].copy()
+    for c in range(60):
+        g[5_000 + 2_100 * c: 7_000 + 2_100 * c] = block
+    write_fasta(str(d / "ref.fa"), seqs)
+    assert jax_main(["index", "-i", str(d / "ref.fa"), "-o",
+                     str(d / "ref.npz"), "--lut-bases", "9"]) == 0
+    reads = []
+    for i in range(8):
+        s = (1_000 + int(rng.integers(0, 2_000 - L)) if i % 2 == 0
+             else int(rng.integers(0, glen - L)))
+        r = g[s:s + L].copy()
+        sub = rng.random(L) < 0.03
+        r[sub] = (r[sub] + 1 + rng.integers(0, 3, int(sub.sum()))) % 4
+        reads.append(r)
+    write_fastq(str(d / "reads.fq"),
+                ((f"r{i}", r, None) for i, r in enumerate(reads)))
+    widths = []
+    sort_rows = pipeline.sort_rows
+    monkeypatch.setattr(pipeline, "sort_rows", lambda x: (
+        widths.append(x.shape[1]), sort_rows(x))[1])
+    common = ["-i", str(d / "reads.fq"), "-I", str(d / "ref.npz")]
+    assert jax_main(["align", "-o", str(d / "jax.sam")] + common) == 0
+    assert torch_main(["align", "-o", str(d / "torch.sam"), "--device",
+                       "cpu"] + common) == 0
+    assert max(widths) > 32_768
+    want = (d / "jax.sam").read_bytes()
+    assert (d / "torch.sam").read_bytes() == want
+    records = [ln.split("\t") for ln in want.decode().splitlines()
+               if not ln.startswith("@")]
+    assert len(records) >= 8 and any(r[5] == "500M" for r in records)
+
+
 def test_ecreads_refuses_checkpoints(long_reads):
     with pytest.raises(SystemExit) as e:
         torch_main(["ecreads", "-i", str(long_reads / "pb.fa"), "-o",
@@ -259,7 +321,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
               root / "scripts" / "probe_stream_gather_torch.py",
               root / "scripts" / "sass_sw_torch.py",
               root / "scripts" / "bench_sw_torch.py",
-              root / "scripts" / "bench_sort_torch.py"]
+              root / "scripts" / "bench_sort_torch.py",
+              root / "scripts" / "bench_extend_torch.py"]
     assert len(files) > 30
     bad = [(str(f.relative_to(root)), m) for f in files
            for m in _imported_modules(f)

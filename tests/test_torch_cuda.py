@@ -144,11 +144,34 @@ def test_sort2_rows_kernel_edge_rows(cuda_device, kind, C):
 
 
 @pytest.mark.cuda
-def test_sort_limits_hold_on_the_card(cuda_device):
-    x = torch.zeros((1, sort.MAX_SORT_C + 1), dtype=torch.int32,
-                    device=cuda_device)
+@pytest.mark.parametrize("B,C", [(1, 32_769), (512, 40_960), (3, 100_001),
+                                 (512, 377_856), (2, 1 << 21)])
+@pytest.mark.parametrize("kind", ["random", "all_max", "dups"])
+def test_sort_limits_hold_on_the_card(cuda_device, B, C, kind):
+    """Rows past the block path (the rescue ladder's dedup rows of reads
+    past 400 bp, up to 369 cores x 1,024 positions) take the scratch-row
+    path; the pair sort keeps its limit."""
+    rng = np.random.default_rng(C)
+    if kind == "random":
+        x = _values(rng, B, C)
+    elif kind == "all_max":
+        x = np.full((B, C), I32_MAX, np.int32)
+    else:
+        x = rng.integers(-3, 4, size=(B, C)).astype(np.int32)
+    x = torch.from_numpy(x).to(cuda_device)
+    before = sort.sort_rows.launches
+    assert torch.equal(sort.sort_rows(x), sort.sort_rows_plain(x))
+    assert sort.sort_rows.launches == before + 1
+    if B > 1:                                  # rows off 16-byte alignment
+        y = x.reshape(-1)[1:1 + (B - 1) * C].view(B - 1, C)
+        assert torch.equal(sort.sort_rows(y), sort.sort_rows_plain(y))
+    big = torch.zeros((1, sort.MAX_SORT2_C + 1), dtype=torch.int32,
+                      device=cuda_device)
     with pytest.raises(ValueError, match="limit"):
-        sort.sort_rows(x)
+        sort.sort2_rows(big, big)
+    with pytest.raises(ValueError, match=str(sort.MAX_WIDE_SORT_C)):
+        sort.sort_rows(torch.zeros((1, sort.MAX_WIDE_SORT_C + 1),
+                                   dtype=torch.int32, device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -187,6 +210,38 @@ def test_hamming_extend_kernel_matches_plain(cuda_device, L):
     want = ep.hamming_extend_packed_plain(*args)
     assert torch.equal(got, want)
     assert bool((want <= 3).any()) and bool((want == 255).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(60))
+def test_hamming_extend_kernel_on_edge_cases(cuda_device, case):
+    """tests/extend_edge_cases.py, every case, and each input again off
+    16-byte alignment."""
+    import extend_edge_cases as edges
+
+    case = edges.cases()[case]
+    genome, starts, reads, lens, loci, valid = edges.extend_case(*case)
+    dev = cuda_device
+    pg = ep.pack_genome(genome, dev)
+    r, ln = torch.from_numpy(reads).to(dev), torch.from_numpy(lens).to(dev)
+    rc, rn = ep.pack_reads(r, ln)
+    args = (pg, torch.from_numpy(starts.astype(np.int32)).to(dev),
+            torch.from_numpy(loci).to(dev), torch.from_numpy(valid).to(dev),
+            rc, rn, ln)
+    before = ep.hamming_extend_packed.launches
+    want = ep.hamming_extend_packed_plain(*args)
+    assert torch.equal(ep.hamming_extend_packed(*args), want)
+    assert ep.hamming_extend_packed.launches == before + 1
+
+    def off(t):                                # same values, 1 element on
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    moved = ep.PackedGenome(off(pg.rows), None if pg.n_rows is None else
+                            off(pg.n_rows), pg.length)
+    assert torch.equal(ep.hamming_extend_packed(
+        moved, *(off(t) for t in args[1:])), want)
 
 
 @pytest.mark.cuda
@@ -278,6 +333,37 @@ def test_banded_sw_kernels_match_plain(cuda_device, B, La, W):
     for g, w in zip(score, want[:3]):
         assert torch.equal(g, w)
     assert int(want[0][0]) == 0 and int(want[0].max()) > La // 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,La,W", [(9, 700, 256), (7, 800, 320),
+                                    (3, 1200, 1000),
+                                    (2, 600, bsw.MAX_SW_BAND_CUDA)])
+def test_wide_band_kernels_match_plain(cuda_device, B, La, W):
+    """Bands past the one-warp path: one block a pair up to the card's
+    widest W; the decode at the same planes; past that W, a ValueError."""
+    rng = np.random.default_rng(W)
+    args = _sw_args(cuda_device, *_sw_pairs(rng, B, La, min(W, La // 4)),
+                    La, W)
+    before = (bsw.banded_sw_moves.launches, bsw.banded_sw_score.launches,
+              sw_trace.traceback_cols_packed.launches)
+    got = bsw.banded_sw_moves(*args, W)
+    score = bsw.banded_sw_score(*args, W)
+    want = bsw.banded_sw_moves_plain(*args, W)
+    for g, w in zip((*got, *score), (*want, *want[:3])):
+        assert torch.equal(g, w)
+    _, bi, bk, mv = want
+    dec = sw_trace.traceback_cols_packed(mv, bi, bk, args[1], W, La)
+    for g, w in zip(dec, sw_trace.traceback_cols_packed_plain(
+            mv, bi, bk, args[1], W, La)):
+        assert torch.equal(g, w)
+    assert (bsw.banded_sw_moves.launches, bsw.banded_sw_score.launches,
+            sw_trace.traceback_cols_packed.launches) == tuple(
+                n + 1 for n in before)
+    assert int(want[0].max()) > La // 4 and (dec[0] < 4).any()
+    if W == bsw.MAX_SW_BAND_CUDA:
+        with pytest.raises(ValueError, match=str(bsw.MAX_SW_BAND_CUDA)):
+            bsw.banded_sw_score(*args, W + 1)
 
 
 @pytest.mark.cuda

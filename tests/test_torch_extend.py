@@ -5,12 +5,16 @@ JAX contract that the TPU kernel `_mm_kernel` serves) and through the
 port's plain version; results must be equal (tolerance 0, integers).
 Cases: a genome with an N plane, Ns in reads, 100 / 150 / 300 bp reads
 (multi-row windows), ragged lengths, loci across entry boundaries,
-negative, past the end and INT32_MAX sentinels.
+negative, past the end and INT32_MAX sentinels; and one case a read
+length of tests/extend_edge_cases.py (1 to 4,096 bases, up to 100,000
+entries), which the card tests run in full against the kernel.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import extend_edge_cases as edges
 
 from biokanga_tpu.ops import extend_packed as jep
 from biokanga_tpu_torch.device import i32_bits, popcount32, u32
@@ -52,20 +56,20 @@ def _case(rng, genome, L, B=96, C=40):
     return reads, lens, loci.astype(np.int32), valid
 
 
-def _jax_mm(genome, reads, lens, loci, valid):
+def _jax_mm(genome, reads, lens, loci, valid, starts=STARTS):
     pg = jep.pack_genome(genome)
     rc, rn = jep.pack_reads(jnp.asarray(reads), jnp.asarray(lens))
     return np.asarray(jep.hamming_extend_packed(
-        pg, jnp.asarray(STARTS.astype(np.int32)), jnp.asarray(loci),
+        pg, jnp.asarray(starts.astype(np.int32)), jnp.asarray(loci),
         jnp.asarray(valid), rc, rn, jnp.asarray(lens)))
 
 
-def _port_mm(genome, reads, lens, loci, valid):
+def _port_mm(genome, reads, lens, loci, valid, starts=STARTS):
     pg = tep.pack_genome(genome, torch.device("cpu"))
     r, ln = torch.from_numpy(reads), torch.from_numpy(lens)
     rc, rn = tep.pack_reads(r, ln)
     return tep.hamming_extend_packed(
-        pg, torch.from_numpy(STARTS.astype(np.int32)),
+        pg, torch.from_numpy(starts.astype(np.int32)),
         torch.from_numpy(loci), torch.from_numpy(valid), rc, rn, ln).numpy()
 
 
@@ -99,6 +103,24 @@ def test_pack_genome_and_reads_match_jax():
     np.testing.assert_array_equal(trc.numpy().view(np.uint32), np.asarray(jrc))
     np.testing.assert_array_equal(trn.numpy().view(np.uint32), np.asarray(jrn))
     assert (np.asarray(jrc) >= 2**31).any()       # bit 31 is exercised
+
+
+# one case a read length, the genome's N plane and entry starts cycling
+EDGE_CASES = [edges.cases()[6 * k + k % 6]
+              for k in range(len(edges.READ_LENGTHS))]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=lambda c: "-".join(
+    str(x) for x in c[1:4]))
+def test_edge_cases_match_jax(case):
+    """tests/extend_edge_cases.py: read lengths 1 to 4,096, with and
+    without an N plane, one entry, entry boundaries and 100,000 entries,
+    loci < 0, past the end and INT32_MAX, B = 1 and odd C."""
+    genome, starts, reads, lens, loci, valid = edges.extend_case(*case)
+    want = _jax_mm(genome, reads, lens, loci, valid, starts)
+    got = _port_mm(genome, reads, lens, loci, valid, starts)
+    np.testing.assert_array_equal(got, want)
+    assert (want == 255).any()
 
 
 @pytest.mark.parametrize("W", [1, 7, 10, 19])

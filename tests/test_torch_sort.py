@@ -80,8 +80,13 @@ def test_sort2_rows_negative_keys_and_extremes():
 
 
 def test_limits_are_refused_on_every_device():
-    with pytest.raises(ValueError, match="32768"):
-        sort.sort_rows(torch.zeros((1, sort.MAX_SORT_C + 1), dtype=torch.int32))
+    # the dedup sort takes any width (rows past the block path's 32,768
+    # values take the scratch-row path on the card); the accept sort keeps
+    # its 16,384-pair limit
+    x = _values(np.random.default_rng(3), 2, sort.MAX_SORT_C + 1).reshape(
+        1, -1)[:, :sort.MAX_SORT_C + 1]
+    x = torch.from_numpy(np.ascontiguousarray(x))
+    assert torch.equal(sort.sort_rows(x), torch.sort(x, dim=1).values)
     big = torch.zeros((1, sort.MAX_SORT2_C + 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="16384"):
         sort.sort2_rows(big, big)

@@ -118,6 +118,31 @@ def test_score_matches_jax_and_moves(W):
         assert torch.equal(g, m)
 
 
+@pytest.mark.parametrize("W", [256, 320])
+def test_wide_bands_match_jax(W):
+    """Bands past the one-warp path (W > 255): moves, score and each
+    package's decode of its own planes, on pairs of up to 400 bases."""
+    La, B = 400, 7
+    a, b, alen, blen, diag = make_pairs(W, B, La, W)
+    jb, ji, jk, jmv, jbw = jax_moves(a, b, alen, blen, diag, W,
+                                     interpret=True)
+    jo, jc, jn = jax_trace(jmv, ji, jk, jnp.asarray(jbw), W, La)
+    want_score = jax_score(a, b, alen, blen, diag, W, interpret=True)
+
+    args = _port_inputs(a, b, alen, blen, diag, La, W)
+    best, bi, bk, mv = sw.banded_sw_moves(*args, W)
+    assert mv.shape == (B, La // 16, 2 * W + 1)
+    for want, got in ((jb, best), (ji, bi), (jk, bk)):
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    for want, got in zip(want_score, sw.banded_sw_score(*args, W)):
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    out, ins_cnt, ins_base = traceback_cols_packed(mv, bi, bk, args[1], W, La)
+    np.testing.assert_array_equal(np.asarray(jo), out.numpy())
+    np.testing.assert_array_equal(np.asarray(jc), ins_cnt.numpy())
+    np.testing.assert_array_equal(np.asarray(jn), ins_base.numpy())
+    assert int(best.max()) > La // 4 and (out.numpy() == 5).any()
+
+
 def test_short_queries_stop_the_planes_at_alen():
     La, W = 64, 8
     a, b, alen, blen, diag = make_pairs(3, 6, La, W)
@@ -134,8 +159,16 @@ def test_wrappers_refuse_what_the_kernel_refuses():
     args = _port_inputs(a, b, alen, blen, diag, 64, 8)
     with pytest.raises(ValueError, match="gap_open"):
         sw.banded_sw_moves(*args, 8, match=3, gap_open=-3)
+    # past the one-warp path's band the DP runs all the same (one block a
+    # pair on the card, any W in the plain version)
+    W = sw.MAX_SW_BAND + 1
+    wide = _port_inputs(a, b, alen, blen, diag, 64, W)
+    got = sw.banded_sw_score(*wide, W)
+    for g, m in zip(got, sw.banded_sw_moves_plain(*wide, W)[:3]):
+        assert torch.equal(g, m)
+    assert int(got[0].max()) > 0
     with pytest.raises(ValueError, match="band half-width"):
-        sw.banded_sw_score(*args, sw.MAX_SW_BAND + 1)
+        sw.banded_sw_score(*args, -1)
     with pytest.raises(ValueError, match="bwin"):
         sw.banded_sw_moves(args[0], args[1][:, :-1], *args[2:], 8)
 
