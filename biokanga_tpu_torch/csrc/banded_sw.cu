@@ -57,6 +57,22 @@
 // recurrence F[c] = max(F[c-1] + gap_ext, H0[c-1] + gap_open) inside a
 // lane, whose maxima are those of the prefix form, so no per-column
 // prefix or offset array is kept.
+//
+// Bands past what registers hold (K > 16 warps x 512 columns, W > 4,095):
+// the same block of 16 warps walks each row in segments of 16 x 32 x 8
+// columns, left to right, and keeps every column's H and E between rows
+// (and, with moves, its word of codes for the current 16 rows) in a state
+// row: in shared memory while K x 8 B (12 B with moves) fits the block's
+// opt-in shared memory (up to about 29 K columns, 19 K with moves), else
+// in a scratch row of device memory that the wrapper allocates
+// (banded_sw_scratch says how many int32 a pair).  A segment reads its
+// columns and the up-neighbour of its last column (the next segment's
+// first, still last row's) before its barrier and writes them after it;
+// the lazy-F carry runs from segment to segment in a register; each
+// thread keeps its row maximum and lowest column over its segments, so a
+// new best cell needs no second pass over the row.  The target bases are
+// read from bwin at i + k each row (L1), not shifted through registers.
+// Speed is not this path's aim: one pass over the state row a row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -410,11 +426,168 @@ banded_sw_wide(const int8_t* __restrict__ a, const int8_t* __restrict__ bwin,
     }
 }
 
+// Bands past the block path: the row in segments, the state row in shared
+// or device memory (see the note at the top).  Thread t of a segment holds
+// columns seg * kSeg + t * kTileC .. + kTileC - 1.
+constexpr int kTileC = 8;
+constexpr int kSeg = kWideWarps * 32 * kTileC;
+
+template <bool MOVES>
+__global__ void __launch_bounds__(kWideWarps * 32)
+banded_sw_tiled(const int8_t* __restrict__ a, const int8_t* __restrict__ bwin,
+                const int32_t* __restrict__ alen,
+                const int32_t* __restrict__ jlo,
+                const int32_t* __restrict__ jhi,
+                int32_t* __restrict__ best_out, int32_t* __restrict__ bi_out,
+                int32_t* __restrict__ bk_out, int32_t* __restrict__ mv,
+                int32_t* __restrict__ scratch, int La, int T, int W,
+                int match, int mismatch, int gap_open, int gap_ext) {
+    constexpr int C = kTileC;
+    extern __shared__ int32_t s_state[];
+    __shared__ int s_tot[2][kWideWarps], s_max[kWideWarps], s_k[kWideWarps];
+    const int p = blockIdx.x;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = __shfl_sync(kFull, tid, 0) >> 5;
+    const int K = 2 * W + 1;
+    const int n_seg = (K + kSeg - 1) / kSeg;
+    const int Wd = (La + 15) >> 4;
+    const int8_t* ap = a + (int64_t)p * La;
+    const int8_t* bp = bwin + (int64_t)p * T;
+    int n_rows = alen[p];
+    n_rows = n_rows < 0 ? 0 : (n_rows > La ? La : n_rows);
+    const int lo = jlo[p], hi = jhi[p];
+    // H, E and (with moves) the code words of the K columns
+    const int64_t ints = (MOVES ? 3 : 2) * (int64_t)K;
+    int32_t* sH = scratch ? scratch + (int64_t)p * ints : s_state;
+    int32_t* sE = sH + K;
+    int32_t* sW = sE + K;
+    for (int k = tid; k < K; k += blockDim.x) {
+        sH[k] = 0;
+        sE[k] = kNeg;
+    }
+    __syncthreads();
+    int best = 0, bi = 0, bk = 0;
+
+    for (int i = 0; i < n_rows; ++i) {
+        const int ai = query_code(ap[i]);
+        int carry = kNeg;                     // prefix max of lower segments
+        int tmax = kNeg, tk = 0x7fffffff;     // this thread's row max, column
+        for (int seg = 0; seg < n_seg; ++seg) {
+            const int k0 = seg * kSeg + tid * C;
+            int H[C], E[C], hd[MOVES ? C : 1];
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                const bool ok = k0 + c < K;
+                H[c] = ok ? sH[k0 + c] : kNeg;
+                E[c] = ok ? sE[k0 + c] : kNeg;
+            }
+            const bool up_ok = k0 + C < K;
+            const int h_next = up_ok ? sH[k0 + C] : kNeg;
+            const int e_next = up_ok ? sE[k0 + C] : kNeg;
+            int run_max = kNeg;
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                const int hup = c + 1 < C ? H[c + 1] : h_next;
+                const int eup = c + 1 < C ? E[c + 1] : e_next;
+                const int e = __viaddmax_s32(eup, gap_ext, hup + gap_open);
+                const int t = i + k0 + c;
+                const int sub =
+                    ai == target_code(t < T ? __ldg(bp + t) : 4) ? match
+                                                                 : mismatch;
+                const int d = H[c] + sub;
+                if (MOVES) hd[MOVES ? c : 0] = d;
+                E[c] = e;
+                H[c] = __vimax3_s32_relu(d, e, sub);
+                run_max = __viaddmax_s32(H[c], -gap_ext * (k0 + c), run_max);
+            }
+            // lazy F: the exclusive prefix max of H0 - gap_ext * k over the
+            // lower lanes, the lower warps and the lower segments
+            int scan = run_max;
+#pragma unroll
+            for (int d = 1; d < 32; d <<= 1)
+                scan = max(scan, __shfl_up_sync(kFull, scan, d));
+            int excl = __shfl_up_sync(kFull, scan, 1);
+            if (lane == 0) excl = kNeg;
+            if (lane == 31) s_tot[seg & 1][warp] = scan;
+            __syncthreads();
+            const int tot = lane < kWideWarps ? s_tot[seg & 1][lane] : kNeg;
+            excl = max(max(excl, carry),
+                       __reduce_max_sync(kFull, lane < warp ? tot : kNeg));
+            carry = max(carry, __reduce_max_sync(kFull, tot));
+
+            int f = excl + gap_ext * k0 + gap_open - gap_ext;
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                const int k = k0 + c;
+                const int j = i + k - W;
+                const bool in = k < K && j >= lo && j < hi;
+                const int h0 = H[c];
+                const int h = in ? __vimax_s32_relu(h0, f) : kNeg;
+                const int e = in ? E[c] : kNeg;
+                if (k < K) {
+                    if (MOVES) {
+                        int code = h == f ? kLeft : kStop;
+                        code = h == e ? kUp : code;
+                        code = h == hd[MOVES ? c : 0] ? kDiag : code;
+                        code = h > 0 ? code : kStop;
+                        // row i's code enters at bits 30-31, as in the
+                        // register paths; the word waits in the state row
+                        const uint32_t word = __funnelshift_r(
+                            (i & 15) ? (uint32_t)sW[k] : 0u, (uint32_t)code,
+                            2);
+                        if ((i & 15) == 15 || i == n_rows - 1)
+                            mv[((int64_t)p * Wd + (i >> 4)) * K + k] =
+                                (int32_t)(word >> (2 * (15 - (i & 15))));
+                        else
+                            sW[k] = (int32_t)word;
+                    }
+                    sH[k] = h;
+                    sE[k] = e;
+                }
+                f = __viaddmax_s32(f, gap_ext, h0 + gap_open);
+                if (h > tmax) {
+                    tmax = h;
+                    tk = k;
+                }
+            }
+        }
+        // the row maximum and its lowest column
+        const int wmax = __reduce_max_sync(kFull, tmax);
+        if (lane == 0) s_max[warp] = wmax;
+        __syncthreads();
+        const int rb =
+            __reduce_max_sync(kFull, lane < kWideWarps ? s_max[lane] : kNeg);
+        if (rb > best) {                      // block-uniform
+            const int kk = __reduce_min_sync(kFull,
+                                             tmax == rb ? tk : 0x7fffffff);
+            if (lane == 0) s_k[warp] = kk;
+            __syncthreads();
+            bk = __reduce_min_sync(kFull,
+                                   lane < kWideWarps ? s_k[lane] : 0x7fffffff);
+            best = rb;
+            bi = i;
+        }
+    }
+
+    if (MOVES) {                              // rows >= alen: all STOP
+        for (int w = (n_rows + 15) >> 4; w < Wd; ++w) {
+            int32_t* dst = mv + ((int64_t)p * Wd + w) * K;
+            for (int k = tid; k < K; k += blockDim.x) dst[k] = 0;
+        }
+    }
+    if (tid == 0) {
+        best_out[p] = best;
+        bi_out[p] = bi;
+        bk_out[p] = bk;
+    }
+}
+
 struct Args {
     const int8_t* a;
     const int8_t* bwin;
     const int32_t *alen, *jlo, *jhi;
-    int32_t *best, *bi, *bk, *mv;
+    int32_t *best, *bi, *bk, *mv, *scratch;
     int B, La, T, W, match, mismatch, gap_open, gap_ext;
 };
 
@@ -450,27 +623,76 @@ cudaError_t launch(const Args& x, cudaStream_t stream) {
     BIOKANGA_SW_WIDE(8)
     BIOKANGA_SW_WIDE(16)
 #undef BIOKANGA_SW_WIDE
-    return cudaErrorInvalidValue;
+    const auto kernel = banded_sw_tiled<MOVES>;
+    size_t smem = 0;
+    if (!x.scratch) {
+        smem = (size_t)(MOVES ? 3 : 2) * cols * sizeof(int32_t);
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+    }
+    kernel<<<grid, kWideWarps * 32, smem, stream>>>(
+        x.a, x.bwin, x.alen, x.jlo, x.jhi, x.best, x.bi, x.bk, x.mv,
+        x.scratch, x.La, x.T, x.W, x.match, x.mismatch, x.gap_open,
+        x.gap_ext);
+    return cudaGetLastError();
+}
+
+// int32 of state a pair keeps in device memory: 0 where the band fits
+// the register paths or its state row fits the tiled kernel's shared
+// memory.
+cudaError_t scratch_ints(int W, bool moves, long long* ints) {
+    *ints = 0;
+    const long long cols = 2 * (long long)W + 1;
+    if (cols <= kWideWarps * 32 * 16) return cudaSuccess;
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaFuncAttributes attr{};
+    if (err == cudaSuccess)
+        err = moves ? cudaFuncGetAttributes(&attr, banded_sw_tiled<true>)
+                    : cudaFuncGetAttributes(&attr, banded_sw_tiled<false>);
+    if (err != cudaSuccess) return err;
+    const long long state = (moves ? 3 : 2) * cols;
+    if (state * (long long)sizeof(int32_t) + (long long)attr.sharedSizeBytes >
+        optin)
+        *ints = state;
+    return cudaSuccess;
 }
 
 }  // namespace
 
 // a (B, La) int8; bwin (B, T) int8, T >= ceil(La/16)*16 + 2W; alen, jlo,
 // jhi (B,) int32; best, bi, bk (B,) int32 out; mv (B, ceil(La/16), 2W+1)
-// int32 out, or null for the score-only kernel.  W <= 4,095: one warp a
-// pair up to W = 255, one block of up to 16 warps past that.
+// int32 out, or null for the score-only kernel; scratch (B, n) int32 with
+// n from banded_sw_scratch, or null where n is 0.  One warp a pair up to
+// W = 255, one block of up to 16 warps to W = 4,095, past that one block
+// of 16 warps walking the row in segments.
 extern "C" int banded_sw(const void* a, const void* bwin, const void* alen,
                          const void* jlo, const void* jhi, void* best,
-                         void* bi, void* bk, void* mv, int B, int La, int T,
-                         int W, int match, int mismatch, int gap_open,
-                         int gap_ext, void* stream) {
-    if (W < 0 || 2 * W + 1 > kWideWarps * 32 * 16)
-        return (int)cudaErrorInvalidValue;
+                         void* bi, void* bk, void* mv, void* scratch, int B,
+                         int La, int T, int W, int match, int mismatch,
+                         int gap_open, int gap_ext, void* stream) {
+    if (W < 0 || W > (0x7fffffff - 1) / 2) return (int)cudaErrorInvalidValue;
     if (B <= 0) return (int)cudaGetLastError();
+    long long need = 0;
+    const cudaError_t err = scratch_ints(W, mv != nullptr, &need);
+    if (err != cudaSuccess) return (int)err;
+    if ((need > 0) != (scratch != nullptr)) return (int)cudaErrorInvalidValue;
     const Args x{(const int8_t*)a,   (const int8_t*)bwin, (const int32_t*)alen,
                  (const int32_t*)jlo, (const int32_t*)jhi, (int32_t*)best,
                  (int32_t*)bi,        (int32_t*)bk,        (int32_t*)mv,
-                 B, La, T, W, match, mismatch, gap_open, gap_ext};
+                 (int32_t*)scratch,   B, La, T, W, match, mismatch, gap_open,
+                 gap_ext};
     const auto s = (cudaStream_t)stream;
     return (int)(mv ? launch<true>(x, s) : launch<false>(x, s));
+}
+
+// *ints = the int32 of device-memory state banded_sw needs a pair at band
+// half-width W, with (moves != 0) or without move planes.
+extern "C" int banded_sw_scratch(int W, int moves, long long* ints) {
+    if (W < 0) return (int)cudaErrorInvalidValue;
+    return (int)scratch_ints(W, moves != 0, ints);
 }

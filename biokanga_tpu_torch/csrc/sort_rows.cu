@@ -54,14 +54,16 @@
 // network over a scratch row of P = 2^ceil(log2 C) positions in device
 // memory that the wrapper allocates: the block path sorts each chunk of
 // 32,768 positions, reading the row padded with INT32_MAX, into the
-// scratch row; each merge above the chunk then runs all its strides >=
-// the chunk in one pass over device memory (a thread holds one column and
-// its mirror of each of the merge's chunks in registers) and finishes its
-// strides below the chunk in shared memory and registers, one block a
-// chunk, as the block path does; the last merge writes the first C
-// positions out.  A row of P = 2^19 takes 1 + 4 + 4 launches, each a pass
-// over the scratch rows: the passes' bytes bound it.  P stops at 2^21
-// (64 chunks in a thread's registers).  Only the one-key sort has this
+// scratch row; each merge above the chunk then runs its strides >= the
+// chunk in passes over device memory (a thread holds one column and its
+// mirror of each of up to 64 chunks in registers: a merge of up to 64
+// chunks in one pass, a wider one in one pass per 6 of its strides, the
+// first with the merge's mirror stage) and finishes its strides below the
+// chunk in shared memory and registers, one block a chunk, as the block
+// path does; the last merge writes the first C positions out.  A row of
+// P = 2^19 takes 1 + 4 + 4 launches, each a pass over the scratch rows:
+// the passes' bytes bound it.  Any P whose scratch rows fit in device
+// memory sorts; positions are 64-bit.  Only the one-key sort has this
 // path; the accept sort is at most 3,072 pairs wide.
 
 #include <cuda_runtime.h>
@@ -443,14 +445,15 @@ struct PaddedIn {
     static constexpr T kPad = kI32Max;
     const int32_t* __restrict__ x;
     int32_t* __restrict__ s;
-    int C, log_p;
+    int64_t C;
+    int log_p;
 
     __device__ T load(int64_t i) const {
-        const int col = (int)(i & ((1 << log_p) - 1));
+        const int64_t col = i & ((int64_t(1) << log_p) - 1);
         return col < C ? __ldg(x + (i >> log_p) * C + col) : kPad;
     }
     __device__ void load4(int64_t i, T& a, T& b, T& c, T& d) const {
-        const int col = (int)(i & ((1 << log_p) - 1));
+        const int64_t col = i & ((int64_t(1) << log_p) - 1);
         if (col < C) {
             const int4 q = __ldg(
                 reinterpret_cast<const int4*>(x + (i >> log_p) * C + col));
@@ -472,14 +475,15 @@ struct PaddedIn {
 struct PaddedOut {
     using T = int32_t;
     int32_t* __restrict__ out;
-    int C, log_p;
+    int64_t C;
+    int log_p;
 
     __device__ void store(int64_t i, T v) const {
-        const int col = (int)(i & ((1 << log_p) - 1));
+        const int64_t col = i & ((int64_t(1) << log_p) - 1);
         if (col < C) out[(i >> log_p) * C + col] = v;
     }
     __device__ void store4(int64_t i, T a, T b, T c, T d) const {
-        const int col = (int)(i & ((1 << log_p) - 1));
+        const int64_t col = i & ((int64_t(1) << log_p) - 1);
         if (col < C)
             *reinterpret_cast<int4*>(out + (i >> log_p) * C + col) =
                 make_int4(a, b, c, d);
@@ -497,41 +501,44 @@ struct ScratchOut {
     }
 };
 
-// The stages of a merge of size M * kWideChunk at strides >= kWideChunk,
+// Stages of a merge at strides >= D = 2^log_d (a multiple of kWideChunk)
 // in one pass over the scratch rows (their B * P positions as one array:
-// every merge lies inside a row).  Thread t takes, in one merge, column c
-// < kWideChunk / 2 and its mirror kWideChunk - 1 - c of the M chunks: x[j]
-// at chunk j, column c, y[j] at chunk j, column kWideChunk - 1 - c.  The
-// first stage pairs position i with i ^ (size - 1), that is x[j] with
-// y[M-1-j], the lower position keeping the smaller value; each later
-// stage at stride s * kWideChunk pairs x[j] with x[j + s] and y[j] with
-// y[j + s].  Neighbouring threads take neighbouring columns, so the loads
-// and stores of a warp are contiguous.
-template <int M>
+// every merge lies inside a row), over groups of G * D positions.  Thread
+// t takes, in one group, column c < D / 2 and its mirror D - 1 - c of the
+// group's G spans of D: x[j] at span j, column c, y[j] at span j, column
+// D - 1 - c.  With FLIP the group is a whole merge and its first stage
+// pairs position i with i ^ (G D - 1), that is x[j] with y[G-1-j], the
+// lower position keeping the smaller value; each later stage at stride
+// s * D pairs x[j] with x[j + s] and y[j] with y[j + s], down to s = 1.
+// Neighbouring threads take neighbouring columns, so the loads and stores
+// of a warp are contiguous.
+template <int G, bool FLIP>
 __global__ void __launch_bounds__(256)
-    sort_wide_level(int32_t* __restrict__ s, int64_t threads) {
-    constexpr int K = kWideChunk, HALF = K / 2;
+    sort_wide_level(int32_t* __restrict__ s, int64_t threads, int log_d) {
+    const int64_t D = int64_t(1) << log_d, half = D >> 1;
     for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
          t < threads; t += (int64_t)gridDim.x * blockDim.x) {
-        const int c = (int)(t % HALF);
-        int32_t* base = s + (t / HALF) * (int64_t)M * K;
-        int32_t x[M], y[M];
+        const int64_t c = t & (half - 1);
+        int32_t* base = s + ((t >> (log_d - 1)) << log_d) * G;
+        int32_t x[G], y[G];
 #pragma unroll
-        for (int j = 0; j < M; ++j) {
-            x[j] = base[j * K + c];
-            y[j] = base[j * K + K - 1 - c];
+        for (int j = 0; j < G; ++j) {
+            x[j] = base[j * D + c];
+            y[j] = base[j * D + D - 1 - c];
+        }
+        if constexpr (FLIP) {
+#pragma unroll
+            for (int j = 0; j < G; ++j) {
+                if (j < G / 2)
+                    cx(x[j], y[G - 1 - j]);
+                else
+                    cx(y[G - 1 - j], x[j]);
+            }
         }
 #pragma unroll
-        for (int j = 0; j < M; ++j) {
-            if (j < M / 2)
-                cx(x[j], y[M - 1 - j]);
-            else
-                cx(y[M - 1 - j], x[j]);
-        }
+        for (int st = FLIP ? G / 4 : G / 2; st >= 1; st >>= 1) {
 #pragma unroll
-        for (int st = M / 4; st >= 1; st >>= 1) {
-#pragma unroll
-            for (int j = 0; j < M; ++j) {
+            for (int j = 0; j < G; ++j) {
                 if (!(j & st)) {
                     cx(x[j], x[j | st]);
                     cx(y[j], y[j | st]);
@@ -539,11 +546,28 @@ __global__ void __launch_bounds__(256)
             }
         }
 #pragma unroll
-        for (int j = 0; j < M; ++j) {
-            base[j * K + c] = x[j];
-            base[j * K + K - 1 - c] = y[j];
+        for (int j = 0; j < G; ++j) {
+            base[j * D + c] = x[j];
+            base[j * D + D - 1 - c] = y[j];
         }
     }
+}
+
+template <bool FLIP>
+cudaError_t launch_level(int32_t* s, int G, int64_t threads, int log_d,
+                         unsigned grid, cudaStream_t st) {
+    void (*kernel)(int32_t*, int64_t, int);
+    switch (G) {
+        case 2: kernel = sort_wide_level<2, FLIP>; break;
+        case 4: kernel = sort_wide_level<4, FLIP>; break;
+        case 8: kernel = sort_wide_level<8, FLIP>; break;
+        case 16: kernel = sort_wide_level<16, FLIP>; break;
+        case 32: kernel = sort_wide_level<32, FLIP>; break;
+        case 64: kernel = sort_wide_level<64, FLIP>; break;
+        default: return cudaErrorInvalidValue;
+    }
+    kernel<<<grid, 256, 0, st>>>(s, threads, log_d);
+    return cudaGetLastError();
 }
 
 // The strides below kWideChunk of a merge whose larger strides are done:
@@ -619,13 +643,14 @@ extern "C" int sort_rows_i32(const void* x, void* out, int B, int C,
                                           (cudaStream_t)stream);
 }
 
-// Rows of 32,768 < C <= 2^21 values: scratch holds B rows of
-// P = 2^ceil(log2 C) int32, 16-byte aligned (the wrapper's torch.empty).
+// Rows of C > 32,768 values: scratch holds B rows of P = 2^ceil(log2 C)
+// int32, 16-byte aligned (the wrapper's torch.empty).
 extern "C" int sort_rows_wide_i32(const void* x, void* out, void* scratch,
-                                  int B, int C, int P, void* stream) {
+                                  int B, int C, long long P, void* stream) {
     if (B <= 0 || C <= 0) return (int)cudaGetLastError();
-    const int log_p = log2i(P);
-    if (C <= kWideChunk || P != 1 << log_p || P < C || P > 64 * kWideChunk)
+    int log_p = 0;
+    while ((int64_t(1) << log_p) < P) ++log_p;
+    if (C <= kWideChunk || P != int64_t(1) << log_p || P < C)
         return (int)cudaErrorInvalidValue;
     const auto st = (cudaStream_t)stream;
     int32_t* s = (int32_t*)scratch;
@@ -643,21 +668,26 @@ extern "C" int sort_rows_wide_i32(const void* x, void* out, void* scratch,
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      dev);
     if (err != cudaSuccess) return (int)err;
-    for (int m = 2; m * kWideChunk <= P; m <<= 1) {
-        // a thread a column pair of a merge of m chunks
-        const int64_t n = (int64_t)B * P / (2 * m);
-        const int64_t want = (n + 255) / 256;
-        const unsigned grid = (unsigned)(want < 16 * sms ? want : 16 * sms);
-        switch (m) {
-            case 2: sort_wide_level<2><<<grid, 256, 0, st>>>(s, n); break;
-            case 4: sort_wide_level<4><<<grid, 256, 0, st>>>(s, n); break;
-            case 8: sort_wide_level<8><<<grid, 256, 0, st>>>(s, n); break;
-            case 16: sort_wide_level<16><<<grid, 256, 0, st>>>(s, n); break;
-            case 32: sort_wide_level<32><<<grid, 256, 0, st>>>(s, n); break;
-            case 64: sort_wide_level<64><<<grid, 256, 0, st>>>(s, n); break;
-            default: return (int)cudaErrorInvalidValue;
+    constexpr int kLogChunk = log2i(kWideChunk);
+    for (int log_m = 1; kLogChunk + log_m <= log_p; ++log_m) {
+        // a merge of 2^log_m chunks: its strides >= the chunk in passes of
+        // at most 64 chunks' columns a thread, the first with the mirror
+        // stage, then the strides below the chunk in the tail
+        for (int span = log_m; span > 0;) {
+            const int g = span < 6 ? span : 6;
+            span -= g;
+            const int64_t n = (int64_t)B * P >> (g + 1);
+            const int64_t want = (n + 255) / 256;
+            const unsigned grid =
+                (unsigned)(want < 16 * sms ? want : 16 * sms);
+            err = span + g == log_m
+                      ? launch_level<true>(s, 1 << g, n, kLogChunk + span,
+                                           grid, st)
+                      : launch_level<false>(s, 1 << g, n, kLogChunk + span,
+                                            grid, st);
+            if (err != cudaSuccess) return (int)err;
         }
-        err = m * kWideChunk == P
+        err = kLogChunk + log_m == log_p
                   ? launch_tail(s, PaddedOut{(int32_t*)out, C, log_p}, chunks,
                                 vec, st)
                   : launch_tail(s, ScratchOut{s}, chunks, true, st);

@@ -10,9 +10,10 @@ then one link, `nvcc ... -shared -o <hash>.so <hash>.d/*.o`.  The library
 lands in `build/biokanga_tpu_torch/` at the repository root, named by a
 hash of the sources, so an edited source rebuilds and an unchanged one
 loads at once.  It is loaded with ctypes: every pointer
-and the stream are `c_void_p`, sizes are `c_int`, and every entry point
-returns `cudaGetLastError()` after its launch, which `check` turns into
-an exception.  Nothing here runs at import time.
+and the stream are `c_void_p`, sizes are `c_int` (`c_longlong` where
+they may pass 2^31), and every entry point returns `cudaGetLastError()`
+after its launch, which `check` turns into an exception.  Nothing here
+runs at import time.
 """
 from __future__ import annotations
 
@@ -32,27 +33,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argument types (all return cudaError_t as int)
 _SIGNATURES = {
     # (x, out, B, C, stream)
     "sort_rows_i32": (_P, _P, _I, _I, _P),
     # (x, out, scratch, B, C, P, stream)
-    "sort_rows_wide_i32": (_P, _P, _P, _I, _I, _I, _P),
+    "sort_rows_wide_i32": (_P, _P, _P, _I, _I, _L, _P),
     # (key, val, out_key, out_val, B, C, stream)
     "sort2_rows_i32": (_P, _P, _P, _P, _I, _I, _P),
     # (rows, n_rows, R, genome_len, entry_starts, n_starts, loci, valid,
     #  rcodes, rnlane, lengths, out, B, C, W, stream)
     "hamming_extend_packed": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _P),
-    # (a, bwin, alen, jlo, jhi, best, best_i, best_k, mv or NULL, B, La, T,
-    #  W, match, mismatch, gap_open, gap_ext, stream)
-    "banded_sw": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                  _I, _I, _P),
+    # (a, bwin, alen, jlo, jhi, best, best_i, best_k, mv or NULL,
+    #  scratch or NULL, B, La, T, W, match, mismatch, gap_open, gap_ext,
+    #  stream)
+    "banded_sw": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                  _I, _I, _I, _P),
+    # (W, moves, *ints): int32 of device-memory state a pair
+    "banded_sw_scratch": (_I, _I, ctypes.POINTER(_L)),
     # (mv, best_i, best_k, bwin, out, ins_cnt, ins_base, B, La, Wd, K, T,
     #  stream)
     "sw_trace_packed": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # (table, idx, n, out, stream)
-    "stream_gather_consume": (_P, _P, _I, _P, _P),
+    # (table, idx, n, R, region_rows, out, stream)
+    "stream_gather_consume": (_P, _P, _I, _I, _I, _P, _P),
+    # (*bytes): the current device's L2 size
+    "stream_gather_l2_bytes": (ctypes.POINTER(_I),),
 }
 
 _lock = threading.Lock()

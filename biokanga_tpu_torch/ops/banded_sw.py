@@ -19,12 +19,16 @@ ops/sw_trace.traceback_cols_packed; the JAX package pads the columns to
 output.
 
 On a CUDA tensor each wrapper launches csrc/banded_sw.cu (one warp a
-pair up to W = 255, one block a pair up to W = 4,095) or raises, also for
-a wider band; on a CPU tensor it runs the plain version beside it, a loop
-over query rows in torch over (B, K) tensors, at any W.  Both refuse the
-same scoring and shapes.
+pair up to W = 255, one block a pair with the band in registers up to
+W = 4,095, past that one block a pair walking the band in segments with
+its state row in shared memory or, where that does not fit, in a scratch
+row of device memory allocated here) or raises; on a CPU tensor it runs
+the plain version beside it, a loop over query rows in torch over (B, K)
+tensors.  Both take any W and refuse the same scoring and shapes.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -42,9 +46,7 @@ from .sw import (
 )
 
 # widest band of csrc/banded_sw.cu's one-warp path (K = 2W+1 <= 16 * 32)
-# and of its block path (16 warps of 32 lanes x 16 columns)
 MAX_SW_BAND = 255
-MAX_SW_BAND_CUDA = 4_095
 
 
 def _round_up(x: int, m: int) -> int:
@@ -88,10 +90,6 @@ def _check(name: str, a, bwin, alen, jlo, jhi, W: int, match: int,
             f"lazy-F out-of-band invariant")
     if W < 0:
         raise ValueError(f"{name}: band half-width {W} is negative")
-    if a.device.type == "cuda" and W > MAX_SW_BAND_CUDA:
-        raise ValueError(f"{name}: band half-width {W} outside "
-                         f"0..{MAX_SW_BAND_CUDA}, the card kernel's reach "
-                         f"(16 warps x 512 columns)")
     if a.dim() != 2 or a.dtype != torch.int8:
         raise ValueError(f"{name}: a must be (B, La) int8, got "
                          f"{tuple(a.shape)} {a.dtype}")
@@ -194,9 +192,18 @@ def _launch(a, bwin, alen, jlo, jhi, W, match, mismatch, gap_open, gap_ext,
         args = [t.contiguous() for t in (a, bwin, alen, jlo, jhi)]
         lib = kernels.library()
         with torch.cuda.device(dev):
+            # past what shared memory holds, each pair's state row (H, E
+            # and, with moves, the code words of its 2W+1 columns)
+            ints = ctypes.c_longlong(0)
+            kernels.check(lib.banded_sw_scratch(W, int(moves),
+                                                ctypes.byref(ints)),
+                          "banded_sw_scratch")
+            scratch = (torch.empty((B, ints.value), dtype=torch.int32,
+                                   device=dev) if ints.value else None)
             err = lib.banded_sw(
                 *[t.data_ptr() for t in args], *[o.data_ptr() for o in outs],
-                None if mv is None else mv.data_ptr(), B, La,
+                None if mv is None else mv.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), B, La,
                 args[1].shape[1], W, match, mismatch, gap_open, gap_ext,
                 kernels.stream_ptr(dev))
         kernels.check(err, "banded_sw")

@@ -11,11 +11,12 @@ On a CUDA tensor each wrapper launches its kernel from csrc/sort_rows.cu
 (a bitonic network; one warp a row with the row in registers up to 1,024
 values or 512 pairs, one block a row through shared memory up to 32,768
 values or 16,384 pairs, and for the dedup sort a scratch row in device
-memory past that, up to 2^21 values; see the source note there) or
-raises; on a CPU tensor it runs the plain version beside it, at any
-width.  The align path's widest dedup row is 369 cores x 1,024 positions
-(4,096 bp reads, `-m ultra`).  `sort2_rows` refuses pair rows past 16,384
-on every device, so its two paths accept the same inputs.
+memory past that, at any width whose scratch rows fit; see the source
+note there) or raises; on a CPU tensor it runs the plain version beside
+it, at any width.  The align path's widest dedup row is 369 cores x
+1,024 positions (4,096 bp reads, `-m ultra`).  `sort2_rows` refuses pair
+rows past 16,384 on every device, so its two paths accept the same
+inputs.
 """
 from __future__ import annotations
 
@@ -28,7 +29,6 @@ from .. import kernels
 # one-key rows take the scratch-row path; wider pair rows are refused.
 MAX_SORT_C = 32_768
 MAX_SORT2_C = 16_384
-MAX_WIDE_SORT_C = 1 << 21               # the scratch-row path's reach
 
 
 def _check_rows(name: str, x: torch.Tensor, limit: int | None) -> None:
@@ -62,9 +62,6 @@ def sort_rows(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return sort_rows_plain(x)
     B, C = x.shape
-    if C > MAX_WIDE_SORT_C:
-        raise ValueError(f"sort_rows: rows of {C} values exceed the card "
-                         f"kernel's limit of {MAX_WIDE_SORT_C}")
     x = x.contiguous()
     out = torch.empty_like(x)
     if B and C:

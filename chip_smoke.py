@@ -29,7 +29,10 @@ Phases, each of which raises on failure:
      out of the band; scores near and past 2**15), time each at one SW
      chunk (1,024 pairs) and at the EC cell's chunk size, with the
      decode's dependent-chain floor; the same at W = 256 and 320 (one
-     block a pair), checked on 16 pairs and timed at their EC chunks;
+     block a pair), checked on 16 pairs and timed at their EC chunks,
+     and at W = 4,096 and 15,000 (the band in segments, its state row in
+     shared and in device memory), checked and timed on 4 pairs of
+     256 bases;
      then score one 100 kb noisy pair with banded_sw_score, as the JAX
      package's only caller of that kernel (scripts/bench_longread.py)
      does;
@@ -39,10 +42,12 @@ Phases, each of which raises on failure:
   9. correct the error-correction head-to-head read set (500 x 10 kb CLR
      reads of a 200 kb genome, scripts/bench_ec_headtohead.py) with the
      CLI defaults on the card and require 32-mer recovery >= 0.99;
- 10. hold the gather checksum kernel (stream_gather_consume) against its
-     plain version at three table sizes (2.3 MB, 128 MB, 2,048 MB; random
-     and sorted indices), time it, then run the gather probe
-     (scripts/probe_stream_gather_torch.py) over its seven table sizes;
+ 10. hold the gather checksum kernel (stream_gather_consume) against
+     its plain version at three table sizes (2.3 MB, one region; 128 MB,
+     five regions of half the L2; 2,048 MB, one region past n = R;
+     random and sorted indices), time it beside its bound and the floor
+     of a gather in index order, then run the gather probe
+     (scripts/probe_stream_gather_torch.py) over its seven sizes;
  11. align 262,144 simulated pairs of 2 x 100 bp (inserts 200-500) against
      the same genome with `align -i r1.fq -u r2.fq -d 100 -D 600 --device
      cuda`, check that every align kernel was launched and that >= 99% of
@@ -92,17 +97,20 @@ N_REPEAT_PAIRS = 2_048
 RESCUE_SHAPE = (2_048, 500)            # orphans x consecutive loci
 # dedup rows past the block sort: (1, 32,769), the ladder's step 2 at
 # 500 bp (40 cores x 1,024) and at 4,096 bp with -m ultra (369 x 1,024),
-# and the scratch-row path's widest row
+# the widest row whose merges take one pass a level, and two past it
 WIDE_SORT_SHAPES = ((1, 32_769), (512, 40_960), (512, 377_856),
-                    (2, 1 << 21))
+                    (2, 1 << 21), (1, (1 << 21) + 1), (1, 1 << 22))
 LONG_READ_LEN = 500                    # phase 5's repeat reads
 CONTIGS, CONTIG_LEN = 100_000, 1_000   # a draft assembly's entries
 
 # the gather probe: table sizes held against the plain version here
 GATHER_N = 6_291_456
+# regions swept: 1 (the table inside one), 5 of half the L2, 1 (n < R)
 GATHER_CHECK_MB = (2.3, 128.0, 2048.0)
 GATHER_LINE_MB = 128.0                 # the size of the kernels line
-GATHER_OPS_PER_WORD = 6                # xor, 2 masks, shift, 2 adds
+# int32 operations a word of the checksum: an XOR and a byte sum (one
+# IDP.4A against 0x01010101)
+GATHER_OPS_PER_WORD = 2
 
 # error correction: SW at EC shapes, and the head-to-head read set
 SW_LA = 10_240
@@ -111,8 +119,13 @@ SW_CHECK_PAIRS = 64
 SW_CHUNK_PAIRS = 1_024
 WIDE_SW_BANDS = (256, 320)             # one block a pair
 WIDE_SW_CHECK_PAIRS = 16
+# past the band in registers: segments with the state row in shared
+# memory (4,096) and in device memory (15,000), on short pairs
+SEGMENT_SW_BANDS = (4_096, 15_000)
+SEGMENT_SW_LA, SEGMENT_SW_PAIRS = 256, 4
 LONG_PAIR_W = 255                      # bench_longread's band
 EC_WIDE_BAND = 256
+EC_PARITY_READS = 24                   # phase 8: noisy 1.5 kb reads
 EC_READS, EC_READ_LEN, EC_GENOME_KB, EC_ERR, EC_SEED = 500, 10_000, 200, 0.07, 3
 MIN_KMER_RECOVERY = 0.99
 
@@ -707,13 +720,14 @@ def _sw_pairs(rng, B, La, W):
     alen = np.zeros(B, np.int32)
     blen = np.zeros(B, np.int32)
     diag = np.zeros(B, np.int32)
+    trim = min(600, La // 4)                      # ragged ends, <= La
     for p in range(B):
         d = int(rng.integers(-W, W + 1))          # target j ~ query i + d
         st = int(rng.integers(W, len(genome) - La - 2 * W))
         q = _clr_copy(rng, genome[st + max(d, 0): st + max(d, 0) + La],
-                      EC_ERR)[:La - int(rng.integers(0, 600))]
+                      EC_ERR)[:La - int(rng.integers(0, trim))]
         t = _clr_copy(rng, genome[st + max(-d, 0): st + max(-d, 0) + La],
-                      EC_ERR)[:La - int(rng.integers(0, 600))]
+                      EC_ERR)[:La - int(rng.integers(0, trim))]
         a[p, :len(q)], alen[p] = q, len(q)
         b[p, :len(t)], blen[p] = t, len(t)
         diag[p] = d + int(rng.integers(-8, 9))
@@ -886,27 +900,32 @@ def check_sw(dev, rng):
     print(f"the EC cell's chunk, {n_ec} pairs x {La}: banded_sw_moves "
           f"{tm['ms_ec_chunk']:.4f} ms, sw_trace "
           f"{tt['ms_ec_chunk']:.4f} ms")
-    for W in WIDE_SW_BANDS:
-        wide = _check_wide_sw(dev, rng, pairs, W)
+    for W, timed_on, La, n in (
+            *((W, pairs, SW_LA, WIDE_SW_CHECK_PAIRS) for W in WIDE_SW_BANDS),
+            *((W, None, SEGMENT_SW_LA, SEGMENT_SW_PAIRS)
+              for W in SEGMENT_SW_BANDS)):
+        wide = _check_wide_sw(dev, rng, timed_on, W, La, n)
         for name in ("banded_sw_moves", "banded_sw_score", "sw_trace"):
             err[name] = max(err[name], wide[name].pop("err"))
             timing[name].setdefault("wide", {})[f"W{W}"] = wide[name]
     return err, timing
 
 
-def _check_wide_sw(dev, rng, pairs, W):
+def _check_wide_sw(dev, rng, pairs, W, La, n_check):
     """The SW kernels and the decode at a band past the one-warp path (one
-    block a pair): exact on WIDE_SW_CHECK_PAIRS new pairs, then timed at
-    the EC cell's chunk size for this band on the first of `pairs`."""
+    block a pair): exact on `n_check` new pairs of `La` bases, then timed
+    at the EC cell's chunk size for this band on the first of `pairs`, or
+    on the checked pairs where `pairs` is None."""
     import torch
 
     from biokanga_tpu_torch.ops import banded_sw as bsw
     from biokanga_tpu_torch.ops import sw_trace
     from biokanga_tpu_torch.pacbio.ecreads import ECParams, _pair_bytes
 
-    La, K = SW_LA, 2 * W + 1
-    args = _sw_inputs(dev, *_sw_pairs(rng, WIDE_SW_CHECK_PAIRS, La, W), La,
-                      W)
+    K = 2 * W + 1
+    # diagonals within a quarter of the pairs' length, so that they overlap
+    args = _sw_inputs(dev, *_sw_pairs(rng, n_check, La, min(W, La // 4)),
+                      La, W)
     out = {}
     t0 = time.monotonic()
     want = bsw.banded_sw_moves_plain(*args, W)
@@ -933,9 +952,12 @@ def _check_wide_sw(dev, rng, pairs, W):
     if any(errs.values()) or int(want[0].max()) < La // 10:
         raise AssertionError(f"SW kernels at W {W}: {errs}, best "
                              f"{int(want[0].max())}")
-    n = ECParams().sw_chunk_bytes // _pair_bytes(La, W)
-    a, bwin, alen, jlo, jhi = args = _sw_inputs(
-        dev, *(x[:n] for x in pairs), La, W)
+    if pairs is None:
+        n = n_check
+    else:
+        n = ECParams().sw_chunk_bytes // _pair_bytes(La, W)
+        args = _sw_inputs(dev, *(x[:n] for x in pairs), La, W)
+    a, bwin, alen, jlo, jhi = args
     best, bi, bk, mv = bsw.banded_sw_moves(*args, W)
     dec = sw_trace.traceback_cols_packed(mv, bi, bk, bwin, W, La)
     cells = float(alen.clamp(max=La).sum()) * K
@@ -956,7 +978,7 @@ def _check_wide_sw(dev, rng, pairs, W):
                          plain_ms_check_pairs=plain_ms, bound_ms=bound[0],
                          bound_by=bound[1])
         print(f"{name} at W {W} (one block a pair): exact on "
-              f"{WIDE_SW_CHECK_PAIRS} pairs (plain torch {plain_ms:.1f} ms, "
+              f"{n_check} pairs (plain torch {plain_ms:.1f} ms, "
               f"once); {n} pairs x {La} x K {K}: {ms:.4f} ms"
               + (f", {cells / ms / 1e6:.2f} GCUPS" if name != "sw_trace"
                  else "") + f", bound {bound[0]:.4f} ms ({bound[1]})")
@@ -1084,15 +1106,16 @@ def _ecreads(fasta: Path, out: Path, device: str, extra=()) -> dict:
 
 
 def ec_parity(rng):
-    """24 noisy 1.5 kb reads, --rounds 2: --device cpu == --device cuda, at
-    the default band and at --sw-band 256 (one block a pair)."""
+    """EC_PARITY_READS noisy 1.5 kb reads, --rounds 2: --device cpu ==
+    --device cuda, at the default band and at --sw-band 256 (one block a
+    pair)."""
     from biokanga_tpu_torch.ops import banded_sw, sw_trace
     from biokanga_tpu_torch.seq.encode import revcomp
     from biokanga_tpu_torch.seq.fasta import write_fasta
 
     genome = rng.integers(0, 4, 3_000, dtype=np.int8)
     reads = []
-    for i in range(24):
+    for i in range(EC_PARITY_READS):
         st = int(rng.integers(0, 1_500))
         r = _clr_copy(rng, genome[st: st + 1_500], EC_ERR)
         r[rng.random(len(r)) < 0.002] = 4
@@ -1109,11 +1132,12 @@ def ec_parity(rng):
                     sw_trace.traceback_cols_packed.launches)
         want = (WORK / f"{tag}_cpu.fa").read_bytes()
         if (WORK / f"{tag}_cuda.fa").read_bytes() != want or \
-                min(launches) < 1 or st["overlaps"] < 24:
+                min(launches) < 1 or st["overlaps"] < EC_PARITY_READS:
             raise AssertionError(f"EC parity {extra}: FASTA differs or "
                                  f"launches {launches}, overlaps "
                                  f"{st['overlaps']}")
-        print(f"ecreads --rounds 2 {' '.join(extra)} on 24 reads of ~1.5 kb: "
+        print(f"ecreads --rounds 2 {' '.join(extra)} on {EC_PARITY_READS} "
+              f"reads of ~1.5 kb: "
               f"--device cpu == --device cuda byte for byte ({len(want)} "
               f"bytes, {st['overlaps']} overlaps; SW/decode launches "
               f"{launches})")
@@ -1180,53 +1204,61 @@ def _probe_module():
 
 
 def check_stream_gather(dev, smi):
-    """stream_gather_consume against its plain version at three table
-    sizes, random and sorted, exactly; each timed beside its bound."""
+    """stream_gather_consume against its plain version at GATHER_CHECK_MB
+    (the region sizes the wrapper takes: the whole table as one region,
+    and regions of half the L2), random and sorted, exactly; each timed
+    beside its bound and the floor of a gather in index order."""
     import torch
 
     from biokanga_tpu_torch.ops import stream_gather as sg
 
     probe = _probe_module()
-    err, timing = 0, None
+    err, timing, swept = 0, None, set()
     for mb in GATHER_CHECK_MB:
         table, idx = probe.make_inputs(mb, GATHER_N, dev)
         sidx = torch.sort(idx).values
         want = int(sg.stream_gather_consume_plain(table, idx))
-        for name, got in (
-                ("random", sg.stream_gather_consume(table, idx)),
-                ("sorted", sg.stream_gather_consume(table, sidx)),
-                ("sort_rows", sg.stream_gather_consume(table, idx,
-                                                       sort_rows=True))):
-            err = max(err, abs(int(got) - want))
-            if int(got) != want:
+        got = {"random": sg.stream_gather_consume(table, idx)}
+        regions = sg.stream_gather_consume.last_regions
+        got["sorted"] = sg.stream_gather_consume(table, sidx)
+        got["sort_rows"] = sg.stream_gather_consume(table, idx,
+                                                    sort_rows=True)
+        for name, g in got.items():
+            err = max(err, abs(int(g) - want))
+            if int(g) != want:
                 raise AssertionError(f"stream_gather_consume, {mb} MB, "
-                                     f"{name}: {int(got)} != {want}")
+                                     f"{name}: {int(g)} != {want}")
+        swept.add(regions)
+        path = f"{regions} region{'s' if regions > 1 else ''}"
         n = idx.numel()
         # what this run's indices need: each distinct row and each index
-        # read once, one word written.  n x (64 + 4) bytes, every gather
-        # served from device memory, is no lower bound: duplicates and a
-        # table inside L2 go below it
+        # read once, one word written; beside it, the floor of a gather in
+        # index order (the rows L2 does not hold come from device memory)
         distinct = int(torch.unique(idx).numel())
-        bound = _bound(distinct * 64 + n * 4 + 4,
-                       n * 16 * GATHER_OPS_PER_WORD)
+        b = probe.bounds(n, distinct, table.numel() * 4,
+                         sg.l2_bytes(table.device))
         t = dict(
             ms=_timed_ms(lambda: sg.stream_gather_consume(table, idx)),
             sorted_ms=_timed_ms(lambda: sg.stream_gather_consume(table,
                                                                  sidx)),
             plain_ms=_timed_ms(
                 lambda: sg.stream_gather_consume_plain(table, idx), 3),
-            library_ms=None, bound=bound)
+            library_ms=None, bound=(b["bound_ms"], b["bound_by"]),
+            path=path, direct_floor_ms=b["direct_floor_ms"])
         print(f"stream_gather_consume, table {table.numel() * 4 / 1e6:.1f} MB"
               f" ({table.shape[0]} rows), {n} gathers of {distinct} distinct "
-              f"rows: exact (random, sorted, sort_rows); kernel "
+              f"rows: exact (random, sorted, sort_rows); {path}: kernel "
               f"{t['ms']:.4f} ms random, {t['sorted_ms']:.4f} ms sorted, "
-              f"plain torch {t['plain_ms']:.4f} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]}; {n * 68 / HBM_BYTES_PER_S * 1e3:.4f} ms if every "
-              f"gather came from device memory) ({smi})")
+              f"plain torch {t['plain_ms']:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), share "
+              f"{b['bound_ms'] / t['ms']:.3f}; in index order "
+              f"{b['direct_floor_ms']:.4f} ms at best ({smi})")
         if mb == GATHER_LINE_MB:
             timing = t
         del table, idx, sidx
         torch.cuda.empty_cache()
+    if 1 not in swept or max(swept) < 2:
+        raise AssertionError(f"the checked sizes swept {swept} regions")
     # the kernel's path through the system: the probe, over its own sizes
     sg.stream_gather_consume.launches = 0
     if probe.main(["--iters", "3"]) != 0:
@@ -1517,6 +1549,14 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.monotonic()
+    laps, t_lap = {}, [t_start]
+
+    def lap(phase: str) -> None:
+        """Seconds since the previous phase ended, kept under `phase`."""
+        now = time.monotonic()
+        laps[phase] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     # 1. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1532,6 +1572,7 @@ def main() -> int:
     kernels.library()
     print(f"kernels built in {time.monotonic() - t0:.2f} s: "
           f"{lib.relative_to(ROOT)}")
+    lap("1-2")
 
     # 3. align kernels against their plain versions
     rng = np.random.default_rng(2024)
@@ -1539,6 +1580,7 @@ def main() -> int:
     ext_err, timing["hamming_extend_packed"] = check_extend(dev, rng)
     errs = {**sort_err, "hamming_extend_packed": ext_err}
     print("align kernel checks passed: exact equality at every shape")
+    lap("3")
 
     # 4. align end to end through the CLI
     WORK.mkdir(parents=True, exist_ok=True)
@@ -1567,6 +1609,7 @@ def main() -> int:
           f"unique at origin {frac:.6f}")
     if frac < MIN_TRUE_FRACTION:
         raise AssertionError(f"only {frac:.4%} of reads map to their origin")
+    lap("4")
 
     # 5. CPU plain path against the card, byte for byte
     for d in ("cpu", "cuda"):
@@ -1613,6 +1656,7 @@ def main() -> int:
           f"{n_assigned} multi-hit reads assigned")
     # 5c. reads past 400 bp: dedup rows past the block sort
     long_read_parity()
+    lap("5")
 
     # 6. the align engine alone: index on the card, reads in host memory
     engine = AlignEngine(to_device(idx, dev), AlignParams(batch_size=BATCH))
@@ -1634,35 +1678,44 @@ def main() -> int:
           f"bp, batch {BATCH}, unique {n_unique}) on {smi}")
     del engine, reads
     torch.cuda.empty_cache()
+    lap("6")
 
     # 7. SW kernels at EC shapes, and #6 on a long pair
     sw_err, sw_timing = check_sw(dev, rng)
     errs.update(sw_err)
     timing.update(sw_timing)
     launches = {"banded_sw_score": long_pair_score(dev, rng)}
+    lap("7")
 
     # 8. EC through the CLI: the plain path against the card
     ec_parity(rng)
+    lap("8")
 
     # 9. EC at full width
     launches.update(ec_full_width(smi))
+    lap("9")
 
     # 10. the gather kernel against its plain version, then its probe
     (errs["stream_gather_consume"], timing["stream_gather_consume"],
      launches["stream_gather_consume"]) = check_stream_gather(dev, smi)
+    lap("10")
 
     # 11. paired ends end to end through the CLI; kernels #1-#3 are
     # counted on this run, the newest path through them
     pe_launches, r1, r2 = pe_full_width(seqs, smi)
     launches.update(pe_launches)
+    lap("11")
 
     # 12. PE: the plain path against the card
     pe_parity()
+    lap("12")
 
     # 13. the PE engine alone and its decomposition
     pe_engine(idx, r1, r2, dev, smi)
     del idx, seqs, r1, r2
     torch.cuda.empty_cache()
+
+    lap("13")
 
     src = "biokanga_tpu_torch/csrc/"
     rows = [
@@ -1695,7 +1748,8 @@ def main() -> int:
               f"{bound_ms:.4f} ms ({bound_by}) ({smi})")
         extra = {k: t[k] for k in ("ms_ec_chunk", "ec_chunk_pairs",
                                    "chain_ms", "ms_fused_pe", "ms_contigs",
-                                   "wrapper_ms", "wide")
+                                   "wrapper_ms", "wide", "path",
+                                   "direct_floor_ms")
                  if k in t}
         kernels_line.append({
             "name": name, "route": "cuda", "source": src + path,
@@ -1709,6 +1763,7 @@ def main() -> int:
                     if m.split(".")[0] in ("jax", "jaxlib", "biokanga_tpu"))
     if leaked:
         raise AssertionError(f"the JAX side was imported: {leaked[:5]}")
+    print(f"phase seconds: {json.dumps(laps)}")
     print(f"chip_smoke: {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {

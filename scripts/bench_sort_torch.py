@@ -17,7 +17,9 @@ Inputs:
   random rows, as chip_smoke.py phase 3 makes them (`_sort_values`: ties,
     bit 31 set in about half, 30% INT32_MAX; pair keys 0..511), at the
     align path's widths: dedup rows of 384-1,440 values and rescue rows
-    of 8,192 and 24,576, accept rows of 192-4,096 pairs;
+    of 8,192 and 24,576, accept rows of 192-4,096 pairs, and rows past
+    the block path through the scratch-row path (`sort_rows_wide_i32`):
+    the rescue ladder's step 2 at 500 bp and at 4,096 bp reads;
   captured rows: the inputs that `align/pipeline.py` hands to sort_rows
     and sort2_rows in the first batch of the SE cell (65,536 x 100 bp
     reads, chip_smoke.py phase 6), in one batch of 65,536 x 150 bp reads
@@ -45,6 +47,7 @@ sys.path.insert(0, str(ROOT))
 ONE_KEY = ((65_536, 384), (65_536, 480), (131_072, 480), (65_536, 576),
            (65_536, 720), (65_536, 1_152), (65_536, 1_440), (2_048, 8_192),
            (512, 24_576))
+WIDE = ((512, 40_960), (512, 377_856))
 PAIRS = ((65_536, 192), (131_072, 192), (65_536, 384), (16_384, 1_024),
          (512, 4_096))
 
@@ -143,10 +146,8 @@ def main(argv: list[str]) -> int:
     for i, root in enumerate(roots + [ROOT]):
         mod = _kernels_module(root, str(i))
         libs.append(ctypes.CDLL(str(mod.build())))
-        for fn, n in (("sort_rows_i32", 5), ("sort2_rows_i32", 7)):
-            getattr(libs[-1], fn).argtypes = (
-                [ctypes.c_void_p] * (n - 3) + [ctypes.c_int] * 2
-                + [ctypes.c_void_p])
+        for fn in ("sort_rows_i32", "sort2_rows_i32", "sort_rows_wide_i32"):
+            getattr(libs[-1], fn).argtypes = list(mod._SIGNATURES[fn])
             getattr(libs[-1], fn).restype = ctypes.c_int
     new = len(libs) - 1
     order = list(range(new)) + [new, new] + list(reversed(range(new)))
@@ -155,6 +156,11 @@ def main(argv: list[str]) -> int:
     def runner(lib, inputs, outs):
         B, C = inputs[0].shape
         ptrs = [t.data_ptr() for t in (*inputs, *outs)]
+        if len(inputs) == 1 and C > 32_768:
+            P = 1 << (C - 1).bit_length()
+            scratch = torch.empty((B, P), dtype=torch.int32, device=dev)
+            return lambda: lib.sort_rows_wide_i32(*ptrs, scratch.data_ptr(),
+                                                  B, C, P, stream)
         if len(inputs) == 1:
             return lambda: lib.sort_rows_i32(*ptrs, B, C, stream)
         return lambda: lib.sort2_rows_i32(*ptrs, B, C, stream)
@@ -192,6 +198,11 @@ def main(argv: list[str]) -> int:
         x = torch.from_numpy(_sort_values(rng, B, C)).to(dev)
         out["random"].append(bench("dedup random", (x,)))
         del x
+    for B, C in WIDE:
+        x = torch.from_numpy(_sort_values(rng, B, C)).to(dev)
+        out["random"].append(bench("dedup wide random", (x,)))
+        del x
+    torch.cuda.empty_cache()
     for B, C in PAIRS:
         key = torch.from_numpy(rng.integers(0, 512, size=(B, C),
                                             dtype=np.int32)).to(dev)

@@ -145,12 +145,15 @@ def test_sort2_rows_kernel_edge_rows(cuda_device, kind, C):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,C", [(1, 32_769), (512, 40_960), (3, 100_001),
-                                 (512, 377_856), (2, 1 << 21)])
+                                 (512, 377_856), (2, 1 << 21),
+                                 (1, (1 << 21) + 1), (1, 1 << 22),
+                                 (1, (1 << 24) + 3), (1, (1 << 27) + 5)])
 @pytest.mark.parametrize("kind", ["random", "all_max", "dups"])
 def test_sort_limits_hold_on_the_card(cuda_device, B, C, kind):
     """Rows past the block path (the rescue ladder's dedup rows of reads
     past 400 bp, up to 369 cores x 1,024 positions) take the scratch-row
-    path; the pair sort keeps its limit."""
+    path at any width, also past 64 chunks of 32,768 (merges in more than
+    one pass); the pair sort keeps its limit."""
     rng = np.random.default_rng(C)
     if kind == "random":
         x = _values(rng, B, C)
@@ -169,9 +172,6 @@ def test_sort_limits_hold_on_the_card(cuda_device, B, C, kind):
                       device=cuda_device)
     with pytest.raises(ValueError, match="limit"):
         sort.sort2_rows(big, big)
-    with pytest.raises(ValueError, match=str(sort.MAX_WIDE_SORT_C)):
-        sort.sort_rows(torch.zeros((1, sort.MAX_WIDE_SORT_C + 1),
-                                   dtype=torch.int32, device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -337,11 +337,14 @@ def test_banded_sw_kernels_match_plain(cuda_device, B, La, W):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,La,W", [(9, 700, 256), (7, 800, 320),
-                                    (3, 1200, 1000),
-                                    (2, 600, bsw.MAX_SW_BAND_CUDA)])
+                                    (3, 1200, 1000), (2, 600, 4_095),
+                                    (4, 256, 4_096), (3, 200, 10_000),
+                                    (2, 160, 15_000)])
 def test_wide_band_kernels_match_plain(cuda_device, B, La, W):
-    """Bands past the one-warp path: one block a pair up to the card's
-    widest W; the decode at the same planes; past that W, a ValueError."""
+    """Bands past the one-warp path: one block a pair with the band in
+    registers up to W = 4,095, then in segments with the state row in
+    shared memory (4,096; 10,000 without moves) or in device memory
+    (10,000 with moves, 15,000); the decode at the same planes."""
     rng = np.random.default_rng(W)
     args = _sw_args(cuda_device, *_sw_pairs(rng, B, La, min(W, La // 4)),
                     La, W)
@@ -361,9 +364,6 @@ def test_wide_band_kernels_match_plain(cuda_device, B, La, W):
             sw_trace.traceback_cols_packed.launches) == tuple(
                 n + 1 for n in before)
     assert int(want[0].max()) > La // 4 and (dec[0] < 4).any()
-    if W == bsw.MAX_SW_BAND_CUDA:
-        with pytest.raises(ValueError, match=str(bsw.MAX_SW_BAND_CUDA)):
-            bsw.banded_sw_score(*args, W + 1)
 
 
 @pytest.mark.cuda
@@ -477,9 +477,20 @@ def test_ecreads_on_the_card_equals_cpu(cuda_device, tmp_path):
     assert want != (tmp_path / "pb.fa").read_bytes()
 
 
+# both sides of the wrapper's region rule on a card with 50 MB of L2 (one
+# region of the whole table below n = R or past ten regions of 409,600
+# rows; regions of half the L2 from n = R): tables inside one region, n <
+# R by one and n = R, R not a multiple of a region, 10 and 11 regions, n
+# not a multiple of a warp's 256 indices, n = 1 and n >> R
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,n", [(36_000, 200_000), (1_000_003, 50_000),
-                                 (1, 1_000), (4_097, 1), (500, 0)])
+                                 (1, 1_000), (4_097, 1), (500, 0),
+                                 (1_000, 2_000_000), (1_000_003, 1_000_002),
+                                 (1_000_003, 1_000_003),
+                                 (450_001, 3_000_001), (600_001, 1),
+                                 (2_621_441, 6_291_457),
+                                 (4_096_000, 4_096_000),
+                                 (4_096_001, 4_096_001)])
 def test_stream_gather_kernel_matches_plain(cuda_device, R, n):
     rng = np.random.default_rng(R + n)
     table = rng.integers(0, 2**32, size=(R, 16), dtype=np.uint32)
@@ -487,18 +498,30 @@ def test_stream_gather_kernel_matches_plain(cuda_device, R, n):
     idx = rng.integers(0, R, size=n, dtype=np.int32)
     if n > 2:
         idx[0], idx[-1] = R - 1, 0
+        idx[n // 2] = idx[n // 3]                   # a duplicate
     t = torch.from_numpy(table.view(np.int32)).to(cuda_device)
     i = torch.from_numpy(idx).to(cuda_device)
     want = int(stream_gather.stream_gather_consume_plain(t, i))
+    region = stream_gather.gather_plan(
+        R, n, stream_gather.l2_bytes(cuda_device))
     before = stream_gather.stream_gather_consume.launches
     got = stream_gather.stream_gather_consume(t, i)
     assert got.dtype == torch.int64 and got.device.type == "cuda"
     assert int(got) == want
+    if n:
+        assert stream_gather.stream_gather_consume.last_regions == \
+            -(-R // region)
     assert int(stream_gather.stream_gather_consume(t, i, sort_rows=True)) \
         == want
-    # a kernel launch per call, none for an empty index vector
+    # one kernel launch a call, none for an empty index vector
     assert stream_gather.stream_gather_consume.launches == \
         before + (2 if n else 0)
+    # indices that start off 16-byte alignment
+    if n > 1:
+        i_off = torch.empty(n + 1, dtype=torch.int32,
+                            device=cuda_device)[1:]
+        i_off.copy_(i)
+        assert int(stream_gather.stream_gather_consume(t, i_off)) == want
     # the same on the CPU's plain version
     assert int(stream_gather.stream_gather_consume(t.cpu(), i.cpu())) == want
     # a table whose first word is not 16-byte aligned

@@ -113,3 +113,39 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     before = sg.stream_gather_consume.launches
     assert int(sg.stream_gather_consume(table, idx)) == 0
     assert sg.stream_gather_consume.launches == before   # no kernel on CPU
+
+
+H100_L2 = 50 * 2**20           # cudaDevAttrL2CacheSize of an H100 SXM
+REGION = H100_L2 // 2 // 64    # 409,600 rows: half the L2
+
+
+@pytest.mark.parametrize("mb,regions", [
+    (2.3, 1), (16.0, 1), (40.0, 2), (64.0, 3), (128.0, 5), (512.0, 1),
+    (2048.0, 1)])
+def test_gather_plan_at_the_probe_sizes(mb, regions):
+    """The gather probe's tables (scripts/probe_stream_gather_torch.py
+    DEFAULT_MB) under its 6,291,456 random gathers: regions of half the
+    L2 up to 128 MB, one pass over the whole table past n = R."""
+    rows = int(mb * 1e6 / 64)
+    region = sg.gather_plan(rows, 6_291_456, H100_L2)
+    assert region == (REGION if mb <= 128 else rows)
+    assert -(-rows // region) == regions
+
+
+@pytest.mark.parametrize("rows,n,regions", [
+    (1, 1, 1),                                   # one row, once
+    (1_000, 999, 1), (1_000, 1_000, 1),          # n = R
+    (REGION, REGION - 1, 1), (REGION + 1, REGION, 1),   # n < R
+    (REGION + 1, REGION + 1, 2),                 # two regions
+    (10 * REGION, 10 * REGION, 10),              # MAX_SWEEPS regions
+    (10 * REGION + 1, 10**9, 1),                 # one past it
+    (2**31 - 1, 2**31 - 1, 1),
+])
+def test_gather_plan_at_the_edges_of_its_rule(rows, n, regions):
+    assert sg.MAX_SWEEPS == 10
+    region = sg.gather_plan(rows, n, H100_L2)
+    assert -(-rows // region) == regions
+    # regions of half the L2, or the whole table as one
+    assert region in (REGION, rows)
+    # an L2 smaller than two rows still gives regions of at least a row
+    assert sg.gather_plan(rows, n, 64) >= 1

@@ -143,6 +143,30 @@ def test_wide_bands_match_jax(W):
     assert int(best.max()) > La // 4 and (out.numpy() == 5).any()
 
 
+def test_bands_past_the_register_paths_match_jax():
+    """A band past W = 4,095 (the card's segmented path): moves, score and
+    each package's decode of its own planes on two pairs of 64 bases."""
+    La, W = 64, 4_096
+    a, b, alen, blen, diag = (x[:2] for x in make_pairs(5, 6, La, 24))
+    jb, ji, jk, jmv, jbw = jax_moves(a, b, alen, blen, diag, W,
+                                     interpret=True)
+    jo, jc, jn = jax_trace(jmv, ji, jk, jnp.asarray(jbw), W, La)
+    want_score = jax_score(a, b, alen, blen, diag, W, interpret=True)
+
+    args = _port_inputs(a, b, alen, blen, diag, La, W)
+    best, bi, bk, mv = sw.banded_sw_moves(*args, W)
+    assert mv.shape == (2, La // 16, 2 * W + 1)
+    for want, got in ((jb, best), (ji, bi), (jk, bk)):
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    for want, got in zip(want_score, sw.banded_sw_score(*args, W)):
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    out, ins_cnt, ins_base = traceback_cols_packed(mv, bi, bk, args[1], W, La)
+    np.testing.assert_array_equal(np.asarray(jo), out.numpy())
+    np.testing.assert_array_equal(np.asarray(jc), ins_cnt.numpy())
+    np.testing.assert_array_equal(np.asarray(jn), ins_base.numpy())
+    assert int(best.min()) > 8 and (out.numpy() < 4).any()
+
+
 def test_short_queries_stop_the_planes_at_alen():
     La, W = 64, 8
     a, b, alen, blen, diag = make_pairs(3, 6, La, W)
