@@ -9,9 +9,11 @@ hand-written CUDA kernels live in csrc/ and are built on first use
 (kernels/); each has a plain torch version beside it that runs for CPU
 tensors.
 
-Ported so far: single-end short-read alignment (`align`), from the index
-that `python -m biokanga_tpu index` writes to SAM, and PacBio long-read
-error correction (`ecreads`).
+Ported so far: the index build (`index`), short-read alignment
+(`align`: paired ends, and single ends with every option: SNP calls,
+micro-indels, splice junctions, chimeric trims, the post-passes, BAM),
+and PacBio long-read error correction (`ecreads`).  Bisulfite,
+colorspace and chunked indexes are not ported yet.
 """
 
 __version__ = "0.1.0"

@@ -35,6 +35,11 @@ from ..ops.lookup import pack_read_kmers, seed_range_lookup
 from ..ops.sort import sort2_rows, sort_rows
 from .params import AlignParams, DerivedParams
 
+# candidate diagonals a strand gives the indel and splice scans: the
+# lowest of its sorted seed diagonals (biokanga_tpu/align/pipeline.py:790,
+# the splice_cand_cap default, which no caller changes)
+SPLICE_CAND_CAP = 24
+
 
 def _rc_reads(reads: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Per-read reverse complement keeping padding at the tail."""
@@ -287,6 +292,131 @@ class AlignEngine:
             return self.align_batch(r, l, H=H, cand_cap=cap, occ_skip=skip)
 
         return rescue_ladder(run, reads, lengths, res, self.params)
+
+
+class ExtendedAligner:
+    """Adds micro-indel and splice-junction fall-through passes to an
+    AlignEngine (the -a/-A aligner modes; CSfxArrayV3::AlignReads
+    progressive fall-through, SfxArrayV2.cpp:7663-7760), following
+    biokanga_tpu/align/pipeline.py:780-910.
+
+    Reads with no hit from the Hamming pass are re-seeded on both
+    strands; their candidate diagonals feed the indel and splice scans
+    (align/splice_indel.py) on the index's device.  The per-row best
+    stays on the device until it is chosen, then goes to the host.
+    """
+
+    def __init__(self, engine: AlignEngine, micro_indel_len: int = 0,
+                 splice_junct_len: int = 0):
+        self.engine = engine
+        self.micro_indel_len = min(micro_indel_len, 20)
+        self.splice_junct_len = min(splice_junct_len, 100_000)
+
+    def align(self, reads: np.ndarray, lengths: np.ndarray):
+        eng = self.engine
+        res = eng.align_with_rescue(reads, lengths)
+        res["cigar_op"] = np.zeros(len(reads), dtype=np.int32)  # 0 = pure M
+        res["op_len"] = np.zeros(len(reads), dtype=np.int32)
+        res["split"] = np.zeros(len(reads), dtype=np.int32)
+        if not (self.micro_indel_len or self.splice_junct_len):
+            return res
+
+        left = np.nonzero(~res["unique"] & ~res["any_hit"])[0]
+        if len(left) == 0:
+            return res
+        sub_r, sub_l = pad_rows(reads[left], lengths[left])
+        best = self.scan_rows(sub_r, sub_l)
+        if best is None:
+            return res
+        acc = np.nonzero(best["ok"] & (best["score"] > -(1 << 20)))[0]
+        acc = acc[acc < len(left)]  # drop pad rows
+        gi = left[acc]
+        res["unique"][gi] = True
+        res["any_hit"][gi] = True
+        res["locus"][gi] = best["locus"][acc]
+        res["is_rc"][gi] = best["is_rc"][acc]
+        res["best_mm"][gi] = np.minimum(best["mm"][acc], 255).astype(np.uint8)
+        res["split"][gi] = best["split"][acc]
+        res["cigar_op"][gi] = best["op"][acc]
+        res["op_len"][gi] = best["gaplen"][acc]
+        return res
+
+    def scan_rows(self, sub_r: np.ndarray, sub_l: np.ndarray):
+        """Indel/splice fall-through scans for one padded row block;
+        returns the per-row best-candidate dict of host arrays, or None.
+
+        Result schema: ok, score, mm, split, locus, is_rc, op (signed
+        indel, or 1<<30 for a splice), gaplen (the splice's N length).
+        Sense before antisense and indels before splices; a later scan
+        replaces the best only on a strictly higher score."""
+        from .splice_indel import indel_scan, splice_scan
+
+        eng = self.engine
+        didx = eng.didx
+        B, L = sub_r.shape
+        dp = eng.params.derive(int(L), didx.total_len)
+        dev = didx.device
+        reads = torch.from_numpy(np.ascontiguousarray(sub_r, np.int8)).to(dev)
+        lengths = torch.from_numpy(
+            np.ascontiguousarray(sub_l, np.int32)).to(dev)
+        scan_args = (didx.packed, didx.entry_starts)
+
+        best = None
+        for is_rc in (False, True):
+            seq = _rc_reads(reads, lengths) if is_rc else reads
+            loci, vmask, _, _ = _strand_candidates(
+                didx, seq, dp, eng.params.cand_per_core, SPLICE_CAND_CAP,
+                occ_skip=True)
+            rcodes, rnlane = pack_reads(seq, lengths)
+            cand = (loci, vmask, rcodes, rnlane, lengths, L)
+            outs = []
+            if self.micro_indel_len:
+                o = indel_scan(*scan_args, *cand, self.micro_indel_len)
+                outs.append({
+                    "ok": o["ok"], "score": o["score"], "mm": o["mm"],
+                    "split": o["split"],
+                    "locus": torch.gather(loci, 1, o["cand"].to(
+                        torch.int64)[:, None])[:, 0],
+                    "op": o["indel"].to(torch.int64),
+                    "gaplen": torch.zeros(B, dtype=torch.int64, device=dev),
+                })
+            if self.splice_junct_len:
+                o = splice_scan(*scan_args, *cand, self.splice_junct_len)
+                outs.append({
+                    "ok": o["ok"], "score": o["score"], "mm": o["mm"],
+                    "split": o["split"], "locus": o["locus5"],
+                    "op": torch.full((B,), 1 << 30, dtype=torch.int64,
+                                     device=dev),
+                    "gaplen": (o["locus3"] - o["locus5"]).to(torch.int64),
+                })
+            for o in outs:
+                o["is_rc"] = torch.full((B,), is_rc, dtype=torch.bool,
+                                        device=dev)
+                o["score"] = torch.where(o["ok"], o["score"], -(1 << 20))
+                if best is None:
+                    best = o
+                else:
+                    better = o["score"] > best["score"]
+                    best = {k: torch.where(better, o[k], best[k])
+                            for k in best}
+
+        if best is None:
+            return None
+        return {k: v.cpu().numpy() for k, v in best.items()}
+
+
+def cigar_for(length: int, cigar_op: int, op_len: int, split: int) -> str:
+    """CIGAR string from the extended-aligner encodings (copy of
+    biokanga_tpu/align/pipeline.py:913)."""
+    if cigar_op == 0:
+        return f"{length}M"
+    if cigar_op == 1 << 30:  # splice: N gap of op_len at split
+        return f"{split}M{op_len}N{length - split}M"
+    g = int(cigar_op)
+    if g > 0:  # genome deletion
+        return f"{split}M{g}D{length - split}M"
+    j = -g     # read insertion
+    return f"{split}M{j}I{length - split - j}M"
 
 
 # RESULT_KEYS, inexact_rows, rescue_ladder and pad_rows are copied from

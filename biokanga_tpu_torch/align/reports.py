@@ -1,11 +1,9 @@
-"""Copy of biokanga_tpu/align/reports.py: the PE insert-size report.
+"""Copy of biokanga_tpu/align/reports.py: alignment statistics reports.
 
 Parity role: ReportAlignStats / WriteSubDist / PE insert distributions
-(biokanga/Aligner.cpp:3493,6275,5340).  Only what `align --peinsertdist`
-uses is copied: the insert-size histogram of proper pairs and the CSV
-writer.  The CSV equals the JAX CLI's byte for byte, so the category
-counts and the NM histogram that this mode never fills keep their (zero
-or empty) rows.
+(biokanga/Aligner.cpp:3493,6275,5340) — per-run category counts,
+NM (substitution-count) distribution and PE insert-size histogram
+written as CSV (`align --stats` and `--peinsertdist`).
 """
 from __future__ import annotations
 
@@ -26,6 +24,20 @@ class AlignStats:
     unaligned: int = 0
     nm_hist: dict = field(default_factory=dict)
     insert_hist: dict = field(default_factory=dict)
+
+    def add_batch(self, res: dict, n_real: int):
+        self.total += n_real
+        u = res["unique"][:n_real]
+        self.unique += int(u.sum())
+        hit = res["any_hit"][:n_real]
+        self.multi += int((hit & ~u).sum())
+        self.unaligned += int((~hit).sum())
+        for nm in res["best_mm"][:n_real][u]:
+            self.nm_hist[int(nm)] = self.nm_hist.get(int(nm), 0) + 1
+        if "cigar_op" in res:
+            ops = res["cigar_op"][:n_real][u]
+            self.spliced += int((ops == (1 << 30)).sum())
+            self.indel += int(((ops != 0) & (ops != (1 << 30))).sum())
 
     def add_inserts(self, inserts, proper):
         for v in np.asarray(inserts)[np.asarray(proper)]:

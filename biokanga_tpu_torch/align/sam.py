@@ -3,7 +3,8 @@ writers.
 
 Role of the reference's CSAMfile SAM path (libbiokanga/SAMfile.cpp;
 writer invoked from CAligner::WriteBAMReadHits, biokanga/Aligner.cpp:5543).
-v0 emits plain SAM; BAM/BGZF + BAI/CSI indexes follow (SURVEY.md §7.3.6).
+align/bam.sam_to_bam turns the SAM into BAM.  Colorspace reads are not
+ported, so the colorspace branch of the single-end writer is left out.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..seq.encode import codes_to_ascii, revcomp
+from .pipeline import cigar_for
 
 
 def sam_header(entry_names, entry_lengths, program="biokanga-tpu", version="0.1.0"):
@@ -160,12 +162,12 @@ def write_alignments_sam(
     """Write one aligned block as SAM records.
 
     Unique hits: FLAG 0/16, POS 1-based within entry, CIGAR '<len>M'
-    (pure Hamming alignment => no indels), NM tag with mismatch count.
+    for a Hamming alignment, soft clips from `clip5`/`clip3` (chimeric
+    and flank trims, which take precedence) or the indel/splice CIGAR of
+    `cigar_op`, NM tag with mismatch count.
     Unaligned / multialigned reads are emitted as FLAG 4 records when
     `report_unmapped` (the reference reports them separately via
-    ReportNoneAligned/ReportMultiAlign, Aligner.cpp:678-700).  The port's
-    engine gives no colorspace, soft-clip or indel-CIGAR results, so the
-    JAX writer's branches for those are not copied.
+    ReportNoneAligned/ReportMultiAlign, Aligner.cpp:678-700).
     """
     close = False
     if isinstance(out, str):
@@ -180,6 +182,9 @@ def write_alignments_sam(
         locus = result["locus"]
         is_rc = result["is_rc"]
         best_mm = result["best_mm"]
+        cigar_op = result.get("cigar_op")
+        op_len = result.get("op_len")
+        split = result.get("split")
         ent = np.searchsorted(starts, locus, side="right") - 1
         pos_in_entry = locus - starts[np.clip(ent, 0, len(entry_names) - 1)]
         B = len(names)
@@ -190,13 +195,24 @@ def write_alignments_sam(
             if unique[i]:
                 rc = bool(is_rc[i])
                 seq = codes_to_ascii(revcomp(codes) if rc else codes).decode()
+                clip5 = int(result["clip5"][i]) if "clip5" in result else 0
+                clip3 = int(result["clip3"][i]) if "clip3" in result else 0
+                if clip5 or clip3:  # chimeric soft-clips (AdaptiveTrim)
+                    cig = (f"{clip5}S" if clip5 else "") + \
+                          f"{L - clip5 - clip3}M" + \
+                          (f"{clip3}S" if clip3 else "")
+                elif cigar_op is not None and cigar_op[i] != 0:
+                    cig = cigar_for(L, int(cigar_op[i]), int(op_len[i]),
+                                    int(split[i]))
+                else:
+                    cig = f"{L}M"
                 rec = SamRecord(
                     qname=names[i],
                     flag=16 if rc else 0,
                     rname=entry_names[int(ent[i])],
                     pos=int(pos_in_entry[i]) + 1,
                     mapq=60,
-                    cigar=f"{L}M",
+                    cigar=cig,
                     seq=seq,
                     qual="*",
                     tags=(f"NM:i:{int(best_mm[i])}",),

@@ -1,26 +1,37 @@
-"""CLI of the PyTorch port: `align` (single and paired ends) and PacBio
-`ecreads`.
+"""CLI of the PyTorch port: `index`, `align` (single and paired ends)
+and PacBio `ecreads`.
 
-Usage:  python -m biokanga_tpu_torch align -i reads.fq -I ref.npz \
-            -o out.sam [--device cuda]
+Usage:  python -m biokanga_tpu_torch index -i ref.fa -o ref.npz \
+            [-m 0|2 -s <Mbp> --lut-bases 0 -q runs.db]
+        python -m biokanga_tpu_torch align -i reads.fq -I ref.npz \
+            -o out.sam|out.bam [--device cuda]
+            [-O snps.csv --snpvcf --disnp --trisnp --snpcentroid -p -P]
+            [-a 10 -A 50000 -C 50 -x -y --min-accept-len -k
+             --minflankexacts --pcrprimersubs --lociconstraints -Y
+             --stats --checkpoint-dir -q]
         python -m biokanga_tpu_torch align -i r1.fq -u r2.fq -I ref.npz \
             -o out.sam [-d 100 -D 1000 -E --peinsertdist ins.csv]
         python -m biokanga_tpu_torch ecreads -i reads.fa -o out.fa \
             [--device cuda]
 
-`align` reads the index that `python -m biokanga_tpu index` writes and
-gives the SAM that `python -m biokanga_tpu align` gives on the same
-inputs; `ecreads` gives the FASTA of `python -m biokanga_tpu ecreads`.
-The device is explicit: `--device cuda` (the default) raises when CUDA is
-absent, and `--device cpu` runs the kernels' plain versions.  Paired
-ends come as `-u` mate files beside `-i`, or as one PE-interleaved `.rds`
-container.  SNP calling, indel/splice/chimeric modes, bisulfite,
-colorspace and chunked indexes are not in this package yet; argparse
-rejects their flags and the index checks below reject their index files.
+Each subcommand gives the files of the same subcommand of
+`python -m biokanga_tpu` on the same inputs: the index arrays, the SAM
+or BAM, the SNP, haplotype, centroid and stats CSVs, the VCF, the
+`-q` rows outside their time fields, and the FASTA.  `index` is host
+numpy and takes no device.  For `align` and `ecreads` the device is
+explicit: `--device cuda` (the default) raises when CUDA is absent, and
+`--device cpu` runs the kernels' plain versions; the SNP pileup and the
+indel and splice scans run on the index's device.  Paired ends come as
+`-u` mate files beside `-i`, or as one PE-interleaved `.rds` container;
+as in the JAX CLI they take none of the single-end passes.  Bisulfite,
+colorspace and chunked indexes are not in this package yet: `index`
+refuses `-m 1`, `-C` and `--chunks`, and `align` refuses such index
+files.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -42,14 +53,126 @@ def _expand_response_files(argv: list[str]) -> list[str]:
     return out
 
 
+def cmd_index(argv: list[str]) -> int:
+    """`index`: genome FASTA -> on-disk index, following
+    biokanga_tpu/cli.py:36-158 (reference front-end biokanga/kangax.cpp:59).
+
+    The index build is host numpy (no device work), so `index` takes no
+    --device."""
+    p = argparse.ArgumentParser(
+        prog="biokanga-tpu-torch index",
+        description="Build an index on the host (numpy; no device work, "
+                    "so there is no --device).")
+    p.add_argument("-i", "--infasta", action="append", default=None,
+                   help="input FASTA file(s), gzip ok (repeatable)")
+    p.add_argument("-o", "--out", required=True, help="output index file (.npz)")
+    p.add_argument("-r", "--ref", default="", help="reference species/tag")
+    p.add_argument("-m", "--mode", type=int, default=0, choices=(0, 1, 2),
+                   help="0 standard; 2 synthetic pseudorandom genome "
+                        "benchmark (kangax -m2 role); 1 (bisulfite) is not "
+                        "ported yet")
+    p.add_argument("-C", "--colorspace", action="store_true",
+                   help="SOLiD colorspace index: not ported yet")
+    p.add_argument("-s", "--synthetic-mbp", type=int, default=100,
+                   help="mode 2: synthetic genome size in Mbp")
+    p.add_argument("--lut-bases", type=int, default=0,
+                   help="prefix LUT width in bases (0 = auto: 10 for "
+                        "genomes <= 20 Mbp, else 12)")
+    p.add_argument("--chunks", type=int, default=0,
+                   help="genome-range chunks: not ported yet (a genome of "
+                        "2^31 bases or more needs them)")
+    p.add_argument("-q", "--sumrslts", default=None,
+                   help="log experiment/params/results to this SQLite DB")
+    p.add_argument("-F", "--log", default=None)
+    args = p.parse_args(argv)
+    # the JAX CLI's branches: -m 2 ignores -C and --chunks, -m 1 ignores -C
+    if args.mode == 1:
+        p.error("-m 1: bisulfite indexes are not ported yet (ROADMAP.md, "
+                "queue 1, item 5)")
+    if args.mode == 0 and args.colorspace:
+        p.error("-C: colorspace indexes are not ported yet (ROADMAP.md, "
+                "queue 1, item 5)")
+    if args.mode == 0 and args.chunks > 0:
+        p.error("--chunks: chunked indexes are not ported yet (ROADMAP.md, "
+                "queue 1, item 4)")
+    log = open_diagnostics(args.log, name="biokanga-tpu-torch")
+    sw = StopWatch()
+    from .index.build import build_index, save_index
+
+    def auto_lut(total_bp: int) -> int:
+        if args.lut_bases:
+            return args.lut_bases
+        return 10 if total_bp <= 20_000_000 else 12
+
+    if args.mode == 2:
+        from .sim.simreads import random_genome
+
+        nbp = args.synthetic_mbp * 1_000_000
+        seqs = random_genome([("synth", nbp)], seed=1)
+        log.info("synthetic genome: %d Mbp (RAM-only benchmark mode)",
+                 args.synthetic_mbp)
+        idx = build_index(seqs, lut_bases=auto_lut(nbp))
+    else:
+        if not args.infasta:
+            p.error("-i/--infasta required unless -m2")
+        from .seq.fasta import read_seqs
+
+        seqs = []
+        for path in args.infasta:
+            seqs.extend((r.name, r.codes) for r in read_seqs(path))
+        total = sum(len(s) for _, s in seqs)
+        if total >= 2**31:
+            p.error(f"a genome of {total} bases (2^31 or more) needs a "
+                    f"chunked index, not ported yet (ROADMAP.md, queue 1, "
+                    f"item 4)")
+        idx = build_index(seqs, lut_bases=auto_lut(total))
+    log.info(
+        "indexed %d entries, %d bp total in %.1fs",
+        idx.num_entries, idx.total_len, sw.mark("build"),
+    )
+    save_index(idx, args.out)
+    log.info("index written to %s (%.1fs)", args.out, sw.elapsed())
+    if args.sumrslts:
+        from .utils.sqlite_summaries import SQLiteSummaries
+
+        db = SQLiteSummaries(args.sumrslts)
+        db.log_run("index", {"infasta": args.infasta, "out": args.out,
+                             "lut_bases": args.lut_bases},
+                   {"entries": idx.num_entries, "total_bp": idx.total_len,
+                    "seconds": round(sw.elapsed(), 2)})
+        db.close()
+    return 0
+
+
 def cmd_align(argv: list[str]) -> int:
     """`align`, single and paired ends, following
-    biokanga_tpu/cli.py:510-857."""
+    biokanga_tpu/cli.py:161-857."""
     p = argparse.ArgumentParser(prog="biokanga-tpu-torch align")
     p.add_argument("-i", "--inreads", action="append", required=True)
-    p.add_argument("-I", "--sfx", required=True,
-                   help="index file from `python -m biokanga_tpu index`")
-    p.add_argument("-o", "--out", required=True, help="output SAM path")
+    p.add_argument("-u", "--pair", action="append", default=None,
+                   help="PE 3' mate file(s); enables paired-end processing")
+    p.add_argument("-d", "--pairminlen", type=int, default=100)
+    p.add_argument("-D", "--pairmaxlen", type=int, default=1000)
+    p.add_argument("-E", "--pairstrand", action="store_true",
+                   help="accept mates on the same strand")
+    p.add_argument("-I", "--sfx", required=True, help="index file from `index`")
+    p.add_argument("-o", "--out", required=True,
+                   help="output SAM path (.bam: BAM with a BAI/CSI index)")
+    p.add_argument("-O", "--snpfile", default=None,
+                   help="call SNPs and write reference-layout CSV here")
+    p.add_argument("--snpvcf", default=None, help="also write SNPs as VCF")
+    p.add_argument("--disnp", default=None,
+                   help="write DiSNP haplotype CSV here (needs -O)")
+    p.add_argument("--trisnp", default=None,
+                   help="write TriSNP haplotype CSV here (needs -O)")
+    p.add_argument("--snpcentroid", default=None,
+                   help="write SNP centroid (7-mer context) distribution "
+                        "CSV here (needs -O; Aligner.cpp:8003 role)")
+    p.add_argument("-q", "--sumrslts", default=None,
+                   help="log experiment/params/results to this SQLite DB")
+    p.add_argument("-p", "--minsnpreads", type=int, default=5)
+    p.add_argument("-P", "--qvalue", type=float, default=0.05)
+    p.add_argument("--snpnonrefpcnt", type=float, default=25.0)
     p.add_argument("-s", "--substitutions", type=int, default=10,
                    help="max subs per 100bp (default 10)")
     p.add_argument("-e", "--editdelta", type=int, default=1, choices=(1, 2))
@@ -58,18 +181,45 @@ def cmd_align(argv: list[str]) -> int:
     p.add_argument("-Q", "--strand", default="both",
                    choices=("both", "sense", "antisense"))
     p.add_argument("-R", "--maxmulti", type=int, default=5)
-    p.add_argument("-u", "--pair", action="append", default=None,
-                   help="PE 3' mate file(s); enables paired-end processing")
-    p.add_argument("-d", "--pairminlen", type=int, default=100)
-    p.add_argument("-D", "--pairmaxlen", type=int, default=1000)
-    p.add_argument("-E", "--pairstrand", action="store_true",
-                   help="accept PE mates on the same strand")
-    p.add_argument("--peinsertdist", default=None,
-                   help="PE insert-size distribution CSV")
+    p.add_argument("-a", "--microindellen", type=int, default=0,
+                   help="accept microInDels up to this length (0..20)")
+    p.add_argument("-A", "--splicejunctlen", type=int, default=0,
+                   help="RNA mode: accept splice junctions separated by up"
+                        " to this distance (25..100000)")
     p.add_argument("--batch-size", type=int, default=4096)
+    p.add_argument("-F", "--log", default=None)
+    p.add_argument("-x", "--trim5", type=int, default=0)
+    p.add_argument("-y", "--trim3", type=int, default=0)
+    p.add_argument("--min-accept-len", type=int, default=0)
+    p.add_argument("-C", "--minchimericlen", type=int, default=0,
+                   help="accept chimeric flank-trimmed alignments covering"
+                        " at least this %% of the read (50..99; 0 off)")
+    p.add_argument("--stats", default=None,
+                   help="write alignment stats CSV here")
     p.add_argument("--no-mlassign", action="store_true",
                    help="disable multi-hit assignment clustering")
-    p.add_argument("-F", "--log", default=None)
+    p.add_argument("-k", "--pcrdedupe", type=int, default=0,
+                   help="demote PCR duplicates at identical (locus,strand)"
+                        " beyond this many copies (0 off)")
+    p.add_argument("-Y", "--priorityregionbed", default=None,
+                   help="only accept hits overlapping these BED regions")
+    p.add_argument("--peinsertdist", default=None,
+                   help="PE mode: write insert-size distribution CSV here")
+    p.add_argument("--minflankexacts", type=int, default=0,
+                   help="autotrim aligned flanks until at least this many "
+                        "exactly matching flank bases (AutoTrimFlanks, "
+                        "Aligner.cpp:1608; reference -x)")
+    p.add_argument("--pcrprimersubs", type=int, default=0,
+                   help="align with subs+this budget, then correct 5' PCR "
+                        "primer artefacts over the first 12bp back to subs "
+                        "(PCR5PrimerCorrect, Aligner.cpp:2000; ref -6)")
+    p.add_argument("--lociconstraints", default=None,
+                   help="loci base constraints CSV chrom,start,end,bases "
+                        "(IdentifyConstraintViolations, Aligner.cpp:2599; "
+                        "reference -5)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="persist each block's result here and resume a "
+                        "killed single-end run at the first missing block")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; raises without CUDA) "
                         "or cpu (the kernels' plain versions)")
@@ -78,22 +228,20 @@ def cmd_align(argv: list[str]) -> int:
     log = open_diagnostics(args.log, name="biokanga-tpu-torch")
     sw = StopWatch()
 
-    from .align.multihit import assign_multihits
     from .align.params import AlignParams, Sensitivity
-    from .align.pipeline import AlignEngine, pad_rows
-    from .align.sam import SamRecord, write_alignments_sam
+    from .align.pipeline import AlignEngine
     from .index.build import is_bisulfite_index, load_index
     from .index.chunked import is_chunked_index
     from .index.device import to_device
-    from .seq.encode import codes_to_ascii, revcomp
     from .seq.fasta import read_blocks
     from .seq.rds import is_rds, rds_info, read_rds_blocks
 
-    if args.out.endswith(".bam"):
-        p.error("BAM output is not ported yet; write .sam")
-    if is_bisulfite_index(args.sfx) or is_chunked_index(args.sfx):
-        p.error(f"{args.sfx}: bisulfite and chunked indexes are not "
-                f"ported yet")
+    if is_bisulfite_index(args.sfx):
+        p.error(f"{args.sfx}: bisulfite indexes are not ported yet "
+                f"(ROADMAP.md, queue 1, item 5)")
+    if is_chunked_index(args.sfx):
+        p.error(f"{args.sfx}: chunked indexes are not ported yet "
+                f"(ROADMAP.md, queue 1, item 4)")
 
     def _input_blocks(path, mate=None):
         """FASTA/FASTQ or packed .rds container."""
@@ -102,15 +250,31 @@ def cmd_align(argv: list[str]) -> int:
                                    mate=mate)
         return read_blocks(path, block_size=args.batch_size)
 
+    # .bam output: write SAM to a temp path and convert it at the end
+    bam_out = None
+    if args.out.endswith(".bam"):
+        bam_out = args.out
+        args.out = args.out + ".tmp.sam"
+
+    def finish_bam() -> None:
+        if bam_out:
+            from .align.bam import sam_to_bam
+
+            sam_to_bam(args.out, bam_out)
+            os.remove(args.out)
+
     idx = load_index(args.sfx)
     if idx.space == "color":
-        p.error(f"{args.sfx}: colorspace indexes are not ported yet")
+        p.error(f"{args.sfx}: colorspace indexes are not ported yet "
+                f"(ROADMAP.md, queue 1, item 5)")
     didx = to_device(idx, device)
     log.info("index loaded on %s: %d bp, %d entries (%.1fs)",
              device, idx.total_len, idx.num_entries, sw.mark("load"))
 
     params = AlignParams(
-        max_subs_per100=args.substitutions,
+        # PCR5PrimerCorrect mode aligns with a widened sub budget, then
+        # corrects back to -s (reference -6 semantics, kanga.cpp:251)
+        max_subs_per100=args.substitutions + args.pcrprimersubs,
         min_edit_dist=args.editdelta,
         max_multi=args.maxmulti,
         mode=Sensitivity(args.mode),
@@ -118,6 +282,11 @@ def cmd_align(argv: list[str]) -> int:
         batch_size=args.batch_size,
     )
     engine = AlignEngine(didx, params)
+    constraints = None
+    if args.lociconstraints:
+        from .align.postpass import load_loci_constraints
+
+        constraints = load_loci_constraints(args.lociconstraints)
 
     # PE-interleaved rds container with no -u: split mates internally
     pe_mates = None
@@ -127,19 +296,150 @@ def cmd_align(argv: list[str]) -> int:
         pe_mates = (0, 1)
 
     if args.pair:
-        return _align_pairs(args, engine, idx, _input_blocks, pe_mates, log,
-                            sw)
+        # paired ends take none of the single-end passes below, as in
+        # the JAX CLI (its PE branch returns before them)
+        rc = _align_pairs(args, engine, idx, _input_blocks, pe_mates, log,
+                          sw)
+        finish_bam()
+        return rc
 
+    counts = _align_single(args, engine, idx, constraints, _input_blocks,
+                           log, sw)
+    finish_bam()
+    if args.sumrslts:
+        from .utils.sqlite_summaries import SQLiteSummaries
+
+        db = SQLiteSummaries(args.sumrslts)
+        db.log_run("align", {"inreads": args.inreads, "sfx": args.sfx,
+                             "substitutions": args.substitutions,
+                             "editdelta": args.editdelta, "mode": args.mode},
+                   {**counts, "seconds": round(sw.elapsed(), 2)})
+        db.close()
+    return 0
+
+
+def _align_single(args, engine, idx, constraints, input_blocks, log,
+                  sw) -> dict:
+    """The single-end loop of `align` (biokanga_tpu/cli.py:605-836): the
+    engine (or the indel/splice aligner) on each block, the post-passes
+    in the JAX CLI's order, SAM, multi-hit assignment, then --stats and
+    the SNP outputs.  Returns the read counts that `-q` logs."""
+    from .align.multihit import assign_multihits, chimeric_pass
+    from .align.pipeline import pad_rows
+    from .align.reports import AlignStats
+    from .align.sam import SamRecord, write_alignments_sam
+    from .seq.encode import codes_to_ascii, revcomp
+
+    didx = engine.didx
+    pileup = None
+    hap = None
+    if args.snpfile:
+        from .align.snp import HaplotypeTracker, PileupAccumulator
+
+        pileup = PileupAccumulator(didx)
+        if args.disnp or args.trisnp:
+            hap = HaplotypeTracker()
+
+    ext = None
+    if args.microindellen or args.splicejunctlen:
+        from .align.pipeline import ExtendedAligner
+
+        ext = ExtendedAligner(engine, args.microindellen, args.splicejunctlen)
+
+    prio = None
+    if args.priorityregionbed:
+        from .align.postpass import PriorityRegionFilter
+
+        prio = PriorityRegionFilter(args.priorityregionbed,
+                                    idx.entry_names, idx.entry_starts)
+    stats = AlignStats()
+    ckpt = None
+    if args.checkpoint_dir:
+        # per-block resumability; the post-passes are deterministic in
+        # (codes, lens, res) and replay on resume
+        from .utils.checkpoint import SweepCheckpoint, config_signature
+
+        ckpt = SweepCheckpoint(
+            args.checkpoint_dir,
+            config_signature(["se_single", args.sfx, engine.params,
+                              list(args.inreads), args.batch_size,
+                              args.trim5, args.trim3]),
+        )
+    blk_i = 0
     mh_loci, mh_rows = [], []   # pending multi-hit reads for assignment
     uq_loci, uq_lens = [], []
     n_total = n_unique = n_multi = n_none = 0
     with open(args.out, "w") as out:
         first = True
         for path in args.inreads:
-            for blk in _input_blocks(path):
+            for blk in input_blocks(path):
+                if args.trim5 or args.trim3:
+                    blk.codes = blk.codes[:, args.trim5:]
+                    if args.trim3:
+                        blk.codes = blk.codes[:, : -args.trim3 or None]
+                    blk.lengths = np.clip(
+                        blk.lengths - args.trim5 - args.trim3, 0, None
+                    )
                 codes, lens = pad_rows(blk.codes, blk.lengths)
-                res = engine.align_with_rescue(codes, lens)
+                if ckpt is not None and ckpt.has(0, blk_i):
+                    res = ckpt.load(0, blk_i)
+                elif ext is not None:
+                    res = ext.align(codes, lens)
+                else:
+                    res = engine.align_with_rescue(codes, lens)
+                if ckpt is not None and not ckpt.has(0, blk_i):
+                    ckpt.save(0, blk_i, res)
+                blk_i += 1
+                if args.min_accept_len:
+                    res["unique"] &= lens >= args.min_accept_len
+                if args.minchimericlen:
+                    res = chimeric_pass(idx.codes, codes, lens, res,
+                                        args.minchimericlen)
+                    stats.chimeric += int(
+                        (res.get("clip5", np.zeros(1)) > 0).sum()
+                        + (res.get("clip3", np.zeros(1)) > 0).sum()
+                    )
+                if args.pcrdedupe:
+                    from .align.postpass import reduce_pcr_duplicates
+
+                    reduce_pcr_duplicates(res, lens, keep=args.pcrdedupe)
+                if constraints:
+                    from .align.postpass import (
+                        identify_constraint_violations,
+                    )
+
+                    identify_constraint_violations(
+                        codes, lens, res, idx.codes, idx.entry_names,
+                        idx.entry_starts, constraints,
+                    )
+                if args.pcrprimersubs:
+                    from .align.postpass import pcr5_primer_correct
+
+                    pcr5_primer_correct(codes, lens, res, idx.codes,
+                                        args.substitutions, klen=12)
+                    n0 = len(blk.names)
+                    blk.codes[:n0] = codes[:n0, : blk.codes.shape[1]]
+                if args.minflankexacts:
+                    from .align.postpass import auto_trim_flanks
+
+                    auto_trim_flanks(codes, lens, res, idx.codes,
+                                     args.minflankexacts)
+                if args.splicejunctlen:
+                    from .align.postpass import remove_orphan_splice_juncts
+
+                    remove_orphan_splice_juncts(res, lens)
+                if args.microindellen:
+                    from .align.postpass import remove_orphan_microindels
+
+                    remove_orphan_microindels(res, lens)
+                if prio is not None:
+                    prio.apply(res, lens)
+                if pileup is not None:
+                    pileup.add_alignments(codes, lens, res)
+                    if hap is not None:
+                        hap.add_alignments(codes, lens, res)
                 n = len(blk.names)
+                stats.add_batch(res, n)
                 u_mask = res["unique"][:n]
                 uq_loci.append(res["locus"][:n][u_mask])
                 uq_lens.append(lens[:n][u_mask])
@@ -197,16 +497,69 @@ def cmd_align(argv: list[str]) -> int:
                 ).line())
             if lines:
                 out.write("\n".join(lines) + "\n")
+            stats.multi_assigned = int(okm.sum())
             n_unique += int(okm.sum())
             n_multi -= int(okm.sum())
 
+    if args.stats:
+        stats.write_csv(args.stats)
+        log.info("stats written to %s", args.stats)
     log.info(
         "aligned %d reads: %d unique (%.2f%%), %d multi, %d unaligned in %.1fs"
         " (%.0f reads/s)",
         n_total, n_unique, 100.0 * n_unique / max(n_total, 1), n_multi, n_none,
         sw.elapsed(), n_total / max(sw.elapsed(), 1e-9),
     )
-    return 0
+
+    if pileup is not None:
+        from .align.snp import (
+            SNPParams,
+            call_snps,
+            write_snps_csv,
+            write_snps_vcf,
+        )
+
+        counts, match, mismatch = pileup.finalize()
+        calls = call_snps(
+            counts, match, mismatch, idx.codes, idx.entry_names,
+            idx.entry_starts,
+            SNPParams(
+                min_snp_reads=args.minsnpreads,
+                snp_nonref_pcnt=args.snpnonrefpcnt / 100.0,
+                qvalue=args.qvalue,
+            ),
+        )
+        write_snps_csv(args.snpfile, calls)
+        if hap is not None:
+            from .align.snp import write_haplotypes_csv
+
+            if args.disnp:
+                write_haplotypes_csv(
+                    args.disnp,
+                    hap.haplotypes(calls, idx.entry_names, idx.entry_starts, 2),
+                    order=2,
+                )
+            if args.trisnp:
+                write_haplotypes_csv(
+                    args.trisnp,
+                    hap.haplotypes(calls, idx.entry_names, idx.entry_starts, 3),
+                    order=3,
+                )
+        if args.snpvcf:
+            write_snps_vcf(args.snpvcf, calls, idx.entry_names,
+                           np.diff(idx.entry_starts))
+        if args.snpcentroid:
+            from .align.snp import snp_centroids, write_snp_centroids_csv
+
+            write_snp_centroids_csv(
+                args.snpcentroid,
+                *snp_centroids(counts, idx.codes, calls, idx.entry_names,
+                               idx.entry_starts,
+                               min_reads=args.minsnpreads),
+            )
+        log.info("called %d SNPs -> %s", len(calls), args.snpfile)
+    return {"total": n_total, "unique": n_unique, "multi": n_multi,
+            "unaligned": n_none}
 
 
 def _align_pairs(args, engine, idx, input_blocks, pe_mates, log, sw) -> int:
@@ -340,7 +693,8 @@ def cmd_ecreads(argv: list[str]) -> int:
     return 0
 
 
-SUBCOMMANDS = {"align": cmd_align, "ecreads": cmd_ecreads}
+SUBCOMMANDS = {"index": cmd_index, "align": cmd_align,
+               "ecreads": cmd_ecreads}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -13,10 +13,12 @@ Phases, each of which raises on failure:
      the sorts beside torch.sort and their bounds at the SE and fused PE
      shapes and at the wide rows; the extension also on every case of
      tests/extend_edge_cases.py and on a 100,000-contig genome;
-  4. align 262,144 simulated 100 bp reads against a 4.6 Mbp genome with
-     `python -m biokanga_tpu_torch align --device cuda` (called in
-     process), check that every align kernel was launched and that >= 99%
-     of the reads map uniquely to their simulated origin;
+  4. index the 4.6 Mbp genome with `python -m biokanga_tpu_torch index`
+     (called in process) from a FASTA it writes and require the arrays
+     of build_index; align 262,144 simulated 100 bp reads against it with
+     `python -m biokanga_tpu_torch align --device cuda`, check that every
+     align kernel was launched and that >= 99% of the reads map uniquely
+     to their simulated origin;
   5. align the first 4,096 reads with --device cpu and --device cuda and
      require byte-identical SAM, also against the big run's records, and
      the same on a repeat genome that drives every engine stage, and on
@@ -38,7 +40,9 @@ Phases, each of which raises on failure:
      does;
   8. correct 24 noisy 1.5 kb reads with `python -m biokanga_tpu_torch
      ecreads --rounds 2` with --device cpu and --device cuda and require
-     byte-identical FASTA, at the default band and with --sw-band 256;
+     byte-identical FASTA, at the default band and with --sw-band 256
+     (the --device cpu runs are child processes that go on beside phases
+     9-13 and are compared after phase 13);
   9. correct the error-correction head-to-head read set (500 x 10 kb CLR
      reads of a 200 kb genome, scripts/bench_ec_headtohead.py) with the
      CLI defaults on the card and require 32-mer recovery >= 0.99;
@@ -59,6 +63,31 @@ Phases, each of which raises on failure:
  13. time the paired-end engine alone on the 262,144 pairs, with its
      decomposition: full path, pipelined as the CLI drives it,
      launch-only, and the host's pairing after the device has drained.
+ 14. the SE options cell, a bacterial resequencing run with variant
+     calling: 1,048,576 reads of 100 bp (22.8x) from a sample of the
+     4.6 Mbp genome with a SNP planted every 5 kb, 5% of them carrying a
+     micro-indel, 5% a splice junction (three reads an event), 2% a junk
+     tail; `align -C 50 -a 10 -A 50000 -O --snpvcf --disnp --trisnp
+     --snpcentroid --stats --device cuda`, with kernels #1-#3 launched,
+     >= 90% of the planted SNPs at depth >= 10 called with their base,
+     <= 10% of the calls off a planted locus (a call in the 80 bases
+     past an indel or junction site, where the ungapped pileup shifts
+     bases, is counted apart), >= 80% of the junk-tailed reads and of
+     the indel and junction reads whose true diagonals are among the 24
+     lowest seed diagonals of their strand (the scans' candidates, found
+     apart from the port in numpy from the genome's 9-mers) placed at
+     their origin with their CIGAR operation (the share over all such
+     reads is printed, with no bar: on this genome the JAX package's
+     candidate cap drops most of them, ROADMAP.md queue 3);
+     its wall and the engine, fall-through, scan, chimeric, pileup,
+     call_snps and SAM parts of it;
+ 15. on a 50 kb genome with 40 planted SNPs and 10,000 reads: phase 14's
+     gates over all reads on the card's run, the SAM
+     and the six side files of those options, then BAM, BAI and the -q
+     rows of a run with -x -y -k --min-accept-len --minflankexacts
+     --pcrprimersubs --lociconstraints -Y --checkpoint-dir (once on the
+     CPU, twice on the card, the second resuming), and a PE BAM, each
+     byte for byte between --device cpu and --device cuda.
 Phase 3 also holds the extension kernel at the orphan rescue's shape
 (2,048 windows of 500 consecutive loci, some off the genome's ends).
 The last two lines are a JSON object per kernel and the result line.
@@ -128,6 +157,27 @@ EC_WIDE_BAND = 256
 EC_PARITY_READS = 24                   # phase 8: noisy 1.5 kb reads
 EC_READS, EC_READ_LEN, EC_GENOME_KB, EC_ERR, EC_SEED = 500, 10_000, 200, 0.07, 3
 MIN_KMER_RECOVERY = 0.99
+
+# single-end options (phases 14-15): a bacterial resequencing run with
+# variant calling on the phase 4 genome (22.8x), and a small all-options
+# case; the depth gate counts only the SNPs covered 10 times or more
+OPT_READS = 1_048_576
+OPT_SNP_EVERY = 5_000                  # one planted SNP per 5 kb (~920)
+OPT_INDEL_SHARE, OPT_SPLICE_SHARE, OPT_JUNK_SHARE = 0.05, 0.05, 0.02
+OPT_READS_PER_EVENT = 3                # see tests/options_reads.py
+OPT_FLAGS = ["-C", "50", "-a", "10", "-A", "50000"]
+OPT_MIN_DEPTH = 10                     # the gates' bars: tests/test_snp.py
+OPT_MIN_RECALL = 0.90                  # :54 (18 of 20) and :66 (2 of ~20
+OPT_MAX_OFF = 0.10                     # off a planted locus);
+OPT_MIN_RECOVERY = 0.80                # tests/test_splice_indel.py:60,76,
+#                                        107 and tests/test_multihit.py:100
+# bases past an event's site where the ungapped pileup shifts the event
+# reads' bases (a read's second segment is at most read length - 20)
+OPT_EVENT_SHADOW = READ_LEN - 20
+PARITY_GENOME = [("chr1", 30_000), ("chr2", 20_000)]
+PARITY_READS = 10_000                  # 20x
+PARITY_SNP_EVERY = 1_200               # 40 planted SNPs
+PARITY_PAIRS = 2_000
 
 # least-time bounds (NVIDIA H100 SXM data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
@@ -643,7 +693,6 @@ def long_read_parity():
     from biokanga_tpu_torch import cli
     from biokanga_tpu_torch.align import pipeline
     from biokanga_tpu_torch.index.build import build_index, save_index
-    from biokanga_tpu_torch.seq.fasta import write_fastq
     from biokanga_tpu_torch.sim.simreads import random_genome
 
     rng = np.random.default_rng(41)
@@ -662,8 +711,7 @@ def long_read_parity():
         sub = rng.random(L) < 0.03
         r[sub] = (r[sub] + 1 + rng.integers(0, 3, int(sub.sum()))) % 4
         reads.append(r)
-    write_fastq(str(WORK / "long.fq"),
-                ((f"r{i}", r, None) for i, r in enumerate(reads)))
+    _write_fastq(WORK / "long.fq", [f"r{i}" for i in range(n_reads)], reads)
     widths = {}
     sort_rows = pipeline.sort_rows
     try:
@@ -1096,6 +1144,11 @@ def _ecreads(fasta: Path, out: Path, device: str, extra=()) -> dict:
                    str(log), "--device", device, *extra])
     if rc != 0:
         raise AssertionError(f"ecreads --device {device} rc={rc}")
+    return _ecreads_log(log)
+
+
+def _ecreads_log(log: Path) -> dict:
+    """The numbers of an `ecreads -F` log's summary line."""
     m = re.search(r"ecreads: (\d+) reads, (\d+) pairs aligned, (\d+) "
                   r"overlaps used, \S+s(?:; device time: SW (\S+) ms, "
                   r"traceback (\S+) ms)?", log.read_text())
@@ -1105,10 +1158,16 @@ def _ecreads(fasta: Path, out: Path, device: str, extra=()) -> dict:
             "sw_ms": m[4] and float(m[4]), "trace_ms": m[5] and float(m[5])}
 
 
-def ec_parity(rng):
-    """EC_PARITY_READS noisy 1.5 kb reads, --rounds 2: --device cpu ==
-    --device cuda, at the default band and at --sw-band 256 (one block a
-    pair)."""
+def ec_parity_start(rng) -> list:
+    """Phase 8, first half: EC_PARITY_READS noisy 1.5 kb reads, --rounds
+    2, at the default band and at --sw-band 256 (one block a pair).  The
+    --device cpu runs (host row loops, some 20 s each) start as child
+    processes that go on beside the phases after this one; the --device
+    cuda runs follow here, in process, with their launches counted.
+    Returns what ec_parity_finish compares."""
+    import atexit
+    import os
+
     from biokanga_tpu_torch.ops import banded_sw, sw_trace
     from biokanga_tpu_torch.seq.encode import revcomp
     from biokanga_tpu_torch.seq.fasta import write_fasta
@@ -1122,14 +1181,42 @@ def ec_parity(rng):
         reads.append(revcomp(r) if i % 3 == 2 else r)
     fasta = WORK / "ec_small.fa"
     write_fasta(str(fasta), ((f"read{i}", r) for i, r in enumerate(reads)))
+    # the child processes see no card and share the host's cores
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="3")
+    runs = []
     for extra in ((), ("--sw-band", str(EC_WIDE_BAND))):
         tag = "_".join(("ec_small",) + extra[1:])
-        st = _ecreads(fasta, WORK / f"{tag}_cpu.fa", "cpu", extra)
+        out = WORK / f"{tag}_cpu.fa"
+        out.with_suffix(".log").unlink(missing_ok=True)
+        err = open(WORK / f"{tag}_cpu.err", "wb")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "biokanga_tpu_torch", "ecreads", "-i",
+             str(fasta), "-o", str(out), "-F", str(out.with_suffix(".log")),
+             "--device", "cpu", *extra],
+            cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=err)
+        err.close()
+        atexit.register(lambda p=proc: p.poll() is None and (p.kill(),
+                                                             p.wait()))
+        runs.append({"extra": extra, "tag": tag, "proc": proc})
+    for run in runs:
         banded_sw.banded_sw_moves.launches = 0
         sw_trace.traceback_cols_packed.launches = 0
-        _ecreads(fasta, WORK / f"{tag}_cuda.fa", "cuda", extra)
-        launches = (banded_sw.banded_sw_moves.launches,
-                    sw_trace.traceback_cols_packed.launches)
+        _ecreads(fasta, WORK / f"{run['tag']}_cuda.fa", "cuda", run["extra"])
+        run["launches"] = (banded_sw.banded_sw_moves.launches,
+                           sw_trace.traceback_cols_packed.launches)
+    return runs
+
+
+def ec_parity_finish(runs) -> None:
+    """Phase 8, second half: wait for the --device cpu runs and require
+    their FASTA byte for byte from the --device cuda runs."""
+    for run in runs:
+        extra, tag, launches = run["extra"], run["tag"], run["launches"]
+        if run["proc"].wait() != 0:
+            raise AssertionError(
+                f"ecreads --device cpu {extra} rc={run['proc'].returncode}: "
+                f"{(WORK / f'{tag}_cpu.err').read_text()[-2000:]}")
+        st = _ecreads_log(WORK / f"{tag}_cpu.log")
         want = (WORK / f"{tag}_cpu.fa").read_bytes()
         if (WORK / f"{tag}_cuda.fa").read_bytes() != want or \
                 min(launches) < 1 or st["overlaps"] < EC_PARITY_READS:
@@ -1278,6 +1365,7 @@ def _pe_repeat_case(n_pairs: int = N_REPEAT_PAIRS, read_len: int = 150):
     times (not unique) while its partner is unique beside it: an orphan
     that only the windowed rescue can place.  Every ninth pair has a mate
     with a substitution in each seed core, and some mates carry Ns."""
+    from biokanga_tpu_torch.seq.encode import revcomp
     from biokanga_tpu_torch.sim.simreads import simulate_reads
 
     rng = np.random.default_rng(37)
@@ -1287,13 +1375,10 @@ def _pe_repeat_case(n_pairs: int = N_REPEAT_PAIRS, read_len: int = 150):
                                      sub_rate=0.02, seed=29, pe=True,
                                      insert_min=300, insert_max=550)
 
-    def rc(x):
-        return np.where(x >= 4, x, 3 - x)[::-1]
-
     for i in range(0, n_pairs, 5):
         s = (1_000, 7_000, 21_000, 150_000)[i // 5 % 4] + \
             int(rng.integers(10, 240))
-        a, b = g[s:s + read_len], rc(g[s + 330:s + 330 + read_len])
+        a, b = g[s:s + read_len], revcomp(g[s + 330:s + 330 + read_len])
         reads[2 * i], reads[2 * i + 1] = (a, b) if i % 2 else (b, a)
     for i in range(3, n_pairs, 9):
         r = reads[2 * i + i % 2]
@@ -1305,12 +1390,9 @@ def _pe_repeat_case(n_pairs: int = N_REPEAT_PAIRS, read_len: int = 150):
 
 
 def _write_pairs(stem: str, names, reads, n_pairs: int):
-    from biokanga_tpu_torch.seq.fasta import write_fastq
-
     for m in (0, 1):
-        write_fastq(str(WORK / f"{stem}{m + 1}.fq"),
-                    ((names[2 * i + m], reads[2 * i + m], None)
-                     for i in range(n_pairs)))
+        _write_fastq(WORK / f"{stem}{m + 1}.fq", names[m:2 * n_pairs:2],
+                     reads[m:2 * n_pairs:2])
 
 
 def _align_pe(stem: str, ref: str, out: str, device: str, extra=()) -> dict:
@@ -1531,6 +1613,424 @@ def pe_engine(idx, r1, r2, dev, smi):
           f"{min(t_finish):.4f} ({smi})")
 
 
+# ------------------------------------------------- single-end options ----
+
+def _options_data(seqs, n_reads, snp_every, seed, block):
+    """A sample of `seqs` with planted SNPs, simulated reads from it, and
+    shares of them replaced by indel and junction reads (three a sample
+    event, in one block of `block` rows) or given junk tails
+    (tests/options_reads.py).  Returns (names, reads, snps, events,
+    truth, depth): depth is each genome position's coverage by the plain
+    simulated reads."""
+    from biokanga_tpu_torch.sim.simreads import simulate_reads
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import options_reads as opt
+
+    rng = np.random.default_rng(seed)
+    sample, snps = opt.plant_snps(seqs, snp_every, rng)
+    n_ind = round(OPT_INDEL_SHARE * n_reads / OPT_READS_PER_EVENT)
+    n_spl = round(OPT_SPLICE_SHARE * n_reads / OPT_READS_PER_EVENT)
+    events = opt.plan_events(seqs, n_ind, n_spl, snps, rng, spacing=100)
+    names, reads, truths = simulate_reads(sample, n_reads, read_len=READ_LEN,
+                                          sub_rate=0.002, seed=seed)
+    offsets = np.cumsum([0] + [len(g) for _, g in seqs])
+    entry = {nm: offsets[e] for e, (nm, _) in enumerate(seqs)}
+    first = np.array([entry[t.chrom] + t.start - 1 for t in truths])
+    truth = opt.alter_reads(names, reads, sample, events, rng,
+                            OPT_INDEL_SHARE, OPT_SPLICE_SHARE, OPT_JUNK_SHARE,
+                            block=block)
+    plain = np.ones(n_reads, bool)
+    for kind in "DIN":
+        plain[[row for row, *_ in truth[kind]]] = False
+    cov = np.zeros(offsets[-1] + 1, np.int64)
+    np.add.at(cov, first[plain], 1)
+    np.add.at(cov, first[plain] + READ_LEN, -1)
+    truth["first"] = first
+    return names, reads, snps, events, truth, np.cumsum(cov)[:-1], offsets
+
+
+def _write_fastq(path: Path, names, reads) -> None:
+    """The FASTQ of reads of one length with "I" qualities, the bytes of
+    the package's write_fastq, built a block of records at a time: the
+    script's only FASTQ writer (a record at a time takes seconds per
+    100,000 reads)."""
+    reads = np.asarray(reads)
+    n, L = reads.shape
+    mat = np.empty((n, 2 * L + 4), np.uint8)
+    mat[:, :L] = np.frombuffer(b"ACGTN", np.uint8)[reads]
+    mat[:, L:L + 3] = np.frombuffer(b"\n+\n", np.uint8)
+    mat[:, L + 3:2 * L + 3] = ord("I")
+    mat[:, -1] = ord("\n")
+    w = mat.shape[1]
+    with open(path, "wb") as f:
+        for a in range(0, n, 65_536):
+            blob = mat[a:a + 65_536].tobytes()
+            f.write(b"".join(b"@" + names[a + i].encode() + b"\n"
+                             + blob[i * w:(i + 1) * w]
+                             for i in range(len(blob) // w)))
+
+
+def _reachable(reads, truth, genome: np.ndarray, rows_a_pass=16_384) -> dict:
+    """For each indel and junction read, whether its true diagonals are
+    among the candidates the indel and splice scans see: the lowest
+    SPLICE_CAND_CAP of its strand's seed diagonals, counted with
+    multiplicity, from the cores of at most `cand_per_core` hits
+    (biokanga_tpu/align/pipeline.py:797-818, `_strand_candidates` with
+    `occ_skip`).  Computed here in numpy from the genome's k-mers, apart
+    from the port's seeding, so that a port that lost true diagonals
+    would miss the gate instead of shrinking its denominator.  On a
+    genome whose cores have more hits than the cap holds, a read whose
+    origin lies past the lowest ones cannot be placed by the JAX
+    package's ExtendedAligner, nor by the port (ROADMAP.md, queue 3).
+    The genome is one entry (`want` is its locus)."""
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.align.pipeline import SPLICE_CAND_CAP
+    from biokanga_tpu_torch.seq.encode import revcomp
+
+    params = AlignParams()
+    dp = params.derive(reads.shape[1], len(genome))
+    H, k = params.cand_per_core, dp.core_len
+    n = len(genome) - k + 1
+    key = np.zeros(n, np.uint64)
+    clean = np.ones(n, bool)
+    for j in range(k):
+        w = genome[j:j + n]
+        key = (key << np.uint64(2)) | (w & 3).astype(np.uint64)
+        clean &= w < 4
+    pos = np.nonzero(clean)[0]
+    order = np.argsort(key[pos], kind="stable")
+    skey, spos = key[pos][order], pos[order]
+    offs = np.asarray(dp.offsets)
+    out = {}
+    for kind in "DIN":
+        t = truth[kind]
+        rows = np.array([x[0] for x in t])
+        want = np.array([x[2] for x in t], np.int64)
+        second = want + np.array([x[4] for x in t])
+        rc = np.array([x[3] == "-" for x in t])
+        ok = np.zeros(len(rows), bool)
+        for a in range(0, len(rows), rows_a_pass):
+            sl = slice(a, a + rows_a_pass)
+            seq = reads[rows[sl]]
+            seq = np.where(rc[sl, None], revcomp(seq), seq)
+            q = np.zeros((len(seq), len(offs)), np.uint64)
+            has_n = np.zeros(q.shape, bool)
+            for j in range(k):
+                w = seq[:, offs + j]
+                q = (q << np.uint64(2)) | (w & 3).astype(np.uint64)
+                has_n |= w >= 4
+            lo = np.searchsorted(skey, q, "left")
+            size = np.searchsorted(skey, q, "right") - lo
+            size[has_n | (size > H)] = 0
+            j = np.arange(H)
+            diag = spos[np.minimum(lo[..., None] + j, len(spos) - 1)] \
+                - offs[None, :, None]
+            flat = np.where((j < size[..., None]) & (diag >= 0), diag,
+                            np.iinfo(np.int64).max).reshape(len(seq), -1)
+            low = np.partition(flat, SPLICE_CAND_CAP - 1, axis=1)[
+                :, :SPLICE_CAND_CAP]
+            hit = (low == want[sl, None]).any(1)
+            if kind == "N":
+                hit &= (low == second[sl, None]).any(1)
+            ok[sl] = hit
+        out[kind] = ok
+    return out
+
+
+def _options_gates(sam: Path, snp_csv: Path, n_reads, snps, events, truth,
+                   depth, offsets, names, reachable=None):
+    """The gates of phases 14 and 15 from the SAM and the SNP CSV.
+    Returns the numbers; raises if one misses its bar.  With `reachable`,
+    the indel and junction bars hold over the reads the candidate cap
+    leaves reachable (see _reachable); the share over all is reported."""
+    import csv
+
+    recs = _records(sam)[:n_reads]
+    if len(recs) != n_reads:
+        raise AssertionError(f"{len(recs)} records for {n_reads} reads")
+    entry = {nm: e for e, nm in enumerate(names)}
+    calls = {(r["Chrom"], int(r["StartLoci"])): r
+             for r in csv.DictReader(open(snp_csv))}
+    deep = [(c, p) for (c, p) in snps
+            if depth[offsets[entry[c]] + p] >= OPT_MIN_DEPTH]
+    hit = 0
+    for c, p in deep:
+        r = calls.get((c, p))
+        if r is not None:
+            mm = [int(r[f"MMBase{b}"]) for b in "ACGT"]
+            hit += int(np.argmax(mm)) == snps[(c, p)][1]
+    # a call at no planted SNP counts as off a planted locus, unless it
+    # lies in an event's shadow, where the JAX package's ungapped pileup
+    # shifts the event reads' bases (ROADMAP.md, queue 3)
+    shadow = np.zeros(offsets[-1], bool)
+    for kind, e, site, size, _ in events:
+        shadow[offsets[e] + site: offsets[e] + site + OPT_EVENT_SHADOW] = True
+    off = [k for k in calls if k not in snps]
+    off_clean = [k for k in off if not shadow[offsets[entry[k[0]]] + k[1]]]
+    out = {"planted": len(snps), "deep": len(deep),
+           "recall": hit / max(len(deep), 1), "calls": len(calls),
+           "off_planted": len(off),
+           "off_in_event_shadow": len(off) - len(off_clean),
+           "off_share": len(off_clean) / max(len(calls), 1)}
+    bars = {"recall": out["recall"] >= OPT_MIN_RECALL,
+            "off_share": out["off_share"] <= OPT_MAX_OFF}
+    for kind in "DIN":
+        good = np.array([
+            f[4] == "60" and kind in f[5] and f[2] == chrom
+            and int(f[3]) - 1 == p
+            for f, (_, chrom, p, _, _) in (
+                (recs[t[0]].split("\t"), t) for t in truth[kind])])
+        out[f"recovered_{kind}"] = float(good.mean())
+        if reachable is None:
+            bars[kind] = good.mean() >= OPT_MIN_RECOVERY
+        else:
+            reach = reachable[kind]
+            out[f"reachable_{kind}"] = float(reach.mean())
+            out[f"recovered_reachable_{kind}"] = float(good[reach].mean())
+            bars[kind] = good[reach].mean() >= OPT_MIN_RECOVERY
+    good = 0
+    for row in truth["junk"]:
+        f = recs[row].split("\t")
+        m = re.match(r"(\d+)S", f[5])
+        clip5 = int(m[1]) if m else 0
+        at = offsets[entry[f[2]]] + int(f[3]) - 1 - clip5 if f[4] == "60" \
+            else -1
+        good += "S" in f[5] and at == truth["first"][row]
+    out["recovered_junk"] = good / len(truth["junk"])
+    bars["junk"] = out["recovered_junk"] >= OPT_MIN_RECOVERY
+    if not all(bars.values()):
+        raise AssertionError(f"SE options gates missed "
+                             f"{[k for k, v in bars.items() if not v]}: {out}")
+    return out
+
+
+def _timed_parts():
+    """Wrap the engine, the indel/splice fall-through, the chimeric pass,
+    the pileup, the two scans, call_snps and the SAM writer so that each
+    call is timed between two device synchronisations; returns (totals
+    in ms by part, undo).  The engine's time holds the fall-through's
+    first pass; the fall-through's holds the scans'."""
+    import torch
+
+    from biokanga_tpu_torch.align import (
+        multihit,
+        pipeline,
+        sam,
+        snp,
+        splice_indel,
+    )
+
+    ms = {}
+    saved = []
+
+    def wrap(owner, attr, part):
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn))
+        ms[part] = 0.0
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            ms[part] += (time.perf_counter() - t0) * 1e3
+            return out
+        setattr(owner, attr, timed)
+
+    wrap(pipeline.AlignEngine, "align_with_rescue", "engine")
+    wrap(pipeline.ExtendedAligner, "scan_rows", "fall_through_scans")
+    wrap(splice_indel, "indel_scan", "indel_scan")
+    wrap(splice_indel, "splice_scan", "splice_scan")
+    wrap(multihit, "chimeric_pass", "chimeric_pass")
+    wrap(snp, "pileup_batch", "pileup")
+    wrap(snp, "call_snps", "call_snps")
+    wrap(sam, "write_alignments_sam", "sam")
+
+    def undo():
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+    return ms, undo
+
+
+def se_options_cell(seqs, dev, smi):
+    """Phase 14: the SE options cell through the CLI on the card.  Returns
+    the launches of kernels #1-#3 in the run."""
+    from biokanga_tpu_torch import cli
+
+    t0 = time.monotonic()
+    names, reads, snps, events, truth, depth, offsets = _options_data(
+        seqs, OPT_READS, OPT_SNP_EVERY, 14, BATCH)
+    _write_fastq(WORK / "opt.fq", names, reads)
+    setup_s = time.monotonic() - t0
+    side = {"-O": "opt_snps.csv", "--snpvcf": "opt_snps.vcf",
+            "--disnp": "opt_di.csv", "--trisnp": "opt_tri.csv",
+            "--snpcentroid": "opt_cent.csv", "--stats": "opt_stats.csv"}
+    argv = ["align", "-i", str(WORK / "opt.fq"), "-I", str(WORK / "ref.npz"),
+            "-o", str(WORK / "opt.sam"), *OPT_FLAGS, "--device", "cuda",
+            "--batch-size", str(BATCH)]
+    for flag, name in side.items():
+        argv += [flag, str(WORK / name)]
+    ms, undo = _timed_parts()
+    _reset_align_launches()
+    try:
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        undo()
+    launches = _align_launches()
+    if rc != 0 or min(launches.values()) < 1:
+        raise AssertionError(f"SE options run rc={rc}, launches={launches}")
+    gates = _options_gates(WORK / "opt.sam", WORK / side["-O"], OPT_READS,
+                           snps, events, truth, depth, offsets,
+                           [nm for nm, _ in seqs],
+                           _reachable(reads, truth, seqs[0][1]))
+    stats = dict(line.strip().replace('"', '').split(",") for line in
+                 (WORK / side["--stats"]).read_text().splitlines()[1:9])
+    parts = {k: round(v, 3) for k, v in ms.items()}
+    gates = {k: round(v, 6) if isinstance(v, float) else v
+             for k, v in gates.items()}
+    print(f"SE options cell: {OPT_READS} x {READ_LEN} bp, {len(snps)} "
+          f"planted SNPs, {len(events)} indel and junction events; `align "
+          f"{' '.join(OPT_FLAGS)} -O --snpvcf --disnp --trisnp --snpcentroid "
+          f"--stats --device cuda` wall {wall:.3f} s (data set-up "
+          f"{setup_s:.1f} s); parts in ms: {json.dumps(parts)}; launches "
+          f"{launches}; stats {json.dumps(stats)}; gates "
+          f"{json.dumps(gates)} ({smi})")
+    return launches
+
+
+def _parity_run(argv, device, outs):
+    from biokanga_tpu_torch import cli
+
+    rc = cli.main(["align", *argv, "--device", device])
+    if rc != 0:
+        raise AssertionError(f"align --device {device} rc={rc}")
+    return {o: (WORK / o).read_bytes() for o in outs}
+
+
+def options_parity():
+    """Phase 15: every SE option, and PE BAM output, with --device cpu and
+    --device cuda on a 50 kb genome; the outputs byte for byte."""
+    import shutil
+
+    from biokanga_tpu_torch import cli
+    from biokanga_tpu_torch.align import pipeline
+    from biokanga_tpu_torch.seq.fasta import write_fasta
+    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import options_reads as opt
+
+    seqs = random_genome(PARITY_GENOME, seed=15)
+    write_fasta(str(WORK / "par.fa"), seqs)
+    if cli.main(["index", "-i", str(WORK / "par.fa"), "-o",
+                 str(WORK / "par.npz"), "--lut-bases", "8"]) != 0:
+        raise AssertionError("index of the parity genome failed")
+    names, reads, snps, events, truth, depth, offsets = _options_data(
+        seqs, PARITY_READS, PARITY_SNP_EVERY, 15, 4_096)
+    _write_fastq(WORK / "par.fq", names, reads)
+    rng = np.random.default_rng(16)
+    opt.loci_constraints_csv(str(WORK / "par_constraints.csv"), seqs, rng)
+    opt.priority_bed(str(WORK / "par_priority.bed"), seqs, rng)
+    base = ["-i", str(WORK / "par.fq"), "-I", str(WORK / "par.npz")]
+
+    # every output of the SNP, indel, splice and chimeric options
+    side = ["snps.csv", "snps.vcf", "di.csv", "tri.csv", "cent.csv",
+            "stats.csv"]
+    got = {}
+    for d in ("cpu", "cuda"):
+        files = [f"par_{d}.sam"] + [f"par_{d}_{x}" for x in side]
+        argv = base + ["-o", str(WORK / files[0]), *OPT_FLAGS]
+        for flag, f in zip(("-O", "--snpvcf", "--disnp", "--trisnp",
+                            "--snpcentroid", "--stats"), files[1:]):
+            argv += [flag, str(WORK / f)]
+        got[d] = list(_parity_run(argv, d, files).values())
+    for name, a, b in zip(["sam"] + side, got["cpu"], got["cuda"]):
+        if a != b:
+            raise AssertionError(f"phase 15: {name} differs cpu vs cuda")
+    n_calls = got["cpu"][1].count(b"\n") - 1
+    cig = "".join(r.split("\t")[5] for r in
+                  got["cpu"][0].decode().splitlines()
+                  if not r.startswith("@"))
+    if n_calls < 20 or not all(op in cig for op in "DINS"):
+        raise AssertionError(f"phase 15: {n_calls} SNP calls, CIGAR ops "
+                             f"{sorted(set(cig) - set('0123456789'))}")
+    # the gates of phase 14 on this genome, where every core's hits fit
+    # the candidate cap: over all indel and junction reads
+    gates = _options_gates(WORK / "par_cuda.sam", WORK / "par_cuda_snps.csv",
+                           PARITY_READS, snps, events, truth, depth, offsets,
+                           [nm for nm, _ in seqs])
+
+    # the post-passes, BAM, checkpoints and -q: cpu once, cuda twice (the
+    # second run resumes from its checkpoints)
+    more = ["-x", "3", "-y", "2", "-k", "2", "--min-accept-len", "90",
+            "--minflankexacts", "5", "--pcrprimersubs", "2",
+            "--lociconstraints", str(WORK / "par_constraints.csv"),
+            "-Y", str(WORK / "par_priority.bed")]
+    bams, rows, engine_calls = [], [], []
+    real = pipeline.AlignEngine.align_with_rescue
+    for run, d in enumerate(("cpu", "cuda", "cuda")):
+        ck = WORK / f"par_ck_{d}"
+        if run < 2:
+            shutil.rmtree(ck, ignore_errors=True)
+        db = WORK / f"par_{run}.db"
+        db.unlink(missing_ok=True)
+        calls = [0]
+
+        def counted(self, *a, **k):
+            calls[0] += 1
+            return real(self, *a, **k)
+        pipeline.AlignEngine.align_with_rescue = counted
+        try:
+            out = f"par_{run}.bam"
+            res = _parity_run(base + more + [
+                "-o", str(WORK / out), "--checkpoint-dir", str(ck),
+                "-q", str(db)], d, [out, out + ".bai"])
+        finally:
+            pipeline.AlignEngine.align_with_rescue = real
+        bams.append(tuple(res.values()))
+        rows.append(opt.sumrslts_rows(db))
+        engine_calls.append(calls[0])
+    if not bams[0] == bams[1] == bams[2]:
+        raise AssertionError("phase 15: BAM or BAI differs cpu/cuda/resume")
+    if not rows[0] == rows[1] == rows[2]:
+        raise AssertionError("phase 15: -q rows differ")
+    if engine_calls[2] != 0 or engine_calls[1] < 3:
+        raise AssertionError(f"phase 15: engine calls {engine_calls}; the "
+                             f"second card run did not resume")
+
+    # paired ends into BAM
+    pn, pr, _ = simulate_reads(seqs, PARITY_PAIRS, read_len=READ_LEN,
+                               sub_rate=0.01, seed=17, pe=True,
+                               insert_min=200, insert_max=500)
+    _write_pairs("par_p", pn, pr, PARITY_PAIRS)
+    pe = {}
+    for d in ("cpu", "cuda"):
+        out = f"par_pe_{d}.bam"
+        pe[d] = list(_parity_run([
+            "-i", str(WORK / "par_p1.fq"), "-u", str(WORK / "par_p2.fq"),
+            "-I", str(WORK / "par.npz"), "-o", str(WORK / out), *PE_FLAGS],
+            d, [out, out + ".bai"]).values())
+    if pe["cpu"] != pe["cuda"]:
+        raise AssertionError("phase 15: PE BAM differs cpu vs cuda")
+    gates = {k: round(v, 6) if isinstance(v, float) else v
+             for k, v in gates.items()}
+    print(f"SE options parity on {sum(n for _, n in PARITY_GENOME)} bp, "
+          f"{PARITY_READS} reads: --device cpu == cuda byte for byte for "
+          f"the SAM and {len(side)} side files ({n_calls} SNP calls; gates "
+          f"on the card's run {json.dumps(gates)}); BAM, "
+          f"BAI and -q rows of the post-pass run equal on cpu, cuda and "
+          f"the resumed cuda run ({len(bams[0][0])} bytes; engine calls "
+          f"{engine_calls}); PE BAM of {PARITY_PAIRS} pairs equal "
+          f"({len(pe['cpu'][0])} bytes)")
+
+
 def main() -> int:
     import torch
 
@@ -1541,10 +2041,14 @@ def main() -> int:
     from biokanga_tpu_torch import cli, kernels
     from biokanga_tpu_torch.align.params import AlignParams
     from biokanga_tpu_torch.align.pipeline import AlignEngine
-    from biokanga_tpu_torch.index.build import build_index, save_index
+    from biokanga_tpu_torch.index.build import (
+        build_index,
+        load_index,
+        save_index,
+    )
     from biokanga_tpu_torch.index.device import to_device
     from biokanga_tpu_torch.ops import sort
-    from biokanga_tpu_torch.seq.fasta import write_fastq
+    from biokanga_tpu_torch.seq.fasta import write_fasta
     from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
 
     dev = torch.device("cuda", 0)
@@ -1586,13 +2090,22 @@ def main() -> int:
     WORK.mkdir(parents=True, exist_ok=True)
     seqs = random_genome([("chr", GENOME_BP)], seed=42)
     idx = build_index(seqs, lut_bases=10)
-    save_index(idx, str(WORK / "ref.npz"))
+    write_fasta(str(WORK / "ref.fa"), seqs)
+    if cli.main(["index", "-i", str(WORK / "ref.fa"), "-o",
+                 str(WORK / "ref.npz"), "--lut-bases", "10"]) != 0:
+        raise AssertionError("index failed")
+    built = load_index(str(WORK / "ref.npz"))
+    for f in ("codes", "entry_starts", "pos_sorted", "key_hi", "key_lo",
+              "lut"):
+        a, b = getattr(built, f), getattr(idx, f)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"index CLI: {f} differs from build_index")
+    if (built.entry_names, built.lut_bases) != (idx.entry_names, 10):
+        raise AssertionError("index CLI: meta differs from build_index")
     names, reads, _ = simulate_reads(seqs, N_READS, read_len=READ_LEN,
                                      sub_rate=0.01, seed=9)
-    write_fastq(str(WORK / "reads.fq"), ((nm, r, None)
-                                         for nm, r in zip(names, reads)))
-    write_fastq(str(WORK / "head.fq"), ((names[i], reads[i], None)
-                                        for i in range(N_PARITY)))
+    _write_fastq(WORK / "reads.fq", names, reads)
+    _write_fastq(WORK / "head.fq", names[:N_PARITY], reads[:N_PARITY])
     _reset_align_launches()
     t0 = time.monotonic()
     rc = cli.main(["align", "-i", str(WORK / "reads.fq"),
@@ -1630,8 +2143,7 @@ def main() -> int:
     # 5b. repeats, Ns and 150 bp reads: every engine stage on the card
     rseqs, rnames, rreads = _repeat_case()
     save_index(build_index(rseqs, lut_bases=9), str(WORK / "rep.npz"))
-    write_fastq(str(WORK / "rep.fq"), ((nm, r, None)
-                                       for nm, r in zip(rnames, rreads)))
+    _write_fastq(WORK / "rep.fq", rnames, rreads)
     for d in ("cpu", "cuda"):
         sort.sort_rows.launches = sort.sort2_rows.launches = 0
         rc = cli.main(["align", "-i", str(WORK / "rep.fq"),
@@ -1687,8 +2199,9 @@ def main() -> int:
     launches = {"banded_sw_score": long_pair_score(dev, rng)}
     lap("7")
 
-    # 8. EC through the CLI: the plain path against the card
-    ec_parity(rng)
+    # 8. EC through the CLI: the plain path against the card (the plain
+    # runs go on in child processes beside phases 9-13)
+    ec_runs = ec_parity_start(rng)
     lap("8")
 
     # 9. EC at full width
@@ -1712,10 +2225,23 @@ def main() -> int:
 
     # 13. the PE engine alone and its decomposition
     pe_engine(idx, r1, r2, dev, smi)
-    del idx, seqs, r1, r2
+    del idx, r1, r2
     torch.cuda.empty_cache()
-
     lap("13")
+
+    # 8, end: the plain EC runs against the card's
+    ec_parity_finish(ec_runs)
+    lap("8, end")
+
+    # 14. the SE options cell: SNP calling, indels, junctions, chimeric
+    # trims; kernels #1-#3 are counted again on this path
+    opt_launches = se_options_cell(seqs, dev, smi)
+    del seqs
+    lap("14")
+
+    # 15. every SE option and PE BAM: the plain path against the card
+    options_parity()
+    lap("15")
 
     src = "biokanga_tpu_torch/csrc/"
     rows = [
@@ -1754,7 +2280,8 @@ def main() -> int:
         kernels_line.append({
             "name": name, "route": "cuda", "source": src + path,
             "replaces": rep, "launches": launches[name],
-            **({"launches_se_align": se_launches[name]}
+            **({"launches_se_align": se_launches[name],
+                "launches_se_options": opt_launches[name]}
                if name in se_launches else {}),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": bound_ms,

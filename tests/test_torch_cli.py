@@ -184,15 +184,60 @@ def test_pe_sam_is_byte_identical_to_jax_cli(pairs, case, opts):
         assert b'"InsertBin","Count"' in want
 
 
-@pytest.mark.parametrize("flag", [["--stats", "s.csv"], ["-O", "snps.csv"],
-                                  ["-a", "5"], ["-C", "60"]])
-def test_flags_outside_the_slice_are_rejected(inputs, flag):
+@pytest.fixture(scope="module")
+def other_indexes(inputs):
+    """A bisulfite, a colorspace and a chunked index of the same genome,
+    built by the JAX CLI: the kinds of index the port refuses."""
     d = inputs
+    for name, opts in (("bs", ["-m", "1"]), ("cs", ["-C"]),
+                       ("chunked", ["--chunks", "2"])):
+        assert jax_main(["index", "-i", str(d / "ref.fa"), "-o",
+                         str(d / f"{name}.npz"), "--lut-bases", "9"]
+                        + opts) == 0
+    return d
+
+
+@pytest.mark.parametrize("case", ["bisulfite", "colorspace", "chunked",
+                                  "index -m 1", "index -C",
+                                  "index --chunks"])
+def test_what_stays_outside_the_slice_is_refused(other_indexes, case,
+                                                 capsys):
+    """Bisulfite, colorspace and chunked indexes (ROADMAP.md queue 1,
+    items 4 and 5): `align` refuses such an index file and `index` the
+    options that would build one, with exit code 2 and the ROADMAP
+    item."""
+    d = other_indexes
+    idx = {"bisulfite": "bs", "colorspace": "cs", "chunked": "chunked"}
+    if case in idx:
+        argv = ["align", "-i", str(d / "reads.fq"), "-I",
+                str(d / f"{idx[case]}.npz"), "-o", str(d / "x.sam"),
+                "--device", "cpu", "-O", str(d / "x.csv"), "-a", "5"]
+        item = "item 4" if case == "chunked" else "item 5"
+    else:
+        flag = {"index -m 1": ["-m", "1"], "index -C": ["-C"],
+                "index --chunks": ["--chunks", "2"]}[case]
+        argv = ["index", "-i", str(d / "ref.fa"), "-o", str(d / "x.npz")] \
+            + flag
+        item = "item 4" if case == "index --chunks" else "item 5"
     with pytest.raises(SystemExit) as e:
-        torch_main(["align", "-i", str(d / "reads.fq"), "-I",
-                    str(d / "ref.npz"), "-o", str(d / "x.sam"),
-                    "--device", "cpu"] + flag)
+        torch_main(argv)
     assert e.value.code == 2
+    assert f"queue 1, {item}" in capsys.readouterr().err
+    assert not (d / "x.npz").exists() and not (d / "x.sam").exists()
+
+
+def test_cuda_is_never_replaced_by_the_cpu_with_the_se_options(inputs,
+                                                               monkeypatch):
+    d = inputs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        torch_main(["align", "-i", str(d / "reads.fq"), "-I",
+                    str(d / "ref.npz"), "-o", str(d / "x.bam"),
+                    "-O", str(d / "x.csv"), "--snpvcf", str(d / "x.vcf"),
+                    "-a", "10", "-A", "50000", "-C", "50", "-k", "2",
+                    "--stats", str(d / "x_stats.csv"), "--checkpoint-dir",
+                    str(d / "x_ck")])
+    assert not (d / "x_ck").exists()
 
 
 @pytest.fixture(scope="module")

@@ -10,8 +10,10 @@ one) and agree exactly with its plain torch version on the same card
 tensors; the CLI's SAM with `--device cuda` must equal the SAM with
 `--device cpu` byte for byte on a repeat-rich genome, and so must the
 error-corrected FASTA, and the paired-end SAM with its insert-size CSV
-on pairs that need the orphan rescue; the consensus call breaks ties
-towards the first maximum on the card as on the CPU.
+on pairs that need the orphan rescue, and the SAM and side files of
+`-O -a -A -C`; the consensus call breaks ties towards the first maximum
+on the card as on the CPU; the indel and splice scans and the SNP
+pileup on CUDA tensors equal them on CPU tensors.
 """
 import numpy as np
 import pytest
@@ -637,3 +639,122 @@ def test_pe_cli_sam_on_the_card_equals_cpu(cuda_device, tmp_path):
     # the seed-dead mates at the genome's two ends were rescued
     assert all(int(r[1]) & 2 for r in recs[:8])
     assert " 0 mates rescued" not in (tmp_path / "cuda.log").read_text()
+
+
+def _scan_tensors(dev, g, case):
+    """The scans' arguments on `dev` from a scan_cases case."""
+    import scan_cases
+
+    reads, lens, loci, valid = case[:4]
+    pg = ep.pack_genome(g, dev)
+    r = torch.from_numpy(reads).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    rc, rn = ep.pack_reads(r, ln)
+    return (pg, torch.from_numpy(scan_cases.STARTS.astype(np.int32)).to(dev),
+            torch.from_numpy(loci).to(dev), torch.from_numpy(valid).to(dev),
+            rc, rn, ln)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_n", [True, False])
+def test_indel_and_splice_scans_on_the_card_equal_cpu(cuda_device, with_n,
+                                                      monkeypatch):
+    """indel_scan and splice_scan on CUDA tensors against CPU tensors,
+    exact: candidates off both ends and at INT32_MAX, equal scores in two
+    columns, ambiguous junctions (rightmost split), and the splice scan
+    also in chunks of rows."""
+    import scan_cases
+
+    from biokanga_tpu_torch.align import splice_indel as si
+
+    rng = np.random.default_rng(90 + with_n)
+    g = scan_cases.genome(rng, with_n)
+    case = scan_cases.scan_case(rng, g, L=100, B=256, max_gap=10)
+    assert case[5] > 20                      # ambiguous junctions
+    out = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("cuda", cuda_device)):
+        args = _scan_tensors(dev, g, case)
+        out[name] = {"indel": si.indel_scan(*args, 100, 10),
+                     "splice": si.splice_scan(*args, 100, 50_000)}
+        with monkeypatch.context() as m:      # seven rows a chunk
+            m.setattr(si, "SPLICE_CHUNK_BYTES", 7 * 24 * 24 * 101 * 4)
+            out[name]["chunked"] = si.splice_scan(*args, 100, 50_000)
+    for scan in ("indel", "splice", "chunked"):
+        for k, v in out["cpu"][scan].items():
+            assert torch.equal(out["cuda"][scan][k].cpu(), v), (scan, k)
+    assert int(out["cpu"]["indel"]["ok"].sum()) > 60
+    assert int(out["cpu"]["splice"]["ok"].sum()) > 30
+
+
+@pytest.mark.cuda
+def test_pileup_on_the_card_equals_cpu(cuda_device):
+    import scan_cases
+
+    from biokanga_tpu_torch.align.snp import pileup_batch
+
+    rng = np.random.default_rng(5)
+    g = scan_cases.genome(rng, True)
+    planes = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("cuda", cuda_device)):
+        n = len(g)
+        p = (torch.zeros((n, 4), dtype=torch.int32, device=dev),
+             torch.zeros(n, dtype=torch.int32, device=dev),
+             torch.zeros(n, dtype=torch.int32, device=dev))
+        case_rng = np.random.default_rng(6)
+        for _ in range(3):
+            loci, seqs, lens, acc = scan_cases.pileup_case(case_rng, g,
+                                                           B=4_000)
+            p = pileup_batch(*p, torch.from_numpy(g).to(dev),
+                             *(torch.from_numpy(a).to(dev)
+                               for a in (loci, seqs, lens, acc)))
+        planes[name] = p
+    for a, b in zip(planes["cpu"], planes["cuda"]):
+        assert torch.equal(a, b.cpu())
+    assert int(planes["cpu"][0].sum()) > 500_000
+
+
+@pytest.mark.cuda
+def test_snp_indel_splice_cli_on_the_card_equals_cpu(cuda_device, tmp_path):
+    """`align -O ... -a -A -C` with --device cuda against --device cpu:
+    SAM, stats, SNP CSV and VCF, haplotype and centroid CSVs byte for
+    byte."""
+    import options_reads as opt
+
+    from biokanga_tpu_torch.align import snp, splice_indel
+    from biokanga_tpu_torch.cli import main
+    from biokanga_tpu_torch.index.build import build_index, save_index
+    from biokanga_tpu_torch.seq.fasta import write_fastq
+    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
+
+    rng = np.random.default_rng(12)
+    seqs = random_genome([("chrA", 60_000), ("chrB", 30_000)], seed=12)
+    save_index(build_index(seqs, lut_bases=8), str(tmp_path / "ref.npz"))
+    sample, snps = opt.plant_snps(seqs, 1_000, rng)
+    names, reads, _ = simulate_reads(sample, 18_000, read_len=100,
+                                     sub_rate=0.002, seed=13)
+    events = opt.plan_events(seqs, 300, 300, snps, rng, spacing=100)
+    opt.alter_reads(names, reads, sample, events, rng, 0.05, 0.05, 0.02,
+                    block=8_192)
+    write_fastq(str(tmp_path / "reads.fq"),
+                ((nm, rd, None) for nm, rd in zip(names, reads)))
+    side = {"-O": "snps.csv", "--snpvcf": "snps.vcf", "--disnp": "di.csv",
+            "--trisnp": "tri.csv", "--snpcentroid": "cent.csv",
+            "--stats": "stats.csv"}
+    for dev in ("cpu", "cuda"):
+        argv = ["align", "-i", str(tmp_path / "reads.fq"), "-I",
+                str(tmp_path / "ref.npz"), "-o",
+                str(tmp_path / f"{dev}_out.sam"),
+                "-a", "10", "-A", "50000", "-C", "50", "--batch-size",
+                "8192", "--device", dev]
+        for flag, name in side.items():
+            argv += [flag, str(tmp_path / f"{dev}_{name}")]
+        assert main(argv) == 0
+    for name in ["out.sam"] + list(side.values()):
+        cpu = (tmp_path / f"cpu_{name}").read_bytes()
+        assert (tmp_path / f"cuda_{name}").read_bytes() == cpu, name
+    recs = [ln.split("\t") for ln in
+            (tmp_path / "cpu_out.sam").read_text().splitlines()
+            if not ln.startswith("@")]
+    cigars = "".join(r[5] for r in recs if r[4] == "60")
+    assert all(op in cigars for op in "DINS")
+    assert (tmp_path / "cpu_snps.csv").read_text().count("\n") > 50
