@@ -8,12 +8,15 @@ Counterpart of biokanga_tpu/align/pipeline.py for the single-end path.
   3. gather up to H loci per core and dedup diagonals with the row sort
      kernel (ops/sort.sort_rows)
   4. count packed Hamming mismatches with the extension kernel
-     (ops/extend_packed.hamming_extend_packed)
+     (ops/extend_packed.hamming_extend_packed), or, for an index without
+     packed rows or reads past MAX_PACKED_READ_LEN bases, on the dense
+     path (ops/extend.hamming_extend)
   5. accept hits through one two-key row sort (ops/sort.sort2_rows)
 
 `AlignEngine` drives it from the host exactly as the JAX engine does:
 a two-level fast pass, a classic rerun of unresolved reads, and the
-two-step rescue ladder.  The TPU workarounds of the JAX version (row
+two-step rescue ladder; chunk sweeps (parallel/chunked.py) take the fast
+pass alone (`launch_fast`).  The TPU workarounds of the JAX version (row
 gathers with static selects, the (C, B) layout, 2-bit upload packing,
 the `uniform` flag and the streaming-extension switch) are left out;
 each is replaced by the general form that gives the same bits.
@@ -25,6 +28,7 @@ import torch
 
 from ..device import I32_MAX
 from ..index.device import DeviceIndex
+from ..ops.extend import hamming_extend
 from ..ops.extend_packed import (
     MAX_PACKED_READ_LEN,
     MM_INVALID,
@@ -134,14 +138,20 @@ def align_core(didx: DeviceIndex, reads: torch.Tensor, lengths: torch.Tensor,
     if strand in ("both", "antisense"):
         strands.append(_rc_reads(reads, lengths))
 
+    use_packed = (didx.packed is not None
+                  and reads.shape[1] <= MAX_PACKED_READ_LEN)
     loci_parts, mm_parts = [], []
     n_over = trunc = None
     for seq in strands:
         loci, vmask, s_over, s_trunc = _strand_candidates(
             didx, seq, dp, H, cand_cap, didx.owned, occ_skip=occ_skip)
-        rcodes, rnlane = pack_reads(seq, lengths)
-        mm = hamming_extend_packed(didx.packed, didx.entry_starts, loci,
-                                   vmask, rcodes, rnlane, lengths)
+        if use_packed:
+            rcodes, rnlane = pack_reads(seq, lengths)
+            mm = hamming_extend_packed(didx.packed, didx.entry_starts, loci,
+                                       vmask, rcodes, rnlane, lengths)
+        else:
+            mm = hamming_extend(didx.genome, didx.entry_starts, loci, vmask,
+                                seq, lengths)
         loci_parts.append(loci)
         mm_parts.append(mm)
         # a hidden hit lives on one strand: the worst single strand counts
@@ -194,6 +204,13 @@ def align_core(didx: DeviceIndex, reads: torch.Tensor, lengths: torch.Tensor,
     }
 
 
+def _to_host(out: dict, dp: DerivedParams) -> dict:
+    """A launch's device tensors as a host result dict."""
+    res = {k: v.cpu().numpy() for k, v in out.items()}
+    res["derived"] = dp
+    return res
+
+
 class AlignEngine:
     """Runs batch alignment of host reads against one DeviceIndex."""
 
@@ -213,10 +230,6 @@ class AlignEngine:
             raise ValueError(
                 f"LUT-only index cannot serve core_len {dp.core_len} > "
                 f"lut_bases {self.didx.lut_bases}")
-        if L > MAX_PACKED_READ_LEN:
-            raise ValueError(
-                f"reads of {L} bases exceed the packed extension's "
-                f"{MAX_PACKED_READ_LEN}; the dense path is not ported")
         H = int(H or self.params.cand_per_core)
         if cand_cap is None:
             cand_cap = self.params.max_cand_per_strand
@@ -233,12 +246,13 @@ class AlignEngine:
         """reads: (B, L) int8 host array.  Returns host-side result dict."""
         out, dp = self.launch(reads, lengths, H=H, cand_cap=cand_cap, dp=dp,
                               occ_skip=occ_skip)
-        res = {k: v.cpu().numpy() for k, v in out.items()}
-        res["derived"] = dp
-        return res
+        return _to_host(out, dp)
 
     def _fast_params(self, reads):
-        """FastPassParams for this batch shape, or None."""
+        """FastPassParams for this batch shape, or None (also for an index
+        without packed rows, as in the JAX engine)."""
+        if self.didx.packed is None:
+            return None
         return self.params.derive_fast(
             int(reads.shape[1]), self.didx.total_len, self.didx.lut_bases)
 
@@ -258,8 +272,7 @@ class AlignEngine:
         align_with_rescue semantics: rerun fast-pass-unresolved reads
         through the classic pass, then the rescue ladder."""
         reads, lengths, out, dp, fp = state
-        res = {k: v.cpu().numpy() for k, v in out.items()}
-        res["derived"] = dp
+        res = _to_host(out, dp)
         if fp is None:
             self.rescue_pass(reads, lengths, res)
             return res
@@ -279,6 +292,30 @@ class AlignEngine:
             for k in RESULT_KEYS + _LADDER_KEYS:
                 res[k][rows] = sub[k][: len(rows)]
         return res
+
+    def launch_fast(self, reads: np.ndarray, lengths: np.ndarray):
+        """Enqueue only the fast pass (the classic pass where there is no
+        fast pass): no unresolved rerun, no rescue.  For chunk sweeps that
+        resolve reads on the merged result (two_level_chunk_sweep)."""
+        _, _, out, dp, fp = self.launch_primary(reads, lengths)
+        return (out, dp, fp)
+
+    def finish_fast(self, state) -> dict:
+        out, dp, _ = state
+        return _to_host(out, dp)
+
+    def align_stream(self, blocks):
+        """align_with_rescue over an iterator of (reads, lengths), with the
+        next block's primary pass enqueued before this block's result is
+        fetched and completed; yields host result dicts."""
+        pending = None
+        for reads, lengths in blocks:
+            state = self.launch_primary(reads, lengths)
+            if pending is not None:
+                yield self.finish_primary(pending)
+            pending = state
+        if pending is not None:
+            yield self.finish_primary(pending)
 
     def align_with_rescue(self, reads: np.ndarray, lengths: np.ndarray):
         """Primary pass + classic rerun + rescue ladder (the JAX engine's

@@ -23,8 +23,16 @@ on the index's device; one batch is one scatter-add per plane, exact in
 any order because the adds are integers, and `finalize` copies the planes
 to the host once.  The window and statistics pass, the haplotypes, the
 centroids and the writers are the JAX package's host numpy, copied as
-they are.  The chunked-index pileup (`ChunkedPileup`, `_seg_candidates`)
-is not ported.
+they are.
+
+`ChunkedPileup` is the pileup of a chunked-index run: one chunk's planes
+on the device at a time, the overlap tail folded into the next chunk,
+and candidate compaction on the device in segments of SNP_SEGMENT bases
+(`_seg_candidates`), so only candidates reach the host.  The JAX
+package's chunk planes are uint16, whose counts wrap past 65,535; torch
+has little uint16 support on CUDA, so the planes here are int32 and the
+wrap is applied where the planes are read (`& 0xFFFF`): the values read
+equal the JAX package's at any depth.
 """
 from __future__ import annotations
 
@@ -40,6 +48,11 @@ from .pipeline import _rc_reads
 C_SNP_BKGND_RATE_WINDOW = 51   # Aligner.h:27
 C_MAX_BKGD_NOISE_THRES = 0.20  # Aligner.h:51
 C_MIN_SEQ_ERR_RATE = 0.01      # Aligner.h:54
+
+# ChunkedPileup: plane bases compacted at a time (with a window flank on
+# each side), and the mask that gives the JAX package's uint16 plane value
+SNP_SEGMENT = 1 << 25
+U16_MASK = 0xFFFF
 
 
 @dataclass(frozen=True)
@@ -121,6 +134,183 @@ class PileupAccumulator:
             self.match.cpu().numpy(),
             self.mismatch.cpu().numpy(),
         )
+
+
+def _seg_candidates(counts, match, mismatch, genome, entry_starts_local,
+                    seg_base: int, min_reads: int, nonref_frac: float,
+                    cap: int, core_lo: int, core_hi: int):
+    """Candidates of one flank-extended plane segment (copy of the JAX
+    package's `_seg_candidates`, biokanga_tpu/align/snp.py:114): windows
+    use the whole segment, candidates and per-entry totals only its CORE
+    [core_lo, core_hi), so flanks never count twice.
+
+    Planes are int32 read as uint16 (U16_MASK).  Returns host arrays: the
+    first `cap` candidate positions in ascending order, their counts
+    (uint16), totals, non-reference counts and 51-base window match and
+    mismatch sums, and the core's int32 match and mismatch totals per
+    entry."""
+    n = genome.shape[0]
+    dev = genome.device
+    flank = C_SNP_BKGND_RATE_WINDOW // 2
+    c16 = counts & U16_MASK
+    m16 = match & U16_MASK
+    mm16 = mismatch & U16_MASK
+    tot = c16.sum(dim=1, dtype=torch.int32)
+    ref = genome.clamp(0, 3).to(torch.int64)
+    nonref = tot - torch.gather(c16, 1, ref[:, None])[:, 0]
+
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    cs_m = torch.cat([zero, torch.cumsum(m16, 0, dtype=torch.int64)])
+    cs_mm = torch.cat([zero, torch.cumsum(mm16, 0, dtype=torch.int64)])
+    i = torch.arange(n, device=dev)
+    lo = (i - flank).clamp(0, n)
+    hi = (i + flank + 1).clamp(0, n)
+
+    core = (i >= core_lo) & (i < core_hi)
+    # the JAX package compares in float32 (a weakly typed float argument)
+    frac = torch.tensor(nonref_frac, dtype=torch.float32, device=dev)
+    cand = (core & (tot >= min_reads) & (nonref >= 1)
+            & (nonref.to(torch.float32) >= frac * tot.to(torch.float32))
+            & (genome < 4))
+    idx = cand.nonzero()[:cap, 0]
+    E = entry_starts_local.shape[0] - 1
+    ent = (torch.searchsorted(entry_starts_local.to(torch.int64),
+                              seg_base + i, right=True) - 1).clamp(0, E - 1)
+    ent_m = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+        0, ent, torch.where(core, m16, 0).to(torch.int64))
+    ent_mm = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+        0, ent, torch.where(core, mm16, 0).to(torch.int64))
+    host = lambda t, dt: t.cpu().numpy().astype(dt)
+    return (host(idx, np.int64), host(c16[idx], np.uint16),
+            host(tot[idx], np.int32), host(nonref[idx], np.int32),
+            host(cs_m[hi[idx]] - cs_m[lo[idx]], np.int32),
+            host(cs_mm[hi[idx]] - cs_mm[lo[idx]], np.int32),
+            host(ent_m, np.int32), host(ent_mm, np.int32))
+
+
+class ChunkedPileup:
+    """SNP pileup over a genome-range chunk sweep (ChunkedAligner /
+    DeviceBuildChunkedAligner), following biokanga_tpu/align/snp.py:165:
+    per-chunk local planes on the device while a chunk is resident, exact
+    boundary folding (chunk k's overlap-tail counts are added into chunk
+    k+1's head), and candidate compaction on the device."""
+
+    def __init__(self, bases: np.ndarray, slice_lens, owned,
+                 overlap: int, cand_cap: int = 1 << 18):
+        self.bases = np.asarray(bases, np.int64)
+        self.slice_lens = np.asarray(slice_lens, np.int64)
+        self.owned = np.asarray(owned, np.int64)
+        self.overlap = int(overlap)
+        self.cap = cand_cap
+        self._cur = None          # (chunk_id, counts, match, mismatch)
+        self._pending_tail = None  # (counts_tail, m_tail, mm_tail)
+        self.cand_rows = []        # accumulated host candidate tuples
+        self.ent_m = None
+        self.ent_mm = None
+
+    def start_chunk(self, k: int, pad_n: int,
+                    device: torch.device | str = "cuda"):
+        assert self._cur is None or self._cur[0] != k
+        counts = torch.zeros((pad_n, 4), dtype=torch.int32, device=device)
+        match = torch.zeros(pad_n, dtype=torch.int32, device=device)
+        mismatch = torch.zeros(pad_n, dtype=torch.int32, device=device)
+        if self._pending_tail is not None:
+            tc, tm, tmm = self._pending_tail
+            counts[: tc.shape[0]] += tc.to(counts.device)
+            match[: tm.shape[0]] += tm.to(counts.device)
+            mismatch[: tmm.shape[0]] += tmm.to(counts.device)
+            self._pending_tail = None
+        self._cur = [k, counts, match, mismatch]
+
+    def add_batch(self, genome_d, loci_local, aligned_seqs, lengths,
+                  accept):
+        _, counts, match, mismatch = self._cur
+        dev = genome_d.device
+        t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(
+            dev)
+        pileup_batch(counts, match, mismatch, genome_d,
+                     t(loci_local, np.int32), t(aligned_seqs, np.int8),
+                     t(lengths, np.int32), t(accept, np.bool_))
+
+    def finish_chunk(self, genome_d, entry_starts_local,
+                     params: "SNPParams"):
+        k, counts, match, mismatch = self._cur
+        own = int(self.owned[k])
+        last = k == len(self.bases) - 1
+        if not last:
+            # the overlap tail, for the next chunk's head
+            t0, t1 = own, min(own + self.overlap, counts.shape[0])
+            self._pending_tail = (counts[t0:t1].clone(),
+                                  match[t0:t1].clone(),
+                                  mismatch[t0:t1].clone())
+        es32 = torch.as_tensor(np.asarray(entry_starts_local, np.int32),
+                               device=genome_d.device)
+        n_pad = int(counts.shape[0])
+        n = int(self.slice_lens[k])
+        flank = C_SNP_BKGND_RATE_WINDOW // 2
+        SEG = SNP_SEGMENT
+        if n_pad <= SEG:
+            segs = [(0, 0, n_pad)]         # (slice_start, core_lo, core_hi)
+            W = n_pad
+        else:
+            W = SEG + 2 * flank
+            segs = []
+            for s0 in range(0, n_pad, SEG):
+                a = min(max(0, s0 - flank), n_pad - W)
+                segs.append((a, s0 - a, min(s0 + SEG, n_pad) - a))
+        ent_m_acc = ent_mm_acc = None
+        for a, clo, chi in segs:
+            (idx, ccounts, tot, nonref, win_m, win_mm, ent_m,
+             ent_mm) = _seg_candidates(
+                counts[a : a + W], match[a : a + W], mismatch[a : a + W],
+                genome_d[a : a + W], es32, a, params.min_snp_reads,
+                params.snp_nonref_pcnt, min(self.cap, W), clo, chi)
+            gidx = idx + a
+            keep = (idx < W) & (gidx < min(own, n))
+            for j in np.nonzero(keep)[0]:
+                self.cand_rows.append((
+                    int(self.bases[k] + gidx[j]), ccounts[j], int(tot[j]),
+                    int(nonref[j]), int(win_m[j]), int(win_mm[j]),
+                ))
+            ent_m_acc = ent_m if ent_m_acc is None else ent_m_acc + ent_m
+            ent_mm_acc = (ent_mm if ent_mm_acc is None
+                          else ent_mm_acc + ent_mm)
+        self.ent_m = (ent_m_acc if self.ent_m is None
+                      else self.ent_m + ent_m_acc)
+        self.ent_mm = (ent_mm_acc if self.ent_mm is None
+                       else self.ent_mm + ent_mm_acc)
+        self._cur = None
+
+    def finalize_calls(self, genome_codes_by_entry, entry_names,
+                       entry_starts, params: "SNPParams"):
+        """Host tail: per-candidate binomial p-values with per-entry
+        global rate floors (same math as call_snps)."""
+        starts = np.asarray(entry_starts)
+        calls = []
+        gl_rate = {}
+        for e in range(len(entry_names)):
+            tm = int(self.ent_m[e]) if self.ent_m is not None else 0
+            tmm = int(self.ent_mm[e]) if self.ent_mm is not None else 0
+            gl_rate[e] = max(C_MIN_SEQ_ERR_RATE, tmm / (1 + tm + tmm))
+        for g, cnts, tot, nonref, win_m, win_mm, in self.cand_rows:
+            e = int(np.searchsorted(starts, g, side="right")) - 1
+            loc_tmm = max(win_mm - nonref, 0)
+            loc_tm = max(win_m - (tot - nonref), 0)
+            denom = loc_tmm + loc_tm
+            rate = (gl_rate[e] if denom == 0
+                    else max(loc_tmm / max(denom, 1), gl_rate[e]))
+            if rate > C_MAX_BKGD_NOISE_THRES:
+                continue
+            loci = g - int(starts[e])
+            ref = int(genome_codes_by_entry(e, loci))
+            pv = float(1.0 - _binom.cdf(nonref, tot, rate))
+            calls.append(SNPCall(
+                chrom=entry_names[e], loci=loci, ref_base=ref,
+                tot_bases=tot, nonref=nonref, base_cnts=cnts.copy(),
+                pvalue=pv, bkgnd_rate=rate,
+                win_bases=int(loc_tm + loc_tmm), win_mm=int(loc_tmm),
+            ))
+        return apply_bh_fdr(calls, params.qvalue)
 
 
 @dataclass

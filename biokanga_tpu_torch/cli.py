@@ -2,7 +2,8 @@
 and PacBio `ecreads`.
 
 Usage:  python -m biokanga_tpu_torch index -i ref.fa -o ref.npz \
-            [-m 0|2 -s <Mbp> --lut-bases 0 -q runs.db]
+            [-m 0|2 -s <Mbp> --lut-bases 0 --chunks 0
+             --chunk-overlap 2048 -q runs.db]
         python -m biokanga_tpu_torch align -i reads.fq -I ref.npz \
             -o out.sam|out.bam [--device cuda]
             [-O snps.csv --snpvcf --disnp --trisnp --snpcentroid -p -P]
@@ -23,10 +24,14 @@ explicit: `--device cuda` (the default) raises when CUDA is absent, and
 `--device cpu` runs the kernels' plain versions; the SNP pileup and the
 indel and splice scans run on the index's device.  Paired ends come as
 `-u` mate files beside `-i`, or as one PE-interleaved `.rds` container;
-as in the JAX CLI they take none of the single-end passes.  Bisulfite,
-colorspace and chunked indexes are not in this package yet: `index`
-refuses `-m 1`, `-C` and `--chunks`, and `align` refuses such index
-files.
+as in the JAX CLI they take none of the single-end passes.  `index
+--chunks N` (and any genome of 2^31 bases or more) writes a genome-range
+chunked index; `align` against it sweeps the chunks and merges exactly,
+for single ends (with -a -A -O --checkpoint-dir) and pairs, and ignores
+what the JAX CLI's chunked branch ignores.  Reads past 4,096 bases align
+on the dense extension path.  Bisulfite and colorspace indexes are not in
+this package yet: `index` refuses `-m 1` and `-C`, and `align` refuses
+such index files.
 """
 from __future__ import annotations
 
@@ -79,8 +84,11 @@ def cmd_index(argv: list[str]) -> int:
                    help="prefix LUT width in bases (0 = auto: 10 for "
                         "genomes <= 20 Mbp, else 12)")
     p.add_argument("--chunks", type=int, default=0,
-                   help="genome-range chunks: not ported yet (a genome of "
-                        "2^31 bases or more needs them)")
+                   help="force this many genome-range chunks; 0 = auto "
+                        "(chunked only from 2^31 bases)")
+    p.add_argument("--chunk-overlap", type=int, default=2048,
+                   help="chunk slice overlap in bases; must cover the "
+                        "longest alignment window (PE: >= pairmaxlen)")
     p.add_argument("-q", "--sumrslts", default=None,
                    help="log experiment/params/results to this SQLite DB")
     p.add_argument("-F", "--log", default=None)
@@ -92,9 +100,6 @@ def cmd_index(argv: list[str]) -> int:
     if args.mode == 0 and args.colorspace:
         p.error("-C: colorspace indexes are not ported yet (ROADMAP.md, "
                 "queue 1, item 5)")
-    if args.mode == 0 and args.chunks > 0:
-        p.error("--chunks: chunked indexes are not ported yet (ROADMAP.md, "
-                "queue 1, item 4)")
     log = open_diagnostics(args.log, name="biokanga-tpu-torch")
     sw = StopWatch()
     from .index.build import build_index, save_index
@@ -121,10 +126,23 @@ def cmd_index(argv: list[str]) -> int:
         for path in args.infasta:
             seqs.extend((r.name, r.codes) for r in read_seqs(path))
         total = sum(len(s) for _, s in seqs)
-        if total >= 2**31:
-            p.error(f"a genome of {total} bases (2^31 or more) needs a "
-                    f"chunked index, not ported yet (ROADMAP.md, queue 1, "
-                    f"item 4)")
+        if args.chunks > 0 or total >= 2**31:
+            from .index.chunked import build_chunked_index, save_chunked_index
+
+            nchunks = args.chunks or -(-total // ((1 << 31) - 2**20))
+            ci = build_chunked_index(
+                seqs, num_chunks=nchunks, overlap=args.chunk_overlap,
+                lut_bases=args.lut_bases or 12,
+            )
+            log.info(
+                "chunk-indexed %d entries, %d bp total across %d chunks "
+                "in %.1fs", len(ci.entry_names), ci.total_len,
+                ci.num_chunks, sw.mark("build"),
+            )
+            save_chunked_index(ci, args.out)
+            log.info("chunked index written to %s (%.1fs)", args.out,
+                     sw.elapsed())
+            return 0
         idx = build_index(seqs, lut_bases=auto_lut(total))
     log.info(
         "indexed %d entries, %d bp total in %.1fs",
@@ -239,9 +257,6 @@ def cmd_align(argv: list[str]) -> int:
     if is_bisulfite_index(args.sfx):
         p.error(f"{args.sfx}: bisulfite indexes are not ported yet "
                 f"(ROADMAP.md, queue 1, item 5)")
-    if is_chunked_index(args.sfx):
-        p.error(f"{args.sfx}: chunked indexes are not ported yet "
-                f"(ROADMAP.md, queue 1, item 4)")
 
     def _input_blocks(path, mate=None):
         """FASTA/FASTQ or packed .rds container."""
@@ -262,6 +277,11 @@ def cmd_align(argv: list[str]) -> int:
 
             sam_to_bam(args.out, bam_out)
             os.remove(args.out)
+
+    if is_chunked_index(args.sfx):
+        _align_chunked(args, device, _input_blocks, log, sw)
+        finish_bam()
+        return 0
 
     idx = load_index(args.sfx)
     if idx.space == "color":
@@ -560,6 +580,143 @@ def _align_single(args, engine, idx, constraints, input_blocks, log,
         log.info("called %d SNPs -> %s", len(calls), args.snpfile)
     return {"total": n_total, "unique": n_unique, "multi": n_multi,
             "unaligned": n_none}
+
+
+def _align_chunked(args, device, input_blocks, log, sw) -> None:
+    """`align` against a genome-range chunked index
+    (biokanga_tpu/cli.py:314-468): chunk sweeps with an exact merge.  As
+    in the JAX CLI, this branch takes -s -e -R -m -Q --batch-size, the
+    mate files with -d -D -E, and for single ends -a -A, -O with -p -P
+    --snpnonrefpcnt, and --checkpoint-dir; it ignores every other
+    option (no insert CSV, side files but the SNP CSV, post-passes, trims
+    or -q rows)."""
+    from .align.params import AlignParams, Sensitivity
+    from .align.pipeline import pad_rows
+    from .align.sam import write_alignments_sam
+    from .index.chunked import load_chunked_index
+    from .parallel.chunked import ChunkedAligner
+
+    ci = load_chunked_index(args.sfx)
+    log.info("chunked index loaded: %d bp, %d entries, %d chunks (%.1fs)",
+             ci.total_len, len(ci.entry_names), ci.num_chunks,
+             sw.mark("load"))
+    params = AlignParams(
+        max_subs_per100=args.substitutions,
+        min_edit_dist=args.editdelta, max_multi=args.maxmulti,
+        mode=Sensitivity(args.mode), strand=args.strand,
+        batch_size=args.batch_size,
+    )
+    ca = ChunkedAligner(ci, params, device)
+    if args.pair:
+        from .align.pe import PEParams
+        from .align.sam import write_pe_sam
+        from .parallel.chunked import ChunkedPEAligner
+
+        pea = ChunkedPEAligner(ca, PEParams(
+            pair_min_len=args.pairminlen,
+            pair_max_len=args.pairmaxlen,
+            pair_same_strand=args.pairstrand,
+        ))
+        n_pairs = n_proper = 0
+        with open(args.out, "w") as out:
+            first = True
+            for p1, p2 in zip(args.inreads, args.pair):
+                for blk1, blk2 in zip(input_blocks(p1), input_blocks(p2)):
+                    r1, l1 = pad_rows(blk1.codes, blk1.lengths)
+                    r2, l2 = pad_rows(blk2.codes, blk2.lengths)
+                    res = pea.align_pairs(r1, l1, r2, l2)
+                    nb = len(blk1.names)
+                    sub = lambda d: {
+                        k: (v[:nb] if hasattr(v, "__len__") else v)
+                        for k, v in d.items()
+                    }
+                    write_pe_sam(
+                        out, ci.entry_names, ci.entry_starts,
+                        blk1.names, blk1.codes, blk1.lengths,
+                        blk2.names, blk2.codes, blk2.lengths,
+                        {"res1": sub(res["res1"]), "res2": sub(res["res2"]),
+                         "proper": res["proper"][:nb],
+                         "insert": res["insert"][:nb]},
+                        write_header=first,
+                    )
+                    first = False
+                    n_pairs += nb
+                    n_proper += int(res["proper"][:nb].sum())
+        log.info("chunk-aligned %d pairs: %d proper (%.2f%%) in %.1fs",
+                 n_pairs, n_proper, 100.0 * n_proper / max(n_pairs, 1),
+                 sw.elapsed())
+        return
+    # SE: chunk-major streaming over all blocks
+    blocks, names_list = [], []
+    for path in args.inreads:
+        for blk in input_blocks(path):
+            blocks.append(pad_rows(blk.codes, blk.lengths))
+            names_list.append((blk.names, blk.codes, blk.lengths))
+    results = ca.align_blocks(blocks, checkpoint_dir=args.checkpoint_dir)
+    if args.microindellen or args.splicejunctlen:
+        from .parallel.chunked import ChunkedExtendedAligner
+
+        cea = ChunkedExtendedAligner(ca, args.microindellen,
+                                     args.splicejunctlen)
+        log.info("chunked indel/splice fall-through rescued %d reads",
+                 cea.fallthrough_blocks(blocks, results))
+    n_total = n_unique = 0
+    with open(args.out, "w") as out:
+        first = True
+        for (names, codes0, lens0), res in zip(names_list, results):
+            write_alignments_sam(out, ci.entry_names, ci.entry_starts,
+                                 names, codes0, lens0, res,
+                                 write_header=first)
+            first = False
+            n_total += len(names)
+            n_unique += int(res["unique"][: len(names)].sum())
+    if args.snpfile:
+        _chunked_snps(args, ci, ca, blocks, results, log)
+    log.info("chunk-aligned %d reads: %d unique (%.2f%%) in %.1fs",
+             n_total, n_unique, 100.0 * n_unique / max(n_total, 1),
+             sw.elapsed())
+
+
+def _chunked_snps(args, ci, ca, blocks, results, log) -> None:
+    """`-O` on a chunked index: a second chunk sweep piles up each chunk's
+    accepted reads on the device and compacts candidates there
+    (align/snp.ChunkedPileup); only the SNP CSV is written, as in the JAX
+    CLI."""
+    from .align.pe import _orient_mates
+    from .align.snp import ChunkedPileup, SNPParams, write_snps_csv
+    from .parallel.chunked import chunk_of
+
+    sp = SNPParams(
+        min_snp_reads=args.minsnpreads,
+        snp_nonref_pcnt=args.snpnonrefpcnt / 100.0,
+        qvalue=args.qvalue,
+    )
+    cp = ChunkedPileup(ci.bases, [c.total_len for c in ci.chunks], ci.owned,
+                       ci.overlap)
+    for k in range(ci.num_chunks):
+        eng = ca.engine_for(k)
+        genome = eng.didx.genome
+        cp.start_chunk(k, int(genome.shape[0]), genome.device)
+        esl = np.clip(ci.entry_starts - ci.bases[k], 0,
+                      ci.chunks[k].total_len)
+        for (codes, lens), res in zip(blocks, results):
+            acc = res["unique"] & (chunk_of(ci.bases, res["locus"]) == k)
+            if not acc.any():
+                continue
+            aligned = _orient_mates(codes, lens, res["is_rc"] & acc)
+            cp.add_batch(genome, (res["locus"] - ci.bases[k]).astype(np.int64),
+                         aligned, lens, acc)
+        cp.finish_chunk(genome, esl, sp)
+
+    def ref_base(e, loci):
+        g = int(ci.entry_starts[e]) + int(loci)
+        kk = int(chunk_of(ci.bases, g))
+        return int(ci.chunks[kk].codes[g - int(ci.bases[kk])])
+
+    calls = cp.finalize_calls(ref_base, ci.entry_names, ci.entry_starts, sp)
+    write_snps_csv(args.snpfile, calls)
+    log.info("chunked SNP calling: %d accepted calls -> %s", len(calls),
+             args.snpfile)
 
 
 def _align_pairs(args, engine, idx, input_blocks, pe_mates, log, sw) -> int:

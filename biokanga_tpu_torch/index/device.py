@@ -32,11 +32,11 @@ class DeviceIndex:
     lut: torch.Tensor           # (4^P + 1,) int32
     lut_bases: int
     entry_names: list[str]
-    packed: PackedGenome
+    packed: PackedGenome | None  # None: the engine takes the dense path
     # ceil(log2(max LUT bucket + 1)) + 1 — binary-search trip bound
     max_bsearch_steps: int = 31
     # chunk ownership limit: alignments start below it; None = all owned
-    owned: torch.Tensor | None = None
+    owned: int | None = None
 
     @property
     def total_len(self) -> int:
@@ -62,8 +62,11 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.require(a, dtype, ["C", "W"])).to(device)
 
 
-def to_device(idx: GenomeIndex, device: torch.device) -> DeviceIndex:
-    """Move a host GenomeIndex to `device`, packing the genome rows."""
+def to_device(idx: GenomeIndex, device: torch.device,
+              pack: bool = True) -> DeviceIndex:
+    """Move a host GenomeIndex to `device`, packing the genome rows unless
+    `pack` is False (then `packed` is None and the engine extends on the
+    dense path, ops/extend.py)."""
     device = torch.device(device)
     return DeviceIndex(
         genome=_tensor(idx.codes, np.int8, device),
@@ -75,7 +78,7 @@ def to_device(idx: GenomeIndex, device: torch.device) -> DeviceIndex:
         lut=_tensor(idx.lut, np.int32, device),
         lut_bases=idx.lut_bases,
         entry_names=list(idx.entry_names),
-        packed=pack_genome(np.asarray(idx.codes), device),
+        packed=pack_genome(np.asarray(idx.codes), device) if pack else None,
         max_bsearch_steps=_bsearch_steps(np.asarray(idx.lut)),
     )
 

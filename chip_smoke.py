@@ -87,9 +87,38 @@ Phases, each of which raises on failure:
      rows of a run with -x -y -k --min-accept-len --minflankexacts
      --pcrprimersubs --lociconstraints -Y --checkpoint-dir (once on the
      CPU, twice on the card, the second resuming), and a PE BAM, each
-     byte for byte between --device cpu and --device cuda.
+     byte for byte between --device cpu and --device cuda;
+ 16. the chunked CLI: `index --chunks 4 --chunk-overlap 2048` of the 4.6
+     Mbp genome, then 65,536 reads of phase 14's kind from the SNP sample
+     (seed 16) with `align -a 10 -A 50000 -O`, and 65,536 pairs from it
+     with `align -u -d 100 -D 600 --peinsertdist`, with --device cuda
+     (kernels #1-#3 counted) and --device cpu (child processes): SAM and
+     SNP CSV byte for byte, and no insert CSV from either, as from the
+     JAX CLI's chunked branch;
+ 17. long reads: 1,024 reads of 10,000 bp (past the packed extension's
+     4,096) through `align` on the 4.6 Mbp index, the dense extension
+     path, each of its calls timed with its peak memory, the SAM byte for
+     byte with a --device cpu child's and every read at its origin; then
+     LongReadAligner on 64 reads of 100 kb (30 substitutions each, every
+     other one reverse-complemented) on the card and on the CPU, dicts
+     equal and every read at its origin;
+ 18. the big genome: 3.0 Gbp of random sequence in 24 entries made on the
+     card from a seed (scripts/bench_3gbp.py's layout), 262,144 pairs of
+     2 x 100 bp (1% substitutions, inserts 200-500; every 97th pair with
+     a seed-dead second mate), DeviceBuildChunkedAligner(max_chunk=
+     256,000,000, overlap=2,048, lut_bases=13): 12 chunks each built on
+     the card twice, two_level_chunk_sweep over blocks of 32,768, then
+     classification and the orphan rescue grouped by the anchor's chunk;
+     the set-up, each chunk build, the fast and classic cycles, the
+     rescue, pairs/s and the peak device memory, with kernels #1-#3
+     counted; >= 99% of pairs proper, >= 99% of those with both mates at
+     their origin, and mates placed past 2^31.
+Phases 16 and 17 run on the card right after phase 6; their --device
+cpu child processes go on beside phases 7-15 and 18 and are compared
+after phase 18.
 Phase 3 also holds the extension kernel at the orphan rescue's shape
 (2,048 windows of 500 consecutive loci, some off the genome's ends).
+The kernels line gives #1-#3 their launches on every path above.
 The last two lines are a JSON object per kernel and the result line.
 Exits non-zero without CUDA or outside the repository.  Needs one card.
 
@@ -178,6 +207,26 @@ PARITY_GENOME = [("chr1", 30_000), ("chr2", 20_000)]
 PARITY_READS = 10_000                  # 20x
 PARITY_SNP_EVERY = 1_200               # 40 planted SNPs
 PARITY_PAIRS = 2_000
+
+# chunked CLI (phase 16): the SE options cell's sample through an index of
+# four chunks, card against CPU
+CHUNKED_CHUNKS = 4
+CHUNKED_SE_READS = 65_536
+CHUNKED_PE_PAIRS = 65_536
+CHUNKED_SE_FLAGS = ["-a", "10", "-A", "50000"]
+# long reads (phase 17): the dense extension, then segments and stitching
+LONG_READS, LONG_LEN, LONG_SUB_RATE = 1_024, 10_000, 0.002
+LR_READS, LR_LEN, LR_SUBS = 64, 100_000, 30
+# the big genome (phase 18): scripts/bench_3gbp.py's layout and chunks
+BIG_GENOME_BP = 3_000_000_000
+BIG_ENTRIES = 24
+BIG_MAX_CHUNK = 256_000_000
+BIG_OVERLAP = 2_048
+BIG_LUT_BASES = 13
+BIG_CHUNKS = 12
+BIG_PAIRS = 262_144
+BIG_BLOCK = 32_768
+BIG_ORPHAN_EVERY = 97
 
 # least-time bounds (NVIDIA H100 SXM data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
@@ -2031,6 +2080,471 @@ def options_parity():
           f"({len(pe['cpu'][0])} bytes)")
 
 
+def _cpu_child(argv, tag: str):
+    """`python -m biokanga_tpu_torch <argv> --device cpu` as a child
+    process that sees no card, beside the phases that follow."""
+    import atexit
+    import os
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    err = open(WORK / f"{tag}.err", "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "biokanga_tpu_torch", *argv, "--device",
+         "cpu"], cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=err)
+    err.close()
+    atexit.register(lambda: proc.poll() is None and (proc.kill(),
+                                                     proc.wait()))
+    return proc
+
+
+def _wait_child(proc, tag: str) -> None:
+    if proc.wait() != 0:
+        raise AssertionError(f"{tag} --device cpu rc={proc.returncode}: "
+                             f"{(WORK / f'{tag}.err').read_text()[-2000:]}")
+
+
+def _timed_cli(argv) -> float:
+    """Wall seconds of `python -m biokanga_tpu_torch <argv>` in process,
+    between two device synchronisations; raises on a non-zero exit."""
+    import torch
+
+    from biokanga_tpu_torch import cli
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"{' '.join(argv[:3])} rc={rc}")
+    return time.monotonic() - t0
+
+
+def chunked_cli_start(seqs) -> dict:
+    """Phase 16, first half: `index --chunks 4` of the 4.6 Mbp genome, the
+    SE options cell's sample (seed 16) read as 65,536 single reads with
+    indel, junction and junk-tailed reads, and as 65,536 pairs; `align
+    -a 10 -A 50000 -O` and `align -u -d 100 -D 600` on the chunked index.
+    The --device cpu runs start as child processes; the --device cuda
+    runs follow in process, with kernels #1-#3 counted."""
+    from biokanga_tpu_torch import cli
+    from biokanga_tpu_torch.sim.simreads import simulate_reads
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import options_reads as opt
+
+    t0 = time.monotonic()
+    if cli.main(["index", "-i", str(WORK / "ref.fa"), "-o",
+                 str(WORK / "ck.npz"), "--chunks", str(CHUNKED_CHUNKS),
+                 "--chunk-overlap", "2048", "--lut-bases", "10"]) != 0:
+        raise AssertionError("index --chunks failed")
+    index_s = time.monotonic() - t0
+    names, reads, *_ = _options_data(seqs, CHUNKED_SE_READS, OPT_SNP_EVERY,
+                                     16, BATCH)
+    _write_fastq(WORK / "ck_se.fq", names, reads)
+    sample, _ = opt.plant_snps(seqs, OPT_SNP_EVERY,
+                               np.random.default_rng(16))
+    pn, pr, _ = simulate_reads(sample, CHUNKED_PE_PAIRS, read_len=READ_LEN,
+                               sub_rate=0.01, seed=17, pe=True,
+                               insert_min=PE_INSERT[0],
+                               insert_max=PE_INSERT[1])
+    _write_pairs("ck_pe", pn, pr, CHUNKED_PE_PAIRS)
+    setup_s = time.monotonic() - t0
+    runs = {}
+    for kind, inputs, flags in (
+            ("se", ["-i", str(WORK / "ck_se.fq")],
+             [*CHUNKED_SE_FLAGS, "-O", "SNPS"]),
+            ("pe", ["-i", str(WORK / "ck_pe1.fq"), "-u",
+                    str(WORK / "ck_pe2.fq")],
+             [*PE_FLAGS, "--peinsertdist", "INS"])):
+        argv = {}
+        for d in ("cpu", "cuda"):
+            side = {"SNPS": WORK / f"ck_{kind}_{d}_snps.csv",
+                    "INS": WORK / f"ck_{kind}_{d}_ins.csv"}
+            for f in side.values():
+                f.unlink(missing_ok=True)
+            argv[d] = ["align", *inputs, "-I", str(WORK / "ck.npz"), "-o",
+                       str(WORK / f"ck_{kind}_{d}.sam"), "--batch-size",
+                       str(BATCH), *[str(side.get(a, a)) for a in flags]]
+        runs[kind] = {"proc": _cpu_child(argv["cpu"], f"ck_{kind}_cpu")}
+        runs[kind]["argv"] = argv["cuda"]
+    for kind, run in runs.items():
+        _reset_align_launches()
+        run["wall"] = _timed_cli(run["argv"] + ["--device", "cuda"])
+        run["launches"] = _align_launches()
+        if min(run["launches"].values()) < 1:
+            raise AssertionError(f"chunked {kind}: launches "
+                                 f"{run['launches']}")
+    print(f"chunked CLI: `index --chunks {CHUNKED_CHUNKS}` of the 4.6 Mbp "
+          f"genome in {index_s:.2f} s (data set-up {setup_s:.1f} s); "
+          f"{CHUNKED_SE_READS} SE reads `align {' '.join(CHUNKED_SE_FLAGS)} "
+          f"-O --device cuda` wall {runs['se']['wall']:.2f} s, launches "
+          f"{runs['se']['launches']}; {CHUNKED_PE_PAIRS} pairs `align -u "
+          f"{' '.join(PE_FLAGS)} --device cuda` wall "
+          f"{runs['pe']['wall']:.2f} s, launches {runs['pe']['launches']}")
+    return runs
+
+
+def chunked_cli_finish(runs) -> None:
+    """Phase 16, second half: the --device cpu runs' SAM and SNP CSV byte
+    for byte against the card's.  The chunked branch, like the JAX
+    CLI's, writes no insert CSV."""
+    for kind, run in runs.items():
+        _wait_child(run["proc"], f"ck_{kind}_cpu")
+    for name in ("ck_se_{}.sam", "ck_se_{}_snps.csv", "ck_pe_{}.sam"):
+        a, b = (WORK / name.format("cpu")).read_bytes(), \
+            (WORK / name.format("cuda")).read_bytes()
+        if a != b:
+            raise AssertionError(f"chunked CLI: {name.format('*')} differs "
+                                 f"between --device cpu and cuda")
+    if any((WORK / f"ck_pe_{d}_ins.csv").exists() for d in ("cpu", "cuda")):
+        raise AssertionError("the chunked PE branch wrote an insert CSV")
+    se = [r.split("\t") for r in _records(WORK / "ck_se_cuda.sam")]
+    n_calls = (WORK / "ck_se_cuda_snps.csv").read_text().count("\n") - 1
+    ops = sum(any(c in r[5] for c in "DIN") for r in se)
+    proper, at_origin = _pe_origin_fractions(WORK / "ck_pe_cuda.sam",
+                                             CHUNKED_PE_PAIRS)
+    print(f"chunked CLI: --device cpu == --device cuda byte for byte: SE "
+          f"SAM ({sum(r[4] == '60' for r in se)} of {len(se)} reads unique, "
+          f"{ops} with an indel or junction CIGAR), SNP CSV ({n_calls} "
+          f"calls), PE SAM (proper {proper:.6f}, both mates at origin "
+          f"{at_origin:.6f}); no insert CSV from either, as from the JAX "
+          f"CLI's chunked branch")
+    if n_calls < 1 or ops < 100 or proper < MIN_TRUE_FRACTION:
+        raise AssertionError(f"chunked CLI: {n_calls} SNP calls, {ops} "
+                             f"CIGAR ops, proper {proper:.4%}")
+
+
+def _long_read_set(g: np.ndarray):
+    """LR_READS reads of LR_LEN bases from `g`, LR_SUBS substitutions
+    each, every other one reverse-complemented."""
+    from biokanga_tpu_torch.seq.encode import revcomp
+
+    rng = np.random.default_rng(19)
+    starts = rng.integers(0, len(g) - LR_LEN, LR_READS)
+    reads = np.stack([g[s:s + LR_LEN] for s in starts]).copy()
+    for i, r in enumerate(reads):
+        mut = rng.choice(LR_LEN, LR_SUBS, replace=False)
+        r[mut] = (r[mut] + rng.integers(1, 4, LR_SUBS)) % 4
+        if i % 2:
+            reads[i] = revcomp(r)
+    return reads, starts
+
+
+def long_reads_start(seqs):
+    """Phase 17, first half: LONG_READS reads of LONG_LEN bases (past the
+    packed extension's 4,096) against the SE cell's index with `align`,
+    the dense extension path; the --device cpu run is a child process.
+    On the card, each dense extension call is timed between two
+    synchronisations with its own peak memory."""
+    import torch
+
+    from biokanga_tpu_torch.align import pipeline
+    from biokanga_tpu_torch.sim.simreads import simulate_reads
+
+    names, reads, _ = simulate_reads(seqs, LONG_READS, read_len=LONG_LEN,
+                                     sub_rate=LONG_SUB_RATE, seed=18)
+    _write_fastq(WORK / "dense.fq", names, reads)
+    argv = {d: ["align", "-i", str(WORK / "dense.fq"), "-I",
+                str(WORK / "ref.npz"), "-o", str(WORK / f"dense_{d}.sam"),
+                "--batch-size", str(LONG_READS)] for d in ("cpu", "cuda")}
+    proc = _cpu_child(argv["cpu"], "dense_cpu")
+    calls = []
+    dense = pipeline.hamming_extend
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        out = dense(*args)
+        torch.cuda.synchronize()
+        calls.append((time.monotonic() - t0,
+                      torch.cuda.max_memory_allocated() - base,
+                      int(args[3].sum())))
+        return out
+
+    pipeline.hamming_extend = timed
+    _reset_align_launches()
+    try:
+        wall = _timed_cli(argv["cuda"] + ["--device", "cuda"])
+    finally:
+        pipeline.hamming_extend = dense
+    return {"proc": proc, "wall": wall, "calls": calls,
+            "launches": _align_launches()}
+
+
+def long_reads_finish(run, seqs, dev, smi) -> dict:
+    """Phase 17, second half: the --device cpu SAM byte for byte, every
+    read unique at its origin; then LongReadAligner on LR_READS reads of
+    LR_LEN bases on the card and on the CPU, dicts equal, every read at
+    its origin.  Returns the launches of #1-#3 in the phase's card runs."""
+    import torch
+
+    from biokanga_tpu_torch.align.longread import LongReadAligner
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.align.pipeline import AlignEngine
+    from biokanga_tpu_torch.index.build import load_index
+    from biokanga_tpu_torch.index.device import to_device
+
+    _wait_child(run["proc"], "dense_cpu")
+    sam = (WORK / "dense_cuda.sam").read_bytes()
+    if (WORK / "dense_cpu.sam").read_bytes() != sam:
+        raise AssertionError("long reads: SAM differs cpu vs cuda")
+    frac = _true_unique_fraction(WORK / "dense_cuda.sam", LONG_READS)
+    secs, peaks, cands = zip(*run["calls"])
+    print(f"long reads: {LONG_READS} x {LONG_LEN} bp `align --device cuda` "
+          f"wall {run['wall']:.2f} s, SAM == --device cpu byte for byte, "
+          f"unique at origin {frac:.6f}; dense extension: {len(secs)} "
+          f"calls (a strand a batch of {LONG_READS}), "
+          f"{', '.join(f'{1e3 * t:.3f}' for t in secs)} ms, valid "
+          f"candidates {list(cands)}, peak memory "
+          f"{max(peaks) / 2**20:.1f} MiB ({smi})")
+    if frac < 1.0:
+        raise AssertionError(f"long reads: {frac:.4%} at their origin")
+
+    idx = load_index(str(WORK / "ref.npz"))
+    reads, starts = _long_read_set(seqs[0][1])
+    lens = np.full(LR_READS, LR_LEN, np.int32)
+    out = {}
+    for d in ("cuda", "cpu"):
+        lr = LongReadAligner(AlignEngine(to_device(idx, torch.device(d)),
+                                         AlignParams()))
+        _reset_align_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out[d] = lr.align(reads, lens)
+        torch.cuda.synchronize()
+        out[d + "_s"] = time.monotonic() - t0
+        if d == "cuda":
+            launches = {k: v + run["launches"][k]
+                        for k, v in _align_launches().items()}
+    for k in ("unique", "locus", "is_rc", "best_mm"):
+        if not np.array_equal(out["cuda"][k], out["cpu"][k]):
+            raise AssertionError(f"LongReadAligner: {k} differs cpu/cuda")
+    r = out["cuda"]
+    ok = (r["unique"] & (r["locus"] == starts)
+          & (r["is_rc"] == (np.arange(LR_READS) % 2 == 1))
+          & (r["best_mm"] == LR_SUBS))
+    print(f"LongReadAligner: {LR_READS} x {LR_LEN} bp, {LR_SUBS} subs each: "
+          f"cuda {out['cuda_s']:.2f} s, cpu {out['cpu_s']:.2f} s, dicts "
+          f"equal, {int(ok.sum())} at their origin with their strand and "
+          f"substitutions; #1-#3 launches in phase 17's card runs "
+          f"{launches} ({smi})")
+    if not ok.all() or min(launches.values()) < 1:
+        raise AssertionError(f"LongReadAligner: {int(ok.sum())} placed, "
+                             f"launches {launches}")
+    return launches
+
+
+def _seed_stabs(params, genome_len: int) -> list[int]:
+    """Fewest read positions that hit every seed core of a READ_LEN-base
+    read, in the classic pass and in the fast pass (greedy interval
+    stabbing at each core's last base)."""
+    dp = params.derive(READ_LEN, genome_len)
+    cores = [(o, o + dp.core_len) for o in dp.offsets]
+    fp = params.derive_fast(READ_LEN, genome_len, BIG_LUT_BASES)
+    if fp is not None:
+        cores += [(o, o + fp.dp.core_len) for o in fp.dp.offsets]
+    stabs = []
+    for a, b in sorted(cores, key=lambda c: c[1]):
+        if not stabs or stabs[-1] < a:
+            stabs.append(b - 1)
+    return stabs
+
+
+def _big_genome(dev, n_bp: int, seed: int = 30):
+    """The big genome, made on the device from a seed and brought to the
+    host once: n_bp random bases in BIG_ENTRIES entries of equal length
+    (the last takes the rest), scripts/bench_3gbp.py's layout."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randint(0, 4, (n_bp,), generator=gen, device=dev,
+                      dtype=torch.int8).cpu().numpy()
+    per = n_bp // BIG_ENTRIES
+    bounds = [per * i for i in range(BIG_ENTRIES)] + [n_bp]
+    return [(f"chr{i + 1}", g[bounds[i]:bounds[i + 1]])
+            for i in range(BIG_ENTRIES)]
+
+
+def _rescue_by_chunk(ca, blocks, res1, res2, pe, dev) -> int:
+    """PE classification and orphan rescue grouped by the anchor's chunk
+    (scripts/bench_3gbp.py:121-196): each chunk that holds anchors gets
+    its packed rows alone (no suffix sort) and one windowed rescue of its
+    orphans' mates.  Updates res1/res2 in place; returns mates rescued."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from biokanga_tpu_torch.align.pe import PEAligner, classify_pairs
+    from biokanga_tpu_torch.parallel.chunked import chunk_of
+    from biokanga_tpu_torch.seq.encode import revcomp
+
+    nb = len(res1)
+    orphans = {}                       # chunk -> [(pair block, row, which)]
+    for pb in range(nb):
+        c = classify_pairs(res1[pb], res2[pb], blocks[pb][1],
+                           blocks[nb + pb][1], ca.entry_starts, pe)
+        for which, anch in ((1, res1[pb]), (2, res2[pb])):
+            rows = np.nonzero(c[f"orphan{which}"])[0]
+            ak = chunk_of(ca.bases, anch["locus"][rows])
+            for k in np.unique(ak):
+                orphans.setdefault(int(k), []).extend(
+                    (pb, int(r), which) for r in rows[ak == k])
+    n_rescued = 0
+    for k, items in sorted(orphans.items()):
+        _, pg, es_k = ca.packed_chunk(k)
+        didx = SimpleNamespace(packed=pg, device=dev,
+                               entry_starts=torch.from_numpy(
+                                   es_k.astype(np.int32)).to(dev))
+        pea = PEAligner(SimpleNamespace(didx=didx, params=ca.params), pe)
+        L = blocks[0][0].shape[1]
+        a_loc = np.empty(len(items), np.int64)
+        a_rc = np.empty(len(items), bool)
+        a_len = np.empty(len(items), np.int32)
+        m_reads = np.full((len(items), L), 4, np.int8)
+        m_len = np.empty(len(items), np.int32)
+        for j, (pb, r, which) in enumerate(items):
+            anch = res1[pb] if which == 1 else res2[pb]
+            a_blk, m_blk = ((blocks[pb], blocks[nb + pb]) if which == 1
+                            else (blocks[nb + pb], blocks[pb]))
+            a_loc[j] = anch["locus"][r] - int(ca.bases[k])
+            a_rc[j] = anch["is_rc"][r]
+            a_len[j] = a_blk[1][r]
+            m_len[j] = ml = m_blk[1][r]
+            row = m_blk[0][r, :ml]
+            # FR: the mate of a forward anchor is scanned as its revcomp
+            m_reads[j, :ml] = row if a_rc[j] else revcomp(row)
+        out = pea.rescue(a_loc.astype(np.int32), a_rc, a_len, m_reads, m_len)
+        for j in np.nonzero(out["ok"])[0]:
+            pb, r, which = items[j]
+            mres = res2[pb] if which == 1 else res1[pb]
+            mres["unique"][r] = True
+            mres["locus"][r] = int(out["locus"][j]) + int(ca.bases[k])
+            mres["is_rc"][r] = not a_rc[j]
+            mres["best_mm"][r] = out["mm"][j]
+            n_rescued += 1
+    return n_rescued
+
+
+def big_genome_cell(dev, smi, n_bp=BIG_GENOME_BP, n_pairs=BIG_PAIRS,
+                    max_chunk=BIG_MAX_CHUNK, block=BIG_BLOCK,
+                    n_chunks=BIG_CHUNKS) -> dict:
+    """Phase 18: PE reads against a genome past 2^31 bases on one card
+    (scripts/bench_3gbp.py's flow): DeviceBuildChunkedAligner builds each
+    chunk's index on the card, two_level_chunk_sweep runs the fast pass
+    per (chunk, block) and a classic cycle for the reads the merge leaves
+    unresolved, then classification and the orphan rescue by the anchor's
+    chunk.  Gates: PERF.md's PE bars, and mates placed past 2^31.
+    Returns the launches of #1-#3 in the run."""
+    import torch
+
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.align.pe import PEParams, classify_pairs
+    from biokanga_tpu_torch.align.pipeline import pad_rows
+    from biokanga_tpu_torch.index.device_build import (
+        DeviceBuildChunkedAligner,
+    )
+    from biokanga_tpu_torch.parallel.chunked import two_level_chunk_sweep
+    from biokanga_tpu_torch.sim.simreads import simulate_reads
+
+    t0 = time.monotonic()
+    seqs = _big_genome(dev, n_bp)
+    names, reads, truths = simulate_reads(
+        seqs, n_pairs, read_len=READ_LEN, sub_rate=0.01, seed=31, pe=True,
+        insert_min=PE_INSERT[0], insert_max=PE_INSERT[1])
+    del names
+    offs = dict(zip([nm for nm, _ in seqs],
+                    np.cumsum([0] + [len(s) for _, s in seqs])[:-1]))
+    origin = np.array([offs[t.chrom] + t.start - 1 for t in truths],
+                      np.int64).reshape(n_pairs, 2)
+    del truths
+    params = AlignParams(batch_size=block)
+    pe = PEParams(pair_min_len=100, pair_max_len=600)
+    ca = DeviceBuildChunkedAligner(seqs, params, max_chunk=max_chunk,
+                                   overlap=BIG_OVERLAP,
+                                   lut_bases=BIG_LUT_BASES, device=dev)
+    ca.time_builds = True
+    del seqs
+    # every BIG_ORPHAN_EVERY-th pair: a second mate with a substitution in
+    # each seed core of both passes (no seed hit; 7 substitutions at this
+    # genome's 14-base cores, within the budget of 10), an orphan that only
+    # the rescue places
+    kill = _seed_stabs(params, ca.pad_n)
+    mates = reads[1::2 * BIG_ORPHAN_EVERY]
+    mates[:, kill] = (mates[:, kill] + 1) % 4
+    reads[1::2 * BIG_ORPHAN_EVERY] = mates
+    lens = np.full(n_pairs, READ_LEN, np.int32)
+    blocks = [pad_rows(reads[m::2][i:i + block], lens[i:i + block])
+              for m in (0, 1) for i in range(0, n_pairs, block)]
+    del reads
+    setup_s = time.monotonic() - t0
+    if ca.num_chunks != n_chunks or ca.entry_starts[-1] != n_bp:
+        raise AssertionError(f"{ca.num_chunks} chunks of {n_bp} bases")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_align_launches()
+    marks = {}
+
+    def progress(phase, k):
+        marks[phase] = time.monotonic()
+
+    t0 = time.monotonic()
+    merged = two_level_chunk_sweep(ca, blocks, progress=progress)
+    t1 = time.monotonic()
+    nb = len(blocks) // 2
+    res1, res2 = merged[:nb], merged[nb:]
+    n_rescued = _rescue_by_chunk(ca, blocks, res1, res2, pe, dev)
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    launches = _align_launches()
+    peak = torch.cuda.max_memory_allocated()
+    builds = list(ca.build_s)
+    unresolved = len(builds) > n_chunks
+    starts = ca.entry_starts
+    ca._engine = None
+    del ca
+    torch.cuda.empty_cache()
+
+    proper = both = past = 0
+    for pb in range(nb):
+        c = classify_pairs(res1[pb], res2[pb], blocks[pb][1],
+                           blocks[nb + pb][1], starts, pe)
+        o = origin[pb * block:(pb + 1) * block]
+        n = len(o)
+        hit = [r["unique"][:n] & (r["locus"][:n] == o[:, m])
+               for m, r in enumerate((res1[pb], res2[pb]))]
+        pr = c["proper"][:n]
+        proper += int(pr.sum())
+        both += int((pr & hit[0] & hit[1]).sum())
+        past += sum(int((h & (o[:, m] >= 2**31)).sum())
+                    for m, h in enumerate(hit))
+    fast_s = marks["fast"] - t0
+    classic_s = t1 - marks["fast"]
+    gates = {"proper": proper / n_pairs, "both_at_origin":
+             both / max(proper, 1), "mates_at_origin_past_2^31": past}
+    print(f"big genome: {n_bp} bp in {BIG_ENTRIES} entries, "
+          f"{n_chunks} chunks of at most {max_chunk} bases (overlap "
+          f"{BIG_OVERLAP}, LUT {BIG_LUT_BASES} bases), {n_pairs} pairs of "
+          f"2 x {READ_LEN} bp in blocks of {block}; genome and reads set-up "
+          f"{setup_s:.1f} s; chunk device builds (s, fast cycle then "
+          f"classic cycle) {[round(b, 3) for b in builds]}; fast cycle "
+          f"{fast_s:.2f} s, classic cycle {classic_s:.2f} s "
+          f"({'ran' if unresolved else 'none unresolved'}); rescue "
+          f"{t2 - t1:.2f} s ({n_rescued} mates); {n_pairs / (t2 - t0):.1f} "
+          f"pairs/s ({2 * n_pairs / (t2 - t0):.1f} reads/s); peak device "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches}; gates "
+          f"{json.dumps(gates)} ({smi})")
+    if (gates["proper"] < MIN_TRUE_FRACTION
+            or gates["both_at_origin"] < MIN_TRUE_FRACTION
+            or (n_bp > 2**31 and past < 1) or min(launches.values()) < 1
+            or n_rescued < n_pairs // BIG_ORPHAN_EVERY // 2):
+        raise AssertionError(f"big genome: gates {gates}, launches "
+                             f"{launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2192,6 +2706,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("6")
 
+    # 16-17. the chunked CLI and long reads on the card; their --device cpu
+    # runs are child processes beside phases 7-15 and 18
+    ck_runs = chunked_cli_start(seqs)
+    lap("16")
+    long_run = long_reads_start(seqs)
+    lap("17")
+
     # 7. SW kernels at EC shapes, and #6 on a long pair
     sw_err, sw_timing = check_sw(dev, rng)
     errs.update(sw_err)
@@ -2236,12 +2757,22 @@ def main() -> int:
     # 14. the SE options cell: SNP calling, indels, junctions, chimeric
     # trims; kernels #1-#3 are counted again on this path
     opt_launches = se_options_cell(seqs, dev, smi)
-    del seqs
     lap("14")
 
     # 15. every SE option and PE BAM: the plain path against the card
     options_parity()
     lap("15")
+
+    # 18. the big genome; kernels #1-#3 are counted on this path
+    big_launches = big_genome_cell(dev, smi)
+    lap("18")
+
+    # 16-17, end: the CPU runs against the card's; LongReadAligner
+    chunked_cli_finish(ck_runs)
+    lap("16, end")
+    long_launches = long_reads_finish(long_run, seqs, dev, smi)
+    del seqs
+    lap("17, end")
 
     src = "biokanga_tpu_torch/csrc/"
     rows = [
@@ -2281,7 +2812,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src + path,
             "replaces": rep, "launches": launches[name],
             **({"launches_se_align": se_launches[name],
-                "launches_se_options": opt_launches[name]}
+                "launches_se_options": opt_launches[name],
+                "launches_chunked_se": ck_runs["se"]["launches"][name],
+                "launches_chunked_pe": ck_runs["pe"]["launches"][name],
+                "launches_long_reads": long_launches[name],
+                "launches_big_genome": big_launches[name]}
                if name in se_launches else {}),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": bound_ms,

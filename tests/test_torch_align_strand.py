@@ -8,8 +8,9 @@ import pytest
 import torch
 
 from biokanga_tpu.align.params import AlignParams
+from biokanga_tpu.align.pipeline import AlignEngine as JaxEngine
 from biokanga_tpu_torch.align.pipeline import AlignEngine
-from torch_align_data import build_setup, run_with_rescue
+from torch_align_data import assert_equal, build_setup, run_with_rescue
 
 torch.set_num_threads(2)
 
@@ -31,8 +32,21 @@ def test_single_strand_matches_jax(setup, strand, fast_pass, source):
 
 
 def test_long_reads_are_refused(setup):
-    _, indexes, _, _ = setup
-    engine = AlignEngine(indexes["to_device"], AlignParams())
-    reads = np.zeros((2, 4097), np.int8)
-    with pytest.raises(ValueError, match="4096"):
-        engine.align_batch(reads, np.full(2, 4097, np.int32))
+    """Reads past the packed extension's 4,096 bases are no longer
+    refused: they take the dense extension, with the JAX engine's result
+    (one strand each; two reads from the genome, one of N)."""
+    jd, indexes, _, _ = setup
+    g = indexes["to_device"].genome.numpy()
+    reads = np.stack([g[10_000:14_097], g[70_000:74_097],
+                      np.full(4_097, 4, np.int8)])
+    lengths = np.full(3, 4_097, np.int32)
+    for strand in ("sense", "antisense"):
+        ap = AlignParams(strand=strand)
+        want = JaxEngine(jd, ap).align_batch(reads, lengths)
+        got = AlignEngine(indexes["to_device"], ap).align_batch(reads,
+                                                                lengths)
+        assert_equal(got, want)
+    assert (want["unique"] == [False, False, False]).all()
+    sense = JaxEngine(jd, AlignParams(strand="sense")).align_batch(
+        reads, lengths)
+    assert sense["unique"][:2].all() and sense["locus"][1] == 70_000

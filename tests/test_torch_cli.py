@@ -186,43 +186,38 @@ def test_pe_sam_is_byte_identical_to_jax_cli(pairs, case, opts):
 
 @pytest.fixture(scope="module")
 def other_indexes(inputs):
-    """A bisulfite, a colorspace and a chunked index of the same genome,
-    built by the JAX CLI: the kinds of index the port refuses."""
+    """A bisulfite and a colorspace index of the same genome, built by the
+    JAX CLI: the kinds of index the port refuses."""
     d = inputs
-    for name, opts in (("bs", ["-m", "1"]), ("cs", ["-C"]),
-                       ("chunked", ["--chunks", "2"])):
+    for name, opts in (("bs", ["-m", "1"]), ("cs", ["-C"])):
         assert jax_main(["index", "-i", str(d / "ref.fa"), "-o",
                          str(d / f"{name}.npz"), "--lut-bases", "9"]
                         + opts) == 0
     return d
 
 
-@pytest.mark.parametrize("case", ["bisulfite", "colorspace", "chunked",
-                                  "index -m 1", "index -C",
-                                  "index --chunks"])
+@pytest.mark.parametrize("case", ["bisulfite", "colorspace",
+                                  "index -m 1", "index -C"])
 def test_what_stays_outside_the_slice_is_refused(other_indexes, case,
                                                  capsys):
-    """Bisulfite, colorspace and chunked indexes (ROADMAP.md queue 1,
-    items 4 and 5): `align` refuses such an index file and `index` the
-    options that would build one, with exit code 2 and the ROADMAP
-    item."""
+    """Bisulfite and colorspace indexes (ROADMAP.md queue 1, item 5):
+    `align` refuses such an index file and `index` the options that would
+    build one, with exit code 2 and the ROADMAP item.  (Chunked indexes
+    are ported: tests/test_torch_chunked.py.)"""
     d = other_indexes
-    idx = {"bisulfite": "bs", "colorspace": "cs", "chunked": "chunked"}
+    idx = {"bisulfite": "bs", "colorspace": "cs"}
     if case in idx:
         argv = ["align", "-i", str(d / "reads.fq"), "-I",
                 str(d / f"{idx[case]}.npz"), "-o", str(d / "x.sam"),
                 "--device", "cpu", "-O", str(d / "x.csv"), "-a", "5"]
-        item = "item 4" if case == "chunked" else "item 5"
     else:
-        flag = {"index -m 1": ["-m", "1"], "index -C": ["-C"],
-                "index --chunks": ["--chunks", "2"]}[case]
+        flag = {"index -m 1": ["-m", "1"], "index -C": ["-C"]}[case]
         argv = ["index", "-i", str(d / "ref.fa"), "-o", str(d / "x.npz")] \
             + flag
-        item = "item 4" if case == "index --chunks" else "item 5"
     with pytest.raises(SystemExit) as e:
         torch_main(argv)
     assert e.value.code == 2
-    assert f"queue 1, {item}" in capsys.readouterr().err
+    assert "queue 1, item 5" in capsys.readouterr().err
     assert not (d / "x.npz").exists() and not (d / "x.sam").exists()
 
 

@@ -11,9 +11,11 @@ tensors; the CLI's SAM with `--device cuda` must equal the SAM with
 `--device cpu` byte for byte on a repeat-rich genome, and so must the
 error-corrected FASTA, and the paired-end SAM with its insert-size CSV
 on pairs that need the orphan rescue, and the SAM and side files of
-`-O -a -A -C`; the consensus call breaks ties towards the first maximum
-on the card as on the CPU; the indel and splice scans and the SNP
-pileup on CUDA tensors equal them on CPU tensors.
+`-O -a -A -C`, and of the chunked-index `align` (SE with `-a -A -O`, PE,
+and 6 kb reads); the consensus call breaks ties towards the first maximum
+on the card as on the CPU; the indel and splice scans, the SNP pileup,
+the dense extension, the device index build of a padded chunk and the
+long-read aligner on CUDA tensors equal them on CPU tensors.
 """
 import numpy as np
 import pytest
@@ -758,3 +760,146 @@ def test_snp_indel_splice_cli_on_the_card_equals_cpu(cuda_device, tmp_path):
     cigars = "".join(r[5] for r in recs if r[4] == "60")
     assert all(op in cigars for op in "DINS")
     assert (tmp_path / "cpu_snps.csv").read_text().count("\n") > 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [100, 4_097, 10_000])
+def test_dense_extension_on_the_card_equals_cpu(cuda_device, L):
+    """ops/extend.hamming_extend on CUDA tensors, in slabs of a few
+    candidates and in one, against CPU tensors."""
+    from biokanga_tpu_torch.ops import extend
+
+    rng = np.random.default_rng(L)
+    n, B, C = 60_000, 40, 16
+    g = rng.integers(0, 4, n, dtype=np.int8)
+    g[rng.random(n) < 0.003] = 4
+    starts = np.array([0, 21_000, 21_100, n], np.int32)
+    lens = np.where(rng.random(B) < 0.3, L - 7, L).astype(np.int32)
+    origin = rng.integers(0, n - L, B)
+    reads = g[origin[:, None] + np.arange(L)].copy()
+    reads[rng.random(reads.shape) < 0.01] = 4
+    reads[np.arange(L)[None, :] >= lens[:, None]] = 4
+    loci = origin[:, None] + rng.integers(-2, 3, (B, C))
+    loci[:, -2:] = rng.choice([-9, n - 50, I32_MAX, 21_050], (B, 2))
+    valid = rng.random((B, C)) < 0.9
+    args = [torch.from_numpy(a) for a in (g, starts, loci.astype(np.int32),
+                                          valid, reads, lens)]
+    want = extend.hamming_extend(*args)
+    got = extend.hamming_extend(*(a.to(cuda_device) for a in args))
+    assert torch.equal(got.cpu(), want)
+    slab = extend.SLAB_BASES
+    try:
+        extend.SLAB_BASES = 5 * L
+        assert torch.equal(extend.hamming_extend(
+            *(a.to(cuda_device) for a in args)).cpu(), want)
+    finally:
+        extend.SLAB_BASES = slab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_n,with_keys", [(False, True), (True, False)])
+def test_device_build_on_the_card_equals_cpu(cuda_device, with_n, with_keys):
+    """device_build_index of an N-padded chunk slice on the card: keys,
+    order, LUT and packed rows equal the CPU build's."""
+    from biokanga_tpu_torch.index.device_build import device_build_index
+
+    rng = np.random.default_rng(3)
+    true_len, pad_n = 300_000, 300_160
+    codes = np.full(pad_n, 4, np.int8)
+    codes[:true_len] = rng.integers(0, 4, true_len)
+    if with_n:
+        codes[rng.choice(true_len, 300, replace=False)] = 4
+    es = np.array([0, 100_000, true_len], np.int64)
+    kw = dict(lut_bases=10, owned=290_000, true_len=true_len,
+              with_keys=with_keys)
+    a = device_build_index(codes, es, device="cpu", **kw)
+    b = device_build_index(codes, es, device=cuda_device, **kw)
+    for f in ("genome", "entry_starts", "pos_sorted", "key_hi", "key_lo",
+              "lut"):
+        assert torch.equal(getattr(b, f).cpu(), getattr(a, f)), f
+    assert torch.equal(b.packed.rows.cpu(), a.packed.rows)
+    assert (b.packed.n_rows is None) == (a.packed.n_rows is None) == \
+        (not with_n)
+    if with_n:
+        assert torch.equal(b.packed.n_rows.cpu(), a.packed.n_rows)
+    assert (b.packed.length, b.owned, b.max_bsearch_steps) == \
+        (a.packed.length, a.owned, a.max_bsearch_steps)
+
+
+@pytest.mark.cuda
+def test_chunked_cli_on_the_card_equals_cpu(cuda_device, tmp_path):
+    """`index --chunks 3`, then `align -a -A -O`, `align -u` and 6 kb
+    reads on the chunked index, --device cuda against --device cpu: SAM
+    and SNP CSV byte for byte."""
+    import options_reads as opt
+
+    from biokanga_tpu_torch.cli import main
+    from biokanga_tpu_torch.seq.fasta import write_fasta, write_fastq
+    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
+
+    rng = np.random.default_rng(21)
+    seqs = random_genome([("chrA", 60_000), ("chrB", 40_000)], seed=21)
+    write_fasta(str(tmp_path / "ref.fa"), seqs)
+    assert main(["index", "-i", str(tmp_path / "ref.fa"), "-o",
+                 str(tmp_path / "ck.npz"), "--chunks", "3", "--lut-bases",
+                 "8"]) == 0
+    sample, snps = opt.plant_snps(seqs, 1_000, rng)
+    names, reads, _ = simulate_reads(sample, 12_000, read_len=100,
+                                     sub_rate=0.002, seed=13)
+    events = opt.plan_events(seqs, 150, 150, snps, rng, spacing=100)
+    opt.alter_reads(names, reads, sample, events, rng, 0.05, 0.05, 0.02,
+                    block=12_000)
+    write_fastq(str(tmp_path / "se.fq"),
+                ((nm, rd, None) for nm, rd in zip(names, reads)))
+    pn, pr, _ = simulate_reads(sample, 2_000, read_len=100, sub_rate=0.01,
+                               seed=14, pe=True)
+    for m in (0, 1):
+        write_fastq(str(tmp_path / f"p{m + 1}.fq"),
+                    ((nm, rd, None) for nm, rd in zip(pn[m::2], pr[m::2])))
+    ln, lr, _ = simulate_reads(seqs, 64, read_len=6_000, sub_rate=0.002,
+                               seed=15)
+    write_fastq(str(tmp_path / "long.fq"),
+                ((nm, rd, None) for nm, rd in zip(ln, lr)))
+    runs = {"se": ["-i", "se.fq", "-a", "10", "-A", "5000", "-O", "SNPS"],
+            "pe": ["-i", "p1.fq", "-u", "p2.fq", "-d", "100", "-D", "600"],
+            "long": ["-i", "long.fq"]}
+    for kind, opts in runs.items():
+        for dev in ("cpu", "cuda"):
+            argv = [str(tmp_path / o) if o.endswith(".fq") else o
+                    for o in opts]
+            argv = [str(tmp_path / f"{kind}_{dev}_snps.csv")
+                    if o == "SNPS" else o for o in argv]
+            assert main(["align", *argv, "-I", str(tmp_path / "ck.npz"),
+                         "-o", str(tmp_path / f"{kind}_{dev}.sam"),
+                         "--batch-size", "4096", "--device", dev]) == 0
+        for f in (f"{kind}_{{}}.sam", f"{kind}_{{}}_snps.csv"):
+            if (tmp_path / f.format("cpu")).exists():
+                assert (tmp_path / f.format("cuda")).read_bytes() == \
+                    (tmp_path / f.format("cpu")).read_bytes(), f
+    assert (tmp_path / "se_cpu_snps.csv").read_text().count("\n") > 20
+
+
+@pytest.mark.cuda
+def test_long_read_aligner_on_the_card_equals_cpu(cuda_device):
+    from biokanga_tpu_torch.align.longread import LongReadAligner
+    from biokanga_tpu_torch.align.pipeline import AlignEngine
+    from biokanga_tpu_torch.index.build import build_index
+    from biokanga_tpu_torch.index.device import to_device
+    from biokanga_tpu_torch.sim.simreads import random_genome
+
+    seqs = random_genome([("chr1", 500_000)], seed=11)
+    idx = build_index(seqs, lut_bases=10)
+    g = seqs[0][1]
+    rng = np.random.default_rng(2)
+    L = 30_000
+    starts = rng.integers(0, len(g) - L, 6)
+    reads = np.stack([g[s:s + L] for s in starts]).copy()
+    reads[:, ::997] = (reads[:, ::997] + 1) % 4
+    lens = np.full(6, L, np.int32)
+    lens[5] = L - 3_333
+    out = {d: LongReadAligner(AlignEngine(to_device(idx, torch.device(d))))
+           .align(reads, lens) for d in ("cpu", "cuda")}
+    for k in ("unique", "locus", "is_rc", "best_mm"):
+        np.testing.assert_array_equal(out["cuda"][k], out["cpu"][k])
+    assert out["cuda"]["unique"].all()
+    assert out["cuda"]["locus"].tolist() == starts.tolist()
