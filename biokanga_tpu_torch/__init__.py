@@ -9,11 +9,13 @@ hand-written CUDA kernels live in csrc/ and are built on first use
 (kernels/); each has a plain torch version beside it that runs for CPU
 tensors.
 
-Ported so far: the index build (`index`), short-read alignment
-(`align`: paired ends, and single ends with every option: SNP calls,
-micro-indels, splice junctions, chimeric trims, the post-passes, BAM),
-and PacBio long-read error correction (`ecreads`).  Bisulfite,
-colorspace and chunked indexes are not ported yet.
+Ported so far: the index build (`index`, chunked too), short-read
+alignment (`align`: paired ends, and single ends with every option: SNP
+calls, micro-indels, splice junctions, chimeric trims, the post-passes,
+BAM), PacBio long-read error correction (`ecreads`), the SW service
+(`swservice`), and the multi-device layer on torch.distributed
+(parallel/: the sharded aligner, multi-host input, `ec_reads(mesh=...)`).
+Bisulfite and colorspace indexes are not ported yet.
 """
 
 __version__ = "0.1.0"

@@ -116,22 +116,24 @@ def _strand_candidates(didx: DeviceIndex, seq: torch.Tensor,
     return srt, v, n_over, trunc
 
 
+def mismatch_budget(lengths: torch.Tensor, ap: AlignParams) -> torch.Tensor:
+    """Per-read mismatch budget from the actual read length, in float32 as
+    the JAX package computes it (float64 rounds differently at x.5)."""
+    if ap.max_subs_per100 == 0:
+        return torch.zeros_like(lengths)
+    rate = torch.tensor(ap.max_subs_per100 / 100.0, dtype=torch.float32,
+                        device=lengths.device)
+    return torch.clamp(torch.floor(lengths.to(torch.float32) * rate + 0.5).to(
+        torch.int32), 1, 63)
+
+
 def align_core(didx: DeviceIndex, reads: torch.Tensor, lengths: torch.Tensor,
                *, ap: AlignParams, dp: DerivedParams, H: int, cand_cap: int,
                strand: str, occ_skip: bool = True) -> dict:
     """One batch through the five device stages; returns device tensors
     keyed as the JAX align_core's result (RESULT_KEYS + ladder keys)."""
     dev = reads.device
-    # per-read mismatch budget from the actual read length, in float32 as
-    # the JAX package computes it (float64 rounds differently at x.5)
-    if ap.max_subs_per100 == 0:
-        max_tot_mm = torch.zeros_like(lengths)
-    else:
-        rate = torch.tensor(ap.max_subs_per100 / 100.0, dtype=torch.float32,
-                            device=dev)
-        max_tot_mm = torch.clamp(
-            torch.floor(lengths.to(torch.float32) * rate + 0.5).to(
-                torch.int32), 1, 63)
+    max_tot_mm = mismatch_budget(lengths, ap)
     strands = []                      # sense columns first (rc_col below)
     if strand in ("both", "sense"):
         strands.append(reads)
@@ -380,66 +382,79 @@ class ExtendedAligner:
 
     def scan_rows(self, sub_r: np.ndarray, sub_l: np.ndarray):
         """Indel/splice fall-through scans for one padded row block;
-        returns the per-row best-candidate dict of host arrays, or None.
-
-        Result schema: ok, score, mm, split, locus, is_rc, op (signed
-        indel, or 1<<30 for a splice), gaplen (the splice's N length).
-        Sense before antisense and indels before splices; a later scan
-        replaces the best only on a strictly higher score."""
-        from .splice_indel import indel_scan, splice_scan
-
+        returns the per-row best-candidate dict of host arrays (schema of
+        scan_fallthrough), or None."""
         eng = self.engine
         didx = eng.didx
-        B, L = sub_r.shape
-        dp = eng.params.derive(int(L), didx.total_len)
         dev = didx.device
-        reads = torch.from_numpy(np.ascontiguousarray(sub_r, np.int8)).to(dev)
-        lengths = torch.from_numpy(
-            np.ascontiguousarray(sub_l, np.int32)).to(dev)
-        scan_args = (didx.packed, didx.entry_starts)
-
-        best = None
-        for is_rc in (False, True):
-            seq = _rc_reads(reads, lengths) if is_rc else reads
-            loci, vmask, _, _ = _strand_candidates(
-                didx, seq, dp, eng.params.cand_per_core, SPLICE_CAND_CAP,
-                occ_skip=True)
-            rcodes, rnlane = pack_reads(seq, lengths)
-            cand = (loci, vmask, rcodes, rnlane, lengths, L)
-            outs = []
-            if self.micro_indel_len:
-                o = indel_scan(*scan_args, *cand, self.micro_indel_len)
-                outs.append({
-                    "ok": o["ok"], "score": o["score"], "mm": o["mm"],
-                    "split": o["split"],
-                    "locus": torch.gather(loci, 1, o["cand"].to(
-                        torch.int64)[:, None])[:, 0],
-                    "op": o["indel"].to(torch.int64),
-                    "gaplen": torch.zeros(B, dtype=torch.int64, device=dev),
-                })
-            if self.splice_junct_len:
-                o = splice_scan(*scan_args, *cand, self.splice_junct_len)
-                outs.append({
-                    "ok": o["ok"], "score": o["score"], "mm": o["mm"],
-                    "split": o["split"], "locus": o["locus5"],
-                    "op": torch.full((B,), 1 << 30, dtype=torch.int64,
-                                     device=dev),
-                    "gaplen": (o["locus3"] - o["locus5"]).to(torch.int64),
-                })
-            for o in outs:
-                o["is_rc"] = torch.full((B,), is_rc, dtype=torch.bool,
-                                        device=dev)
-                o["score"] = torch.where(o["ok"], o["score"], -(1 << 20))
-                if best is None:
-                    best = o
-                else:
-                    better = o["score"] > best["score"]
-                    best = {k: torch.where(better, o[k], best[k])
-                            for k in best}
-
+        best = scan_fallthrough(
+            didx, eng.params,
+            eng.params.derive(int(sub_r.shape[1]), didx.total_len),
+            torch.from_numpy(np.ascontiguousarray(sub_r, np.int8)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(sub_l, np.int32)).to(dev),
+            self.micro_indel_len, self.splice_junct_len)
         if best is None:
             return None
         return {k: v.cpu().numpy() for k, v in best.items()}
+
+
+def scan_fallthrough(didx: DeviceIndex, params: AlignParams,
+                     dp: DerivedParams, reads: torch.Tensor,
+                     lengths: torch.Tensor, micro_indel_len: int,
+                     splice_junct_len: int):
+    """The indel and splice scans of a row block on didx's device; the
+    per-row best candidate as a dict of device tensors, or None if no
+    scan runs.
+
+    Result schema: ok, score (-(1 << 20) where not ok), mm, split, locus,
+    is_rc, op (signed indel, or 1<<30 for a splice), gaplen (the splice's
+    N length).  Sense before antisense and indels before splices; a later
+    scan replaces the best only on a strictly higher score.  No ownership
+    limit: a junction's 3' segment may lie in a chunk's overlap tail."""
+    from .splice_indel import indel_scan, splice_scan
+
+    B, L = reads.shape
+    dev = reads.device
+    scan_args = (didx.packed, didx.entry_starts)
+    best = None
+    for is_rc in (False, True):
+        seq = _rc_reads(reads, lengths) if is_rc else reads
+        loci, vmask, _, _ = _strand_candidates(
+            didx, seq, dp, params.cand_per_core, SPLICE_CAND_CAP,
+            occ_skip=True)
+        rcodes, rnlane = pack_reads(seq, lengths)
+        cand = (loci, vmask, rcodes, rnlane, lengths, L)
+        outs = []
+        if micro_indel_len:
+            o = indel_scan(*scan_args, *cand, micro_indel_len)
+            outs.append({
+                "ok": o["ok"], "score": o["score"], "mm": o["mm"],
+                "split": o["split"],
+                "locus": torch.gather(loci, 1, o["cand"].to(
+                    torch.int64)[:, None])[:, 0],
+                "op": o["indel"].to(torch.int64),
+                "gaplen": torch.zeros(B, dtype=torch.int64, device=dev),
+            })
+        if splice_junct_len:
+            o = splice_scan(*scan_args, *cand, splice_junct_len)
+            outs.append({
+                "ok": o["ok"], "score": o["score"], "mm": o["mm"],
+                "split": o["split"], "locus": o["locus5"],
+                "op": torch.full((B,), 1 << 30, dtype=torch.int64,
+                                 device=dev),
+                "gaplen": (o["locus3"] - o["locus5"]).to(torch.int64),
+            })
+        for o in outs:
+            o["is_rc"] = torch.full((B,), is_rc, dtype=torch.bool,
+                                    device=dev)
+            o["score"] = torch.where(o["ok"], o["score"], -(1 << 20))
+            if best is None:
+                best = o
+            else:
+                better = o["score"] > best["score"]
+                best = {k: torch.where(better, o[k], best[k])
+                        for k in best}
+    return best
 
 
 def cigar_for(length: int, cigar_op: int, op_len: int, split: int) -> str:

@@ -1,5 +1,5 @@
-"""CLI of the PyTorch port: `index`, `align` (single and paired ends)
-and PacBio `ecreads`.
+"""CLI of the PyTorch port: `index`, `align` (single and paired ends),
+PacBio `ecreads` and `swservice`.
 
 Usage:  python -m biokanga_tpu_torch index -i ref.fa -o ref.npz \
             [-m 0|2 -s <Mbp> --lut-bases 0 --chunks 0
@@ -14,21 +14,23 @@ Usage:  python -m biokanga_tpu_torch index -i ref.fa -o ref.npz \
             -o out.sam [-d 100 -D 1000 -E --peinsertdist ins.csv]
         python -m biokanga_tpu_torch ecreads -i reads.fa -o out.fa \
             [--device cuda]
+        python -m biokanga_tpu_torch swservice -a probes.fa -b targets.fa \
+            -o scores.csv [--sw-band 96 --pairs zip|cross -n N --device cuda]
 
 Each subcommand gives the files of the same subcommand of
 `python -m biokanga_tpu` on the same inputs: the index arrays, the SAM
 or BAM, the SNP, haplotype, centroid and stats CSVs, the VCF, the
 `-q` rows outside their time fields, and the FASTA.  `index` is host
-numpy and takes no device.  For `align` and `ecreads` the device is
-explicit: `--device cuda` (the default) raises when CUDA is absent, and
-`--device cpu` runs the kernels' plain versions; the SNP pileup and the
-indel and splice scans run on the index's device.  Paired ends come as
-`-u` mate files beside `-i`, or as one PE-interleaved `.rds` container;
-as in the JAX CLI they take none of the single-end passes.  `index
---chunks N` (and any genome of 2^31 bases or more) writes a genome-range
-chunked index; `align` against it sweeps the chunks and merges exactly,
-for single ends (with -a -A -O --checkpoint-dir) and pairs, and ignores
-what the JAX CLI's chunked branch ignores.  Reads past 4,096 bases align
+numpy and takes no device.  For `align`, `ecreads` and `swservice` the
+device is explicit: `--device cuda` (the default) raises when CUDA is
+absent, and `--device cpu` runs the kernels' plain versions; the SNP
+pileup and the indel and splice scans run on the index's device.  Paired
+ends come as `-u` mate files beside `-i`, or as one PE-interleaved `.rds`
+container; as in the JAX CLI they take none of the single-end passes.
+`index --chunks N` (and any genome of 2^31 bases or more) writes a
+genome-range chunked index; `align` against it sweeps the chunks and
+merges exactly, for single ends (with -a -A -O --checkpoint-dir) and
+pairs, and ignores what the JAX CLI's chunked branch ignores.  Reads past 4,096 bases align
 on the dense extension path.  Bisulfite and colorspace indexes are not in
 this package yet: `index` refuses `-m 1` and `-C`, and `align` refuses
 such index files.
@@ -850,8 +852,110 @@ def cmd_ecreads(argv: list[str]) -> int:
     return 0
 
 
+def _swservice_rank(rank, n, backend, init_method, device, jobs, W, out,
+                    pair_names) -> None:
+    """One rank of `swservice`: join the ranks, align this rank's share
+    of the jobs, report on stderr how often it launched each SW kernel
+    and, on rank 0, write the CSV."""
+    import torch.distributed as dist
+
+    from .ops.banded_sw import banded_sw_moves, banded_sw_score
+    from .parallel.dist import init_ranks
+    from .parallel.swservice import make_sw_mesh, run_sw_jobs
+
+    init_ranks(backend, init_method, n, rank)
+    try:
+        mesh = make_sw_mesh(n, device)
+        res = run_sw_jobs(mesh, jobs if rank == 0 else None, W)
+        print(f"swservice: rank {rank} on {mesh.device}: kernel launches "
+              f"banded_sw_score={banded_sw_score.launches} "
+              f"banded_sw_moves={banded_sw_moves.launches}",
+              file=sys.stderr, flush=True)
+        if rank == 0:
+            with open(out, "w") as f:
+                f.write('"Probe","Target","Score","EndProbeOfs",'
+                        '"EndTargOfs"\n')
+                for r, (pn, tn) in enumerate(pair_names):
+                    f.write(f'"{pn}","{tn}",{int(res["score"][r])},'
+                            f'{int(res["best_i"][r])},'
+                            f'{int(res["best_k"][r])}\n')
+    finally:
+        dist.destroy_process_group()
+
+
+def cmd_swservice(argv: list[str]) -> int:
+    """`pacbiokanga swservice` parity (biokanga_tpu/cli.py:1891-1950).
+
+    The job batch (probe/target FASTA pairs) is aligned by N ranks, one
+    process each (parallel/swservice.py): NCCL when every rank has a card
+    of its own, gloo otherwise (several ranks on one card, or the CPU).
+    The CSV is the JAX CLI's for any N."""
+    p = argparse.ArgumentParser(prog="biokanga-tpu-torch swservice")
+    p.add_argument("-a", "--probes", required=True, help="probe FASTA")
+    p.add_argument("-b", "--targets", required=True, help="target FASTA")
+    p.add_argument("-o", "--out", required=True, help="scores CSV")
+    p.add_argument("--sw-band", type=int, default=96)
+    p.add_argument("--pairs", default="zip", choices=("zip", "cross"),
+                   help="pair probes/targets 1:1 (zip) or all-vs-all")
+    p.add_argument("-n", "--ndevices", type=int, default=None,
+                   help="ranks to spawn (default: one a visible card, or "
+                        "1 with --device cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default: rank r on card r %% cards; raises "
+                        "without CUDA), a named device, or cpu")
+    args = p.parse_args(argv)
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from .parallel.swservice import SWJobBatch
+    from .seq.fasta import read_seqs
+
+    device = resolve_device(args.device)
+    probes = [(r.name, r.codes) for r in read_seqs(args.probes)]
+    targets = [(r.name, r.codes) for r in read_seqs(args.targets)]
+    if args.pairs == "zip":
+        if len(probes) != len(targets):
+            print("zip pairing needs equal probe/target counts",
+                  file=sys.stderr)
+            return 2
+        pairs = list(zip(range(len(probes)), range(len(targets))))
+    else:
+        pairs = [(i, j) for i in range(len(probes))
+                 for j in range(len(targets))]
+    La = max(len(c) for _, c in probes)
+    Lb = max(len(c) for _, c in targets)
+    B = len(pairs)
+    a = np.full((B, La), 4, np.int8)
+    b = np.full((B, Lb), 4, np.int8)
+    alen = np.zeros(B, np.int32)
+    blen = np.zeros(B, np.int32)
+    for r, (i, j) in enumerate(pairs):
+        pa, pb = probes[i][1], targets[j][1]
+        a[r, : len(pa)] = pa
+        b[r, : len(pb)] = pb
+        alen[r], blen[r] = len(pa), len(pb)
+    # a rank a card under `--device cuda`; a named device holds them all
+    cards = (0 if device.type != "cuda" else
+             torch.cuda.device_count() if args.device == "cuda" else 1)
+    n = args.ndevices or max(cards, 1)
+    backend = "nccl" if n <= cards else "gloo"
+    print(f"swservice: {n} ranks over {backend} on {args.device}",
+          file=sys.stderr)
+    jobs = SWJobBatch(a, b, alen, blen, np.zeros(B, np.int32))
+    names = [(probes[i][0], targets[j][0]) for i, j in pairs]
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_swservice_rank, nprocs=n, args=(
+            n, backend, f"file://{tmp}/rendezvous",
+            None if args.device == "cuda" else args.device, jobs,
+            args.sw_band, args.out, names))
+    print(f"swservice: {B} SW jobs over {n} devices")
+    return 0
+
+
 SUBCOMMANDS = {"index": cmd_index, "align": cmd_align,
-               "ecreads": cmd_ecreads}
+               "ecreads": cmd_ecreads, "swservice": cmd_swservice}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -18,9 +18,13 @@ Every read is corrected against the others:
      cannot change the output), and a column-majority consensus rewrites
      each probe.
 
-The TPU's one-hot bf16 vote matmul (`_vote_deltas`) and the multi-device
-SW service (`mesh`) are not ported: the first is a TPU workaround, the
-second a later slice.
+With `mesh` (a parallel/dist.py mesh of ranks, one process each) every
+rank seeds and clusters the whole read set, aligns its dp share of each
+chunk's pairs on its own device, and the integer vote planes are summed
+over dp with one all-reduce before the consensus, so every rank ends with
+the same corrected reads (the JAX package's `_make_sw_vote_fn` psum;
+integer sums are exact in any order).  The TPU's one-hot bf16 vote matmul
+(`_vote_deltas`) is a TPU workaround and is not ported.
 
 Stages are marked with `torch.profiler.record_function` ranges named
 `ec.index`, `ec.seed`, `ec.cluster`, `ec.sw` and `ec.consensus`; they
@@ -39,6 +43,7 @@ from ..index.device_build import device_build_index
 from ..ops.banded_sw import band_window_len, banded_sw_moves, normalize_band
 from ..ops.lookup import seed_range_lookup
 from ..ops.sw_trace import traceback_cols_packed
+from ..parallel.dist import sum_dp
 from ..seq.encode import revcomp
 
 
@@ -219,6 +224,12 @@ class _Votes:
         self.ins_base = torch.zeros((N, La + 1, 4), dtype=torch.int32,
                                     device=device)
 
+    def sum_dp(self, mesh) -> None:
+        """Sum the planes over the mesh's dp group, in place."""
+        self.votes = sum_dp(mesh, self.votes)
+        self.ins_cnt = sum_dp(mesh, self.ins_cnt)
+        self.ins_base = sum_dp(mesh, self.ins_base)
+
     def add(self, out, ins_cnt, ins_base, pids, ok) -> None:
         """Add the decoded columns of the pairs where `ok`; pids (B,) int64."""
         B, La = out.shape
@@ -267,23 +278,35 @@ def _pair_bytes(La: int, W: int) -> int:
 
 
 def _sw_and_vote(probes_t, plens_t, c_probe, c_ent, c_diag, didx,
-                 votes: _Votes, p: ECParams, times: _StageTimes):
+                 votes: _Votes, p: ECParams, times: _StageTimes, mesh=None):
     """Align every (probe, candidate) pair in chunks and add the pairs that
     score at least p.min_overlap_score to the vote planes.  Target e is
-    entry e of the index didx.  Returns the number of pairs used."""
+    entry e of the index didx.  With a mesh, each chunk (a multiple of
+    n_dp pairs) splits over dp and this rank aligns its share.  Returns
+    the number of pairs this rank used."""
     tcat, tstarts = didx.genome, didx.entry_starts
     N, La = probes_t.shape
     dev = probes_t.device
     W = p.sw_band
     P = len(c_probe)
     chunk = max(16, p.sw_chunk_bytes // _pair_bytes(La, W))
+    share, first = chunk, 0
+    if mesh is not None:
+        # ecreads.py:460-462: whole pair rows for every dp coordinate
+        chunk = max(mesh.n_dp, chunk // mesh.n_dp * mesh.n_dp)
+        share = chunk // mesh.n_dp
+        first = mesh.dp * share
     cols = torch.arange(La, device=dev)
     n_used = torch.zeros((), dtype=torch.int64, device=dev)
     tlast = max(tcat.shape[0] - 1, 0)
     with record_function("ec.sw"):
-        for s in range(0, P, chunk):
+        for s0 in range(0, P, chunk):
+            s = s0 + first
+            if s >= min(s0 + chunk, P):
+                continue
             pids, ent, diag = (
-                torch.from_numpy(x[s : s + chunk].astype(np.int64)).to(dev)
+                torch.from_numpy(x[s : min(s + share, P)].astype(np.int64)
+                                 ).to(dev)
                 for x in (c_probe, c_ent, c_diag))
             a = probes_t[pids]
             alen = plens_t[pids]
@@ -363,8 +386,17 @@ def _finish_consensus(votes: _Votes, probes_t, plens, p: ECParams):
     return corrected
 
 
+def _sum_votes(votes: _Votes, used: int, mesh) -> int:
+    """With a mesh, the planes and the used-pair count summed over dp."""
+    if mesh is None:
+        return used
+    votes.sum_dp(mesh)
+    n = torch.tensor(used, dtype=torch.int64, device=votes.votes.device)
+    return int(sum_dp(mesh, n))
+
+
 def _correct_probes(probe_reads, starts, didx, all_reads, p,
-                    times: _StageTimes, probe_gids=None):
+                    times: _StageTimes, probe_gids=None, mesh=None):
     """Correct `probe_reads` against the prebuilt all-reads index
     (ecreads.py:535-560)."""
     dev = didx.device
@@ -379,8 +411,9 @@ def _correct_probes(probe_reads, starts, didx, all_reads, p,
     probes_t = torch.from_numpy(probes).to(dev)
     plens_t = torch.from_numpy(plens).to(dev)
     votes = _Votes(N, La, dev)
-    used = _sw_and_vote(probes_t, plens_t, c_probe, c_ent, c_diag, didx,
-                        votes, p, times)
+    used = _sum_votes(votes, _sw_and_vote(
+        probes_t, plens_t, c_probe, c_ent, c_diag, didx, votes, p, times,
+        mesh), mesh)
     corrected = _finish_consensus(votes, probes_t, plens, p)[:n]
     return corrected, {"reads": n, "overlaps_used": used,
                        "pairs": len(c_probe)}
@@ -391,7 +424,8 @@ def ec_reads(
     params: ECParams | None = None,
     target_chunk: int | None = None,
     rounds: int = 1,
-    device: torch.device | str = "cuda",
+    device: torch.device | str | None = None,
+    mesh=None,
 ) -> tuple[list[np.ndarray], dict]:
     """Correct every read against the others. Returns (corrected, stats).
 
@@ -403,12 +437,21 @@ def ec_reads(
     candidate cut applies per chunk, so a chunked run may use up to
     max_targets x n_chunks overlaps per probe (as in the JAX package).
 
-    device: where the index, the SW kernels and the votes run; `cuda`
-    raises without CUDA.  stats also gives the pairs aligned and, on a
-    CUDA device, the summed device time of the SW (`sw_ms`) and traceback
-    (`trace_ms`) launches."""
+    device: where the index, the SW kernels and the votes run (default
+    `cuda`, or the mesh's device); `cuda` raises without CUDA.  stats also
+    gives the pairs aligned and, on a CUDA device, the summed device time
+    of this rank's SW (`sw_ms`) and traceback (`trace_ms`) launches.
+
+    mesh: a parallel/dist.py mesh; each SW chunk's pairs split over its
+    dp ranks and the vote planes are summed over dp (module docstring).
+    Every rank of the mesh makes the same call and returns the same
+    corrected reads."""
     p = params or ECParams()
-    dev = resolve_device(device)
+    if mesh is not None and device is not None and \
+            torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    dev = resolve_device(mesh.device if mesh is not None else
+                         device or "cuda")
     if rounds > 1:
         cur = reads
         st: dict = {}
@@ -416,7 +459,7 @@ def ec_reads(
                  "trace_ms": 0.0}
         for _ in range(rounds):
             cur, st = ec_reads(cur, p, target_chunk=target_chunk, rounds=1,
-                               device=dev)
+                               device=dev, mesh=mesh)
             for key in total:
                 total[key] += st.get(key, 0)
         st = dict(st)
@@ -430,7 +473,7 @@ def ec_reads(
         entries += [(f"rc{i}", revcomp(s)) for i, s in enumerate(reads)]
         didx, starts = _build_ec_index(entries, dev)
         corrected, st = _correct_probes(reads, starts, didx, reads, p,
-                                        times)
+                                        times, mesh=mesh)
         return corrected, {**st, **times.ms()}
 
     probes, plens = _pad_reads(reads, pad_to=max(len(r) for r in reads))
@@ -450,8 +493,9 @@ def ec_reads(
             probe_gids=np.arange(n), n_reads_total=n, ent_gids=ent_gids,
         )
         n_pairs_used += _sw_and_vote(probes_t, plens_t, c_probe, c_ent,
-                                     c_diag, didx, votes, p, times)
+                                     c_diag, didx, votes, p, times, mesh)
         n_pairs += len(c_probe)
+    n_pairs_used = _sum_votes(votes, n_pairs_used, mesh)
     corrected = _finish_consensus(votes, probes_t, plens, p)
     return corrected, {"reads": n, "overlaps_used": n_pairs_used,
                        "target_chunks": -(-n // target_chunk),

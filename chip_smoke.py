@@ -112,13 +112,30 @@ Phases, each of which raises on failure:
      the set-up, each chunk build, the fast and classic cycles, the
      rescue, pairs/s and the peak device memory, with kernels #1-#3
      counted; >= 99% of pairs proper, >= 99% of those with both mates at
-     their origin, and mates placed past 2^31.
+     their origin, and mates placed past 2^31;
+ 19. several ranks, four processes on this card joined over gloo
+     (parallel/dist.py): the SE cell of phase 4 through
+     ShardedAligner.align at (dp, sp) = (2, 2) and (1, 4), every field
+     equal to AlignEngine.align_with_rescue (loci int64), with reads/s
+     and each rank's peak device memory from that pass (after a warm
+     batch), the gather's ms a batch from a second pass that times it,
+     and a third uninstrumented pass; phase
+     16's 65,536 options reads through align_extended (-a 10 -A 50000)
+     and the sharded pileup at (1, 2), equal to ChunkedExtendedAligner
+     on the same two chunks and PileupAccumulator; the EC cell through
+     ec_reads with two ranks, every rank's FASTA equal to phase 9's byte
+     for byte; then `swservice -n 2` on tie-rich pairs (gloo on this
+     card) whose CSV equals a --device cpu run's, its ranks' kernel
+     launches read from their stderr, and, in this process, a world of
+     one over NCCL giving the SE cell equal to AlignEngine.
 Phases 16 and 17 run on the card right after phase 6; their --device
 cpu child processes go on beside phases 7-15 and 18 and are compared
 after phase 18.
 Phase 3 also holds the extension kernel at the orphan rescue's shape
 (2,048 windows of 500 consecutive loci, some off the genome's ends).
-The kernels line gives #1-#3 their launches on every path above.
+The kernels line gives #1-#3 their launches on every path above, and
+every kernel its launches on phase 19's sharded, EC-mesh and swservice
+paths (summed over the ranks).
 The last two lines are a JSON object per kernel and the result line.
 Exits non-zero without CUDA or outside the repository.  Needs one card.
 
@@ -227,6 +244,18 @@ BIG_CHUNKS = 12
 BIG_PAIRS = 262_144
 BIG_BLOCK = 32_768
 BIG_ORPHAN_EVERY = 97
+
+# several ranks (phase 19): processes on cuda:0 over gloo; the SE cell at
+# two layouts, the options sample of phase 16 at (1, 2), the EC cell with
+# two ranks, swservice -n 2 on tie-rich pairs, and a world of one over NCCL
+RANKS = 4
+RANK_LAYOUTS = ((2, 2), (1, 4))
+RANK_OPTIONS_LAYOUT = (1, 2)
+# the chunked index of each sp width: phase 16's `index --chunks 4`, and
+# two chunks built in phase 19
+RANK_INDEX = {2: "ck2.npz", 4: "ck.npz"}
+EC_RANKS = 2
+SWS_PROBES, SWS_LEN, SWS_BAND = 24, 400, 32   # 24 x 24 cross pairs
 
 # least-time bounds (NVIDIA H100 SXM data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
@@ -2545,6 +2574,428 @@ def big_genome_cell(dev, smi, n_bp=BIG_GENOME_BP, n_pairs=BIG_PAIRS,
     return launches
 
 
+# -------------------------------------------------------- several ranks ----
+
+def _rank_launches() -> dict:
+    """Launch counts of every kernel wrapper in this process."""
+    from biokanga_tpu_torch.ops import banded_sw, sw_trace
+
+    return {**_align_launches(),
+            "banded_sw_moves": banded_sw.banded_sw_moves.launches,
+            "banded_sw_score": banded_sw.banded_sw_score.launches,
+            "sw_trace": sw_trace.traceback_cols_packed.launches}
+
+
+def _reset_rank_launches() -> None:
+    from biokanga_tpu_torch.ops import banded_sw, sw_trace
+
+    _reset_align_launches()
+    banded_sw.banded_sw_moves.launches = 0
+    banded_sw.banded_sw_score.launches = 0
+    sw_trace.traceback_cols_packed.launches = 0
+
+
+def _save(name: str, obj) -> None:
+    import pickle
+
+    tmp = WORK / f"{name}.tmp"
+    tmp.write_bytes(pickle.dumps(obj))
+    tmp.replace(WORK / f"{name}.pkl")
+
+
+def _load(name: str):
+    import pickle
+
+    return pickle.loads((WORK / f"{name}.pkl").read_bytes())
+
+
+def _rank_main(rank: int, world: int, init_method: str) -> None:
+    """One rank of phase 19, on cuda:0 (four ranks share the card; gloo
+    between them).  Writes its own report and, on rank 0, the gathered
+    results to build/chip_smoke/."""
+    import torch
+    import torch.distributed as dist
+
+    import biokanga_tpu_torch.parallel.sharded as sharded
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.align.pipeline import _rc_reads
+    from biokanga_tpu_torch.index.chunked import load_chunked_index
+    from biokanga_tpu_torch.pacbio.ecreads import ECParams, ec_reads
+    from biokanga_tpu_torch.parallel.chunked import chunk_of
+    from biokanga_tpu_torch.parallel.dist import (
+        all_gather_sp,
+        init_ranks,
+        make_mesh,
+    )
+    from biokanga_tpu_torch.parallel.swservice import make_sw_mesh
+    from biokanga_tpu_torch.seq.fasta import (
+        read_blocks,
+        read_seqs,
+        write_fasta,
+    )
+
+    torch.set_num_threads(1)
+    init_ranks("gloo", init_method, world, rank)
+    report = {"rank": rank}
+    # the collective's time, taken in a second pass of its own so that
+    # reads/s comes from the path as it ships: the gather of each merge,
+    # from a barrier of the sp group (the wait for its slowest rank, kept
+    # apart) to the device's synchronisation (under gloo it includes the
+    # copies to and from the host)
+    coll = {"s": 0.0, "wait_s": 0.0, "n": 0}
+    gather = sharded.all_gather_sp
+
+    def timed_gather(mesh, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.barrier(group=mesh.sp_group)
+        t1 = time.perf_counter()
+        out = gather(mesh, t)
+        torch.cuda.synchronize()
+        coll["wait_s"] += t1 - t0
+        coll["s"] += time.perf_counter() - t1
+        coll["n"] += 1
+        return out
+
+    def one_pass(sa, mesh, reads, lengths):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocks = []
+        for s in range(0, len(reads), BATCH):
+            rows = mesh.rows(BATCH)
+            blocks.append(sa.align(reads[s:s + BATCH][rows],
+                                   lengths[s:s + BATCH][rows]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dist.barrier()
+        return blocks, wall
+
+    try:
+        # the SE cell at each layout
+        reads = np.load(WORK / "se_reads.npy")
+        lengths = np.full(len(reads), READ_LEN, np.int32)
+        for n_dp, n_sp in RANK_LAYOUTS:
+            mesh = make_mesh(n_dp, n_sp)
+            sa = sharded.ShardedAligner(
+                mesh, load_chunked_index(str(WORK / RANK_INDEX[n_sp])),
+                AlignParams(batch_size=BATCH))
+            # warm at the batch's own shape (allocations, gloo buffers)
+            warm = mesh.rows(BATCH)
+            sa.align(reads[:BATCH][warm], lengths[:BATCH][warm])
+            torch.cuda.reset_peak_memory_stats()
+            _reset_rank_launches()
+            blocks, wall = one_pass(sa, mesh, reads, lengths)
+            peak, launches = torch.cuda.max_memory_allocated(), \
+                _rank_launches()
+            coll.update(s=0.0, wait_s=0.0, n=0)
+            sharded.all_gather_sp = timed_gather
+            try:
+                _, timed_wall = one_pass(sa, mesh, reads, lengths)
+            finally:
+                sharded.all_gather_sp = gather
+            _, wall2 = one_pass(sa, mesh, reads, lengths)
+            report[f"{n_dp}x{n_sp}"] = {
+                "wall_s": wall, "wall2_s": wall2, "timed_wall_s": timed_wall,
+                "gather_s": coll["s"], "wait_s": coll["wait_s"],
+                "gathers": coll["n"], "peak_bytes": peak,
+                "launches": launches}
+            full = [sharded.gather_results(mesh, b) for b in blocks]
+            if rank == 0:
+                _save(f"ranks_se_{n_dp}x{n_sp}", full)
+            del sa, blocks, full
+            torch.cuda.empty_cache()
+
+        # the options sample: align_extended and the sharded pileup
+        mesh = make_mesh(*RANK_OPTIONS_LAYOUT)
+        if mesh is not None:
+            _reset_rank_launches()
+            blk = next(read_blocks(str(WORK / "ck_se.fq"), block_size=BATCH))
+            sa = sharded.ShardedAligner(
+                mesh, load_chunked_index(str(WORK / RANK_INDEX[2])),
+                AlignParams(batch_size=BATCH))
+            t0 = time.perf_counter()
+            res = sa.align_extended(blk.codes, blk.lengths, 10, 50_000)
+            r = torch.from_numpy(blk.codes).to(mesh.device)
+            ln = torch.from_numpy(blk.lengths).to(mesh.device)
+            flip = torch.from_numpy(res["unique"] & res["is_rc"]).to(
+                mesh.device)
+            aligned = torch.where(flip[:, None], _rc_reads(r, ln), r)
+            chunk = chunk_of(sa.sidx.bases, res["locus"])
+            planes = sharded.build_sharded_pileup_fn(mesh, sa.sidx)(
+                chunk, res["locus"] - sa.sidx.bases[chunk],
+                aligned.cpu().numpy(), blk.lengths, res["unique"])
+            planes = [all_gather_sp(mesh, p).cpu().numpy() for p in planes]
+            torch.cuda.synchronize()
+            report["options"] = {"wall_s": time.perf_counter() - t0,
+                                 "launches": _rank_launches()}
+            if rank == 0:
+                _save("ranks_options", {
+                    "res": res, "planes": [sharded.combine_pileup_planes(
+                        p, sa.sidx) for p in planes]})
+            del sa
+
+        # the EC cell with EC_RANKS ranks: the CLI defaults, two rounds
+        mesh = make_sw_mesh(EC_RANKS)
+        if mesh is not None:
+            _reset_rank_launches()
+            recs = list(read_seqs(str(WORK / "ec_h2h.fa")))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            corrected, st = ec_reads(
+                [x.codes for x in recs],
+                ECParams(seed_len=12, min_seed_votes=8, sw_band=96,
+                         min_overlap_score=60, max_targets=48),
+                rounds=2, mesh=mesh)
+            torch.cuda.synchronize()
+            report["ec"] = {"wall_s": time.perf_counter() - t0,
+                            "overlaps": st["overlaps_used"],
+                            "launches": _rank_launches()}
+            write_fasta(str(WORK / f"ec_h2h_rank{rank}.fa"),
+                        zip([x.name for x in recs], corrected))
+        _save(f"ranks_report{rank}", report)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sws_inputs():
+    """Phase 19's swservice inputs: tie-rich probe and target FASTAs
+    (tests/sw_edge_cases.tie_rich_pairs)."""
+    from biokanga_tpu_torch.seq.fasta import write_fasta
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from sw_edge_cases import tie_rich_pairs
+
+    a, b, alen, blen, _ = tie_rich_pairs(19, SWS_PROBES, SWS_LEN)
+    write_fasta(str(WORK / "sws_p.fa"),
+                ((f"probe{i}", a[i, :alen[i]]) for i in range(SWS_PROBES)))
+    write_fasta(str(WORK / "sws_t.fa"),
+                ((f"targ{i}", b[i, :blen[i]]) for i in range(SWS_PROBES)))
+
+
+def _sws_launches(stderr: str) -> dict:
+    """The SW kernels' launches summed over the ranks of one `swservice`
+    run, from the line each rank prints on stderr."""
+    total = {}
+    for line in stderr.splitlines():
+        if ": kernel launches " not in line:
+            continue
+        for field in line.split(": kernel launches ")[1].split():
+            name, n = field.split("=")
+            total[name] = total.get(name, 0) + int(n)
+    return total
+
+
+def several_ranks(seqs, dev, smi, engine_rate) -> dict:
+    """Phase 19: RANKS processes on this card over gloo (and, in this
+    process, a world of one over NCCL).  Every sharded, EC and SW result
+    must equal its single-rank counterpart.  Returns the kernels' launches
+    on the sharded, EC-mesh and swservice paths."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.align.pipeline import RESULT_KEYS, AlignEngine
+    from biokanga_tpu_torch.align.snp import PileupAccumulator
+    from biokanga_tpu_torch.index.build import load_index
+    from biokanga_tpu_torch.index.chunked import (
+        ChunkedIndex,
+        build_chunked_index,
+        load_chunked_index,
+        save_chunked_index,
+    )
+    from biokanga_tpu_torch.index.device import to_device
+    from biokanga_tpu_torch.parallel.chunked import (
+        ChunkedAligner,
+        ChunkedExtendedAligner,
+    )
+    from biokanga_tpu_torch.parallel.dist import init_ranks, make_mesh
+    from biokanga_tpu_torch.parallel.sharded import (
+        ShardedAligner,
+        gather_results,
+    )
+    from biokanga_tpu_torch.seq.fasta import read_blocks
+
+    t0 = time.monotonic()
+    save_chunked_index(build_chunked_index(seqs, num_chunks=2,
+                                           lut_bases=10),
+                       str(WORK / RANK_INDEX[2]))
+    _sws_inputs()
+    for f in WORK.glob("ranks_*.pkl"):
+        f.unlink()
+    setup_s = time.monotonic() - t0
+    rdv = tempfile.mkdtemp(dir=WORK)
+    ctx = mp.start_processes(_rank_main, nprocs=RANKS, join=False,
+                             start_method="spawn",
+                             args=(RANKS, f"file://{rdv}/gloo"))
+
+    # meanwhile the single-rank results: the engine on the SE cell, the
+    # chunked extended aligner and the pileup on the options sample
+    reads = np.load(WORK / "se_reads.npy")
+    lengths = np.full(len(reads), READ_LEN, np.int32)
+    idx = load_index(str(WORK / "ref.npz"))
+    didx = to_device(idx, dev)
+    engine = AlignEngine(didx, AlignParams(batch_size=BATCH))
+    se_ref = [engine.align_with_rescue(reads[s:s + BATCH],
+                                       lengths[s:s + BATCH])
+              for s in range(0, len(reads), BATCH)]
+    blk = next(read_blocks(str(WORK / "ck_se.fq"), block_size=BATCH))
+    ca = ChunkedAligner(load_chunked_index(str(WORK / RANK_INDEX[2])),
+                        AlignParams(batch_size=BATCH), dev)
+    opt_ref = ChunkedExtendedAligner(ca, 10, 50_000).align(blk.codes,
+                                                           blk.lengths)
+    acc = PileupAccumulator(didx)
+    acc.add_alignments(blk.codes, blk.lengths, opt_ref)
+    pile_ref = acc.finalize()
+    del ca, engine
+    while not ctx.join():
+        pass
+    ranks_s = time.monotonic() - t0 - setup_s
+
+    # swservice -n 2 through the CLI, on the card and on the CPU, beside
+    # the NCCL world of one below
+    sws = ["swservice", "-a", str(WORK / "sws_p.fa"), "-b",
+           str(WORK / "sws_t.fa"), "--pairs", "cross", "--sw-band",
+           str(SWS_BAND), "-n", "2"]
+    sws_cpu = _cpu_child(sws + ["-o", str(WORK / "sws_cpu.csv")], "sws_cpu")
+    sws_err = open(WORK / "sws_cuda.err", "wb")
+    sws_cuda = subprocess.Popen(
+        [sys.executable, "-m", "biokanga_tpu_torch", *sws, "-o",
+         str(WORK / "sws_cuda.csv")], cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=sws_err, env=dict(os.environ, OMP_NUM_THREADS="2"))
+    sws_err.close()
+
+    # a world of one over NCCL, in this process: the SE cell at (1, 1)
+    t1 = time.monotonic()
+    init_ranks("nccl", f"file://{rdv}/nccl", 1, 0)
+    try:
+        mesh = make_mesh(1, 1)
+        one = ChunkedIndex(chunks=[idx], bases=np.zeros(1, np.int64),
+                           owned=np.asarray([idx.total_len], np.int64),
+                           entry_names=list(idx.entry_names),
+                           entry_starts=idx.entry_starts.astype(np.int64),
+                           overlap=0)
+        sa = ShardedAligner(mesh, one, AlignParams(batch_size=BATCH))
+        nccl = [gather_results(mesh, sa.align(reads[s:s + BATCH],
+                                               lengths[s:s + BATCH]))
+                for s in range(0, len(reads), BATCH)]
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    nccl_s = time.monotonic() - t1
+    del sa, didx
+    torch.cuda.empty_cache()
+
+    def same(got: dict, want: dict, keys, what: str) -> None:
+        for k in keys:
+            if not np.array_equal(np.asarray(got[k]), np.asarray(want[k])):
+                raise AssertionError(f"phase 19: {what}: {k} differs from "
+                                     f"the single rank")
+
+    reports = [_load(f"ranks_report{r}") for r in range(RANKS)]
+    for (n_dp, n_sp) in RANK_LAYOUTS:
+        for got, want in zip(_load(f"ranks_se_{n_dp}x{n_sp}"), se_ref):
+            same(got, want, RESULT_KEYS, f"SE cell at ({n_dp}, {n_sp})")
+            if got["locus"].dtype != np.int64:
+                raise AssertionError("phase 19: loci are not int64")
+    for got, want in zip(nccl, se_ref):
+        same(got, want, RESULT_KEYS, "SE cell over NCCL")
+    opt = _load("ranks_options")
+    same(opt["res"], opt_ref, RESULT_KEYS + ("cigar_op", "op_len", "split"),
+         "options sample, align_extended")
+    for g, w, name in zip(opt["planes"], pile_ref,
+                          ("counts", "match", "mismatch")):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"phase 19: sharded pileup {name} differs")
+    want_fa = (WORK / "ec_h2h_out.fa").read_bytes()
+    for r in range(EC_RANKS):
+        if (WORK / f"ec_h2h_rank{r}.fa").read_bytes() != want_fa:
+            raise AssertionError(f"phase 19: EC FASTA of rank {r} differs "
+                                 "from phase 9's")
+    _wait_child(sws_cpu, "sws_cpu")
+    if sws_cuda.wait() != 0:
+        raise AssertionError("swservice -n 2 --device cuda rc="
+                             f"{sws_cuda.returncode}: "
+                             f"{(WORK / 'sws_cuda.err').read_text()[-2000:]}")
+    chosen = (WORK / "sws_cuda.err").read_text()
+    csv = (WORK / "sws_cuda.csv").read_bytes()
+    if csv != (WORK / "sws_cpu.csv").read_bytes() or "over gloo" not in chosen:
+        raise AssertionError(f"phase 19: swservice -n 2 CSV differs cpu vs "
+                             f"cuda, or not over gloo: {chosen.strip()}")
+
+    sws_launches = _sws_launches(chosen)
+    if chosen.count(": kernel launches ") != 2:
+        raise AssertionError(f"phase 19: swservice -n 2 did not report the "
+                             f"launches of 2 ranks: {chosen.strip()}")
+
+    def total(part: str, name: str) -> int:
+        return sum(rep[part]["launches"][name] for rep in reports
+                   if part in rep)
+
+    launches = {}
+    for name in ("sort_rows", "sort2_rows", "hamming_extend_packed",
+                 "banded_sw_moves", "banded_sw_score", "sw_trace",
+                 "stream_gather_consume"):
+        launches[name] = {
+            "launches_sharded": sum(total(f"{d}x{s}", name)
+                                    for d, s in RANK_LAYOUTS)
+            if name in reports[0]["2x2"]["launches"] else 0,
+            "launches_ec_mesh": total("ec", name)
+            if name in reports[0]["ec"]["launches"] else 0,
+            "launches_swservice": sws_launches.get(name, 0)}
+    for name, want in (("sort_rows", "launches_sharded"),
+                       ("sort2_rows", "launches_sharded"),
+                       ("hamming_extend_packed", "launches_sharded"),
+                       ("banded_sw_moves", "launches_ec_mesh"),
+                       ("sw_trace", "launches_ec_mesh"),
+                       ("banded_sw_score", "launches_swservice")):
+        if launches[name][want] < 1:
+            raise AssertionError(f"phase 19: {name} never launched on "
+                                 f"{want[9:]}")
+    for n_dp, n_sp in RANK_LAYOUTS:
+        rep = [r[f"{n_dp}x{n_sp}"] for r in reports]
+        wall = max(r["wall_s"] for r in rep)
+        wall2 = max(r["wall2_s"] for r in rep)
+        timed = max(r["timed_wall_s"] for r in rep)
+        per_batch = lambda key: ", ".join(
+            f"{1e3 * r[key] / (N_READS // BATCH):.2f}" for r in rep)
+        peak = ", ".join(f"{r['peak_bytes'] / 2**20:.1f}" for r in rep)
+        print(f"sharded SE cell at ({n_dp}, {n_sp}), {RANKS} ranks on one "
+              f"card over gloo: {N_READS} reads in {wall:.3f} s, "
+              f"{N_READS / wall:.1f} reads/s, uninstrumented (single-rank "
+              f"engine {engine_rate:.1f} reads/s, phase 6); peak device "
+              f"memory a rank {peak} MiB; every field equal to AlignEngine. "
+              f"Second pass with the gather timed (a barrier and two "
+              f"synchronisations around each): {timed:.3f} s, "
+              f"{N_READS / timed:.1f} reads/s; third pass, uninstrumented: "
+              f"{wall2:.3f} s, {N_READS / wall2:.1f} reads/s; the gather "
+              f"{per_batch('gather_s')} ms a batch a rank (copies to the "
+              f"host included; {rep[0]['gathers']} gathers), the wait for "
+              f"the sp group's slowest rank before it {per_batch('wait_s')} "
+              f"ms ({smi})")
+    opt_s = max(r["options"]["wall_s"] for r in reports if "options" in r)
+    ec_s = max(r["ec"]["wall_s"] for r in reports if "ec" in r)
+    print(f"sharded options sample at {RANK_OPTIONS_LAYOUT}: {len(blk.codes)} "
+          f"reads, align_extended -a 10 -A 50000 and the pileup in "
+          f"{opt_s:.2f} s, equal to ChunkedExtendedAligner and "
+          f"PileupAccumulator; {int(opt['res']['unique'].sum())} accepted, "
+          f"{int((opt['res']['cigar_op'] != 0).sum())} by the fall-through")
+    print(f"EC cell with {EC_RANKS} ranks: wall {ec_s:.2f} s, "
+          f"{reports[0]['ec']['overlaps']} overlaps; FASTA of every rank "
+          f"equal to phase 9's byte for byte ({len(want_fa)} bytes)")
+    print(f"swservice -n 2 on {SWS_PROBES} x {SWS_PROBES} tie-rich pairs: "
+          f"--device cuda == --device cpu byte for byte ({len(csv)} bytes; "
+          f"{chosen.splitlines()[0].strip()}; launches {sws_launches}); "
+          f"NCCL world of one ({backend}): SE cell equal "
+          f"in {nccl_s:.2f} s; phase 19 set-up {setup_s:.1f} s, ranks "
+          f"{ranks_s:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2702,6 +3153,7 @@ def main() -> int:
     print(f"engine: {max(rates):.1f} reads/s best of 5 epochs "
           f"({', '.join(f'{r:.1f}' for r in rates)}; {N_READS} x {READ_LEN} "
           f"bp, batch {BATCH}, unique {n_unique}) on {smi}")
+    np.save(WORK / "se_reads.npy", reads)              # phase 19's input
     del engine, reads
     torch.cuda.empty_cache()
     lap("6")
@@ -2771,8 +3223,12 @@ def main() -> int:
     chunked_cli_finish(ck_runs)
     lap("16, end")
     long_launches = long_reads_finish(long_run, seqs, dev, smi)
-    del seqs
     lap("17, end")
+
+    # 19. several ranks: the sharded aligner, the EC mesh, swservice
+    rank_launches = several_ranks(seqs, dev, smi, max(rates))
+    del seqs
+    lap("19")
 
     src = "biokanga_tpu_torch/csrc/"
     rows = [
@@ -2818,6 +3274,7 @@ def main() -> int:
                 "launches_long_reads": long_launches[name],
                 "launches_big_genome": big_launches[name]}
                if name in se_launches else {}),
+            **rank_launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, **extra})

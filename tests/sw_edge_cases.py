@@ -1,7 +1,8 @@
 """Inputs that drive the SW kernels and the traceback decode to their edges,
-made with numpy from a seed; shared by tests/test_torch_sw_edges.py (the
-plain versions against the JAX package) and tests/test_torch_cuda.py (the
-kernels against the plain versions).  Imports neither jax nor torch.
+made with numpy from a seed; shared by tests/test_torch_sw_edges.py and
+tests/test_torch_swservice.py (the plain versions against the JAX
+package), tests/test_torch_cuda.py (the kernels against the plain
+versions) and chip_smoke.py.  Imports neither jax nor torch.
 """
 import numpy as np
 
@@ -105,4 +106,39 @@ def near_identical_pairs(seed: int, B: int, La: int, W: int):
         b[p, :len(t)], blen[p] = t, len(t)
         diag[p] = d
     alen[1] = 0
+    return a, b, alen, blen, diag
+
+
+def tie_rich_pairs(seed: int, B: int, La: int):
+    """(a, b, alen, blen, diag) numpy: every third pair a tandem repeat of
+    a 1-4 base unit (with a few substitutions), then noisy copies, then
+    unrelated pairs; Ns in one query and one target."""
+    rng = np.random.default_rng(seed)
+    Lb = La + 24
+    a = np.full((B, La), 4, np.int8)
+    b = np.full((B, Lb), 4, np.int8)
+    alen = np.zeros(B, np.int32)
+    blen = np.zeros(B, np.int32)
+    diag = rng.integers(-10, 11, B).astype(np.int32)
+    for p in range(B):
+        n = La - int(rng.integers(0, 30))
+        if p % 3 == 0:
+            unit = rng.integers(0, 4, int(rng.integers(1, 5))).astype(np.int8)
+            s = np.tile(unit, 2 * Lb // len(unit) + 2)
+            q = s[:n].copy()
+            t = s[int(rng.integers(0, 5)):][:Lb - int(rng.integers(0, 30))]
+            q[rng.random(n) < 0.03] = rng.integers(0, 4)
+        elif p % 3 == 1:
+            q = rng.integers(0, 4, n).astype(np.int8)
+            t = q.copy()
+            t[rng.random(n) < 0.08] = rng.integers(0, 4)
+            t = t[:Lb]
+        else:
+            q = rng.integers(0, 4, n).astype(np.int8)
+            t = rng.integers(0, 4, Lb - int(rng.integers(0, 30))).astype(
+                np.int8)
+        a[p, :len(q)], alen[p] = q, len(q)
+        b[p, :len(t)], blen[p] = t, len(t)
+    a[1, 20:23] = 4
+    b[4, 30] = 4
     return a, b, alen, blen, diag

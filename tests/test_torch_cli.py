@@ -12,8 +12,8 @@ are corrected by both CLIs at one and two rounds, target-chunked and with
 SW bands past 255; the FASTA files must be byte-identical.  The port runs with `--device cpu`,
 its kernels' plain versions.  A subprocess run shows the port's CLI never
 imports jax, and a scan of the sources that no module of the port, and
-not chip_smoke.py, profile_torch.py or the port's probe, SASS and bench
-scripts, imports jax or the JAX package.
+not chip_smoke.py, profile_torch.py or the port's probe, SASS, bench and
+multi-host scripts, imports jax or the JAX package.
 """
 import ast
 import functools
@@ -362,7 +362,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
               root / "scripts" / "sass_sw_torch.py",
               root / "scripts" / "bench_sw_torch.py",
               root / "scripts" / "bench_sort_torch.py",
-              root / "scripts" / "bench_extend_torch.py"]
+              root / "scripts" / "bench_extend_torch.py",
+              root / "scripts" / "multihost_dryrun_torch.py"]
     assert len(files) > 30
     bad = [(str(f.relative_to(root)), m) for f in files
            for m in _imported_modules(f)

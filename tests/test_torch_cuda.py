@@ -903,3 +903,73 @@ def test_long_read_aligner_on_the_card_equals_cpu(cuda_device):
         np.testing.assert_array_equal(out["cuda"][k], out["cpu"][k])
     assert out["cuda"]["unique"].all()
     assert out["cuda"]["locus"].tolist() == starts.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [2, 8, 24, 96])
+def test_banded_sw_batch_on_the_card_equals_plain(cuda_device, W):
+    """ops/sw.banded_sw_batch through kernels #6 and #5 on tie-rich pairs
+    (tests/sw_edge_cases.tie_rich_pairs): best score, best cell (the first
+    row to reach it, the lowest k there) and the unpacked move codes equal
+    the plain lazy-F row scan's."""
+    from sw_edge_cases import tie_rich_pairs
+
+    from biokanga_tpu_torch.ops.sw import (
+        banded_sw_batch,
+        banded_sw_batch_plain,
+    )
+
+    cpu = [torch.from_numpy(x) for x in tie_rich_pairs(W, 60, 300)]
+    want = banded_sw_batch_plain(*cpu, W, moves=True)
+    for moves, kernel in ((False, bsw.banded_sw_score),
+                          (True, bsw.banded_sw_moves)):
+        before = kernel.launches
+        got = banded_sw_batch(*[t.to(cuda_device) for t in cpu], W,
+                              moves=moves)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        for g, w, name in zip(got, want, ("best", "best_i", "best_k",
+                                          "moves")):
+            if name == "moves" and not moves:
+                assert g is None
+                continue
+            assert g.device.type == "cuda" and g.dtype == w.dtype, name
+            assert torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.cuda
+def test_sharded_aligner_two_ranks_on_the_card_equal_the_engine(
+        cuda_device, tmp_path):
+    """parallel/sharded.ShardedAligner at (1, 2): two processes on the
+    card (gloo between them), each holding one chunk, give the
+    single-device AlignEngine's result, exactly."""
+    from torch_dist_ranks import load, sharded_card_ranks, spawn
+
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.align.pipeline import (
+        RESULT_KEYS,
+        AlignEngine,
+        pad_rows,
+    )
+    from biokanga_tpu_torch.index.build import build_index
+    from biokanga_tpu_torch.index.device import to_device
+    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
+
+    seqs = random_genome([("c1", 300_000), ("c2", 200_000)], seed=31)
+    seg = seqs[0][1][2000:2600].copy()
+    seqs[1][1][7000:7600] = seg                  # a repeat: multi-hits
+    _, reads, _ = simulate_reads(seqs, 8_000, read_len=100, sub_rate=0.02,
+                                 seed=13)
+    reads[:16] = seg[100:200]
+    reads[16:24, 3] = 4
+    reads, lengths = pad_rows(reads, np.full(len(reads), 100, np.int32))
+    spawn(sharded_card_ranks, 2, str(tmp_path),
+          {"seqs": seqs, "reads": reads, "lengths": lengths})
+    got, where = load(str(tmp_path), "card")
+    assert where.startswith("cuda")
+    want = AlignEngine(to_device(build_index(seqs, lut_bases=8), cuda_device),
+                       AlignParams(cand_per_core=48)).align_with_rescue(
+                           reads, lengths)
+    for k in RESULT_KEYS:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert (got["inst"][:16] >= 2).all() and got["unique"].sum() > 7_000
