@@ -9,13 +9,14 @@ hand-written CUDA kernels live in csrc/ and are built on first use
 (kernels/); each has a plain torch version beside it that runs for CPU
 tensors.
 
-Ported so far: the index build (`index`, chunked too), short-read
-alignment (`align`: paired ends, and single ends with every option: SNP
-calls, micro-indels, splice junctions, chimeric trims, the post-passes,
-BAM), PacBio long-read error correction (`ecreads`), the SW service
-(`swservice`), and the multi-device layer on torch.distributed
+Ported so far: the index build (`index`, chunked, bisulfite and
+colorspace too), short-read alignment (`align`: paired ends, single ends
+with every option: SNP calls, micro-indels, splice junctions, chimeric
+trims, the post-passes, BAM; bisulfite and colorspace reads), PacBio
+long-read error correction (`ecreads`, resumable too), `pbfilter` and
+`contigs`, de novo assembly (`assemb`, `scaffold`, `pescaffold`), the SW
+service (`swservice`), and the multi-device layer on torch.distributed
 (parallel/: the sharded aligner, multi-host input, `ec_reads(mesh=...)`).
-Bisulfite and colorspace indexes are not ported yet.
 """
 
 __version__ = "0.1.0"

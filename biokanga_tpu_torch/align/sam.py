@@ -3,8 +3,7 @@ writers.
 
 Role of the reference's CSAMfile SAM path (libbiokanga/SAMfile.cpp;
 writer invoked from CAligner::WriteBAMReadHits, biokanga/Aligner.cpp:5543).
-align/bam.sam_to_bam turns the SAM into BAM.  Colorspace reads are not
-ported, so the colorspace branch of the single-end writer is left out.
+align/bam.sam_to_bam turns the SAM into BAM.
 """
 from __future__ import annotations
 
@@ -158,6 +157,8 @@ def write_alignments_sam(
     result,        # dict from AlignEngine.align_batch
     write_header=True,
     report_unmapped=True,
+    space="base",  # "color": SOLiD reads; rc = reversal (no complement),
+                   # SEQ is double-encoded colorspace (colors as ACGT)
 ):
     """Write one aligned block as SAM records.
 
@@ -194,7 +195,11 @@ def write_alignments_sam(
             codes = reads[i, :L]
             if unique[i]:
                 rc = bool(is_rc[i])
-                seq = codes_to_ascii(revcomp(codes) if rc else codes).decode()
+                if rc and space == "color":
+                    seq = codes_to_ascii(codes[::-1]).decode()
+                else:
+                    seq = codes_to_ascii(
+                        revcomp(codes) if rc else codes).decode()
                 clip5 = int(result["clip5"][i]) if "clip5" in result else 0
                 clip3 = int(result["clip3"][i]) if "clip3" in result else 0
                 if clip5 or clip3:  # chimeric soft-clips (AdaptiveTrim)

@@ -1,8 +1,9 @@
-"""CLI of the PyTorch port: `index`, `align` (single and paired ends),
-PacBio `ecreads` and `swservice`.
+"""CLI of the PyTorch port: `index`, `align` (single and paired ends,
+bisulfite and colorspace), PacBio `ecreads`, `pbfilter`, `contigs` and
+`swservice`, and de novo assembly (`assemb`, `scaffold`, `pescaffold`).
 
 Usage:  python -m biokanga_tpu_torch index -i ref.fa -o ref.npz \
-            [-m 0|2 -s <Mbp> --lut-bases 0 --chunks 0
+            [-m 0|1|2 -C -s <Mbp> --lut-bases 0 --chunks 0
              --chunk-overlap 2048 -q runs.db]
         python -m biokanga_tpu_torch align -i reads.fq -I ref.npz \
             -o out.sam|out.bam [--device cuda]
@@ -13,7 +14,14 @@ Usage:  python -m biokanga_tpu_torch index -i ref.fa -o ref.npz \
         python -m biokanga_tpu_torch align -i r1.fq -u r2.fq -I ref.npz \
             -o out.sam [-d 100 -D 1000 -E --peinsertdist ins.csv]
         python -m biokanga_tpu_torch ecreads -i reads.fa -o out.fa \
-            [--device cuda]
+            [--checkpoint-dir ck --device cuda]
+        python -m biokanga_tpu_torch pbfilter -i raw.fa -o subreads.fa
+        python -m biokanga_tpu_torch contigs -i ec.fa -o contigs.fa
+        python -m biokanga_tpu_torch assemb -i r1.fa -i r2.fa -o contigs.fa
+        python -m biokanga_tpu_torch scaffold -c contigs.fa -i r1.fq \
+            -u r2.fq -o scaffolds.fa
+        python -m biokanga_tpu_torch pescaffold -i pe1.sam -u pe2.sam \
+            -o scaffolds.csv
         python -m biokanga_tpu_torch swservice -a probes.fa -b targets.fa \
             -o scores.csv [--sw-band 96 --pairs zip|cross -n N --device cuda]
 
@@ -31,9 +39,11 @@ container; as in the JAX CLI they take none of the single-end passes.
 genome-range chunked index; `align` against it sweeps the chunks and
 merges exactly, for single ends (with -a -A -O --checkpoint-dir) and
 pairs, and ignores what the JAX CLI's chunked branch ignores.  Reads past 4,096 bases align
-on the dense extension path.  Bisulfite and colorspace indexes are not in
-this package yet: `index` refuses `-m 1` and `-C`, and `align` refuses
-such index files.
+on the dense extension path.  `index -m 1` writes a bisulfite index pair
+and `index -C` a colorspace index; `align` against either runs the
+two-pass aligner of its kind (`-i` colour reads as `.csfasta` for the
+latter).  `pbfilter` and `pescaffold` are host code and take no device;
+`assemb`, `scaffold` and `contigs` take `--device` as `align` does.
 """
 from __future__ import annotations
 
@@ -60,6 +70,13 @@ def _expand_response_files(argv: list[str]) -> list[str]:
     return out
 
 
+def _add_device(p: argparse.ArgumentParser) -> None:
+    """The --device argument of the commands that run on a device."""
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default; raises without CUDA) "
+                        "or cpu (the kernels' plain versions)")
+
+
 def cmd_index(argv: list[str]) -> int:
     """`index`: genome FASTA -> on-disk index, following
     biokanga_tpu/cli.py:36-158 (reference front-end biokanga/kangax.cpp:59).
@@ -75,11 +92,12 @@ def cmd_index(argv: list[str]) -> int:
     p.add_argument("-o", "--out", required=True, help="output index file (.npz)")
     p.add_argument("-r", "--ref", default="", help="reference species/tag")
     p.add_argument("-m", "--mode", type=int, default=0, choices=(0, 1, 2),
-                   help="0 standard; 2 synthetic pseudorandom genome "
-                        "benchmark (kangax -m2 role); 1 (bisulfite) is not "
-                        "ported yet")
+                   help="0 standard; 1 bisulfite methylation index "
+                        "(kangax -m1 role); 2 synthetic pseudorandom "
+                        "genome benchmark (kangax -m2 role)")
     p.add_argument("-C", "--colorspace", action="store_true",
-                   help="SOLiD colorspace index: not ported yet")
+                   help="SOLiD colorspace index (kangax -C role): genome "
+                        "is dibase-color transformed before indexing")
     p.add_argument("-s", "--synthetic-mbp", type=int, default=100,
                    help="mode 2: synthetic genome size in Mbp")
     p.add_argument("--lut-bases", type=int, default=0,
@@ -96,12 +114,7 @@ def cmd_index(argv: list[str]) -> int:
     p.add_argument("-F", "--log", default=None)
     args = p.parse_args(argv)
     # the JAX CLI's branches: -m 2 ignores -C and --chunks, -m 1 ignores -C
-    if args.mode == 1:
-        p.error("-m 1: bisulfite indexes are not ported yet (ROADMAP.md, "
-                "queue 1, item 5)")
-    if args.mode == 0 and args.colorspace:
-        p.error("-C: colorspace indexes are not ported yet (ROADMAP.md, "
-                "queue 1, item 5)")
+    # and --chunks, -C ignores --chunks
     log = open_diagnostics(args.log, name="biokanga-tpu-torch")
     sw = StopWatch()
     from .index.build import build_index, save_index
@@ -111,6 +124,15 @@ def cmd_index(argv: list[str]) -> int:
             return args.lut_bases
         return 10 if total_bp <= 20_000_000 else 12
 
+    def read_all(flag: str) -> list:
+        """(name, codes) of every record of every -i file."""
+        if not args.infasta:
+            p.error(f"-i/--infasta required {flag}")
+        from .seq.fasta import read_seqs
+
+        return [(r.name, r.codes) for path in args.infasta
+                for r in read_seqs(path)]
+
     if args.mode == 2:
         from .sim.simreads import random_genome
 
@@ -119,14 +141,26 @@ def cmd_index(argv: list[str]) -> int:
         log.info("synthetic genome: %d Mbp (RAM-only benchmark mode)",
                  args.synthetic_mbp)
         idx = build_index(seqs, lut_bases=auto_lut(nbp))
-    else:
-        if not args.infasta:
-            p.error("-i/--infasta required unless -m2")
-        from .seq.fasta import read_seqs
+    elif args.mode == 1:
+        from .index.build import build_bisulfite_indexes, save_bisulfite_index
 
-        seqs = []
-        for path in args.infasta:
-            seqs.extend((r.name, r.codes) for r in read_seqs(path))
+        seqs = read_all("for -m1")
+        ct, ga = build_bisulfite_indexes(
+            seqs, lut_bases=auto_lut(sum(len(x) for _, x in seqs)))
+        log.info("bisulfite-indexed %d entries, %d bp in %.1fs",
+                 ct.num_entries, ct.total_len, sw.mark("build"))
+        save_bisulfite_index(ct, ga, args.out)
+        log.info("bisulfite index written to %s (%.1fs)", args.out,
+                 sw.elapsed())
+        return 0
+    elif args.colorspace:
+        from .index.build import build_colorspace_index
+
+        seqs = read_all("for -C")
+        idx = build_colorspace_index(
+            seqs, lut_bases=auto_lut(sum(len(x) for _, x in seqs)))
+    else:
+        seqs = read_all("unless -m2")
         total = sum(len(s) for _, s in seqs)
         if args.chunks > 0 or total >= 2**31:
             from .index.chunked import build_chunked_index, save_chunked_index
@@ -240,9 +274,7 @@ def cmd_align(argv: list[str]) -> int:
     p.add_argument("--checkpoint-dir", default=None,
                    help="persist each block's result here and resume a "
                         "killed single-end run at the first missing block")
-    p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default; raises without CUDA) "
-                        "or cpu (the kernels' plain versions)")
+    _add_device(p)
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     log = open_diagnostics(args.log, name="biokanga-tpu-torch")
@@ -255,10 +287,6 @@ def cmd_align(argv: list[str]) -> int:
     from .index.device import to_device
     from .seq.fasta import read_blocks
     from .seq.rds import is_rds, rds_info, read_rds_blocks
-
-    if is_bisulfite_index(args.sfx):
-        p.error(f"{args.sfx}: bisulfite indexes are not ported yet "
-                f"(ROADMAP.md, queue 1, item 5)")
 
     def _input_blocks(path, mate=None):
         """FASTA/FASTQ or packed .rds container."""
@@ -280,18 +308,25 @@ def cmd_align(argv: list[str]) -> int:
             sam_to_bam(args.out, bam_out)
             os.remove(args.out)
 
+    if is_bisulfite_index(args.sfx):
+        _align_bisulfite(args, device, log, sw)
+        finish_bam()
+        return 0
+
     if is_chunked_index(args.sfx):
         _align_chunked(args, device, _input_blocks, log, sw)
         finish_bam()
         return 0
 
     idx = load_index(args.sfx)
-    if idx.space == "color":
-        p.error(f"{args.sfx}: colorspace indexes are not ported yet "
-                f"(ROADMAP.md, queue 1, item 5)")
     didx = to_device(idx, device)
     log.info("index loaded on %s: %d bp, %d entries (%.1fs)",
              device, idx.total_len, idx.num_entries, sw.mark("load"))
+
+    if idx.space == "color":
+        _align_colorspace(args, idx, didx, log, sw)
+        finish_bam()
+        return 0
 
     params = AlignParams(
         # PCR5PrimerCorrect mode aligns with a widened sub budget, then
@@ -798,6 +833,83 @@ def _align_pairs(args, engine, idx, input_blocks, pe_mates, log, sw) -> int:
     return 0
 
 
+def _two_pass_sam(args, aligner, idx, blocks, kind, log, sw,
+                  space="base") -> None:
+    """The SAM of a two-pass aligner (bisulfite or colorspace) over every
+    block of every input, as the JAX CLI writes it."""
+    from .align.pipeline import pad_rows
+    from .align.sam import write_alignments_sam
+
+    n_total = n_unique = 0
+    with open(args.out, "w") as out:
+        first = True
+        for path in args.inreads:
+            for blk in blocks(path, block_size=args.batch_size):
+                codes, lens = pad_rows(blk.codes, blk.lengths)
+                res = aligner.align_batch(codes, lens)
+                write_alignments_sam(
+                    out, idx.entry_names, idx.entry_starts,
+                    blk.names, blk.codes, blk.lengths, res,
+                    write_header=first, space=space,
+                )
+                first = False
+                n_total += len(blk.names)
+                n_unique += int(res["unique"].sum())
+    log.info("%s-aligned %d reads: %d unique (%.2f%%) in %.1fs", kind,
+             n_total, n_unique, 100.0 * n_unique / max(n_total, 1),
+             sw.elapsed())
+
+
+def _align_bisulfite(args, device, log, sw) -> None:
+    """`align` against a bisulfite index pair, following
+    biokanga_tpu/cli.py:273-312: every read C->T collapsed through a CT
+    sense engine and a GA antisense engine, merged on the host."""
+    import dataclasses
+
+    from .align.bisulfite import BisulfiteAligner
+    from .align.params import AlignParams, Sensitivity
+    from .align.pipeline import AlignEngine
+    from .index.build import load_bisulfite_index
+    from .index.device import to_device
+    from .seq.fasta import read_blocks
+
+    ict, iga = load_bisulfite_index(args.sfx)
+    params_ct = AlignParams(
+        max_subs_per100=args.substitutions,
+        min_edit_dist=args.editdelta, max_multi=args.maxmulti,
+        mode=Sensitivity(args.mode), strand="sense",
+        batch_size=args.batch_size,
+    )
+    params_ga = dataclasses.replace(params_ct, strand="antisense")
+    bs = BisulfiteAligner(
+        AlignEngine(to_device(ict, device), params_ct),
+        AlignEngine(to_device(iga, device), params_ga),
+    )
+    log.info("bisulfite index loaded on %s: %d bp, %d entries (%.1fs)",
+             device, ict.total_len, ict.num_entries, sw.mark("load"))
+    _two_pass_sam(args, bs, ict, read_blocks, "bisulfite", log, sw)
+
+
+def _align_colorspace(args, idx, didx, log, sw) -> None:
+    """`align` of SOLiD .csfasta colour reads against a colorspace index,
+    following biokanga_tpu/cli.py:476-508: one sense engine on the colours
+    and on the reversed colours."""
+    from .align.colorspace import ColorspaceAligner
+    from .align.params import AlignParams, Sensitivity
+    from .align.pipeline import AlignEngine
+    from .seq.fasta import read_csfasta_blocks
+
+    cs_params = AlignParams(
+        max_subs_per100=args.substitutions,
+        min_edit_dist=args.editdelta, max_multi=args.maxmulti,
+        mode=Sensitivity(args.mode), strand="sense",
+        batch_size=args.batch_size,
+    )
+    cs = ColorspaceAligner(AlignEngine(didx, cs_params))
+    _two_pass_sam(args, cs, idx, read_csfasta_blocks, "colorspace", log, sw,
+                  space="color")
+
+
 def cmd_ecreads(argv: list[str]) -> int:
     """`pacbiokanga ecreads` parity, following biokanga_tpu/cli.py:1571-1617."""
     p = argparse.ArgumentParser(prog="biokanga-tpu-torch ecreads")
@@ -816,19 +928,15 @@ def cmd_ecreads(argv: list[str]) -> int:
                    help="index at most this many target reads at a time "
                         "(bounds device memory; 0 = all)")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="not ported yet (see ROADMAP.md)")
+                   help="resumable per-group correction checkpoints (one "
+                        "round, as in the JAX CLI)")
     p.add_argument("-F", "--log", default=None)
-    p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default; raises without CUDA) "
-                        "or cpu (the kernels' plain versions)")
+    _add_device(p)
     args = p.parse_args(argv)
-    if args.checkpoint_dir:
-        p.error("--checkpoint-dir: resumable EC (utils/checkpoint) is not "
-                "ported yet; see ROADMAP.md, queue 1")
     device = resolve_device(args.device)
     log = open_diagnostics(args.log, name="biokanga-tpu-torch")
     sw = StopWatch()
-    from .pacbio.ecreads import ECParams, ec_reads
+    from .pacbio.ecreads import ECParams, ec_reads, ec_reads_checkpointed
     from .seq.fasta import read_seqs, write_fasta
 
     names, reads = [], []
@@ -840,9 +948,14 @@ def cmd_ecreads(argv: list[str]) -> int:
                    min_seed_votes=args.min_seed_votes,
                    sw_band=args.sw_band, min_overlap_score=args.min_score,
                    max_targets=args.max_targets)
-    corrected, stats = ec_reads(reads, ecp,
-                                target_chunk=args.target_chunk or None,
-                                rounds=max(1, args.rounds), device=device)
+    if args.checkpoint_dir:
+        corrected, stats = ec_reads_checkpointed(
+            reads, ecp, checkpoint_dir=args.checkpoint_dir, device=device)
+    else:
+        corrected, stats = ec_reads(reads, ecp,
+                                    target_chunk=args.target_chunk or None,
+                                    rounds=max(1, args.rounds),
+                                    device=device)
     write_fasta(args.out, zip(names, corrected))
     device_time = ("; device time: SW {sw_ms} ms, traceback {trace_ms} ms"
                    .format(**stats) if "sw_ms" in stats else "")
@@ -954,8 +1067,173 @@ def cmd_swservice(argv: list[str]) -> int:
     return 0
 
 
+def cmd_pbfilter(argv: list[str]) -> int:
+    """`pacbiokanga filter` parity (CPBFilter): retained-SMRTbell removal,
+    following biokanga_tpu/cli.py:1953-1979.  Host numpy: no --device."""
+    p = argparse.ArgumentParser(prog="biokanga-tpu-torch pbfilter")
+    p.add_argument("-i", "--inreads", action="append", required=True)
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--min-subread-len", type=int, default=500)
+    p.add_argument("--max-adapter-mm", type=int, default=9)
+    p.add_argument("--trim-ends", type=int, default=0)
+    args = p.parse_args(argv)
+    from .pacbio.pbfilter import PBFilterParams, pb_filter
+    from .seq.fasta import read_seqs, write_fasta
+
+    reads = []
+    for path in args.inreads:
+        reads.extend((r.name, r.codes) for r in read_seqs(path))
+    kept, st = pb_filter(
+        reads,
+        PBFilterParams(min_subread_len=args.min_subread_len,
+                       max_adapter_mm=args.max_adapter_mm,
+                       trim_ends=args.trim_ends),
+    )
+    write_fasta(args.out, kept)
+    print(f"pbfilter: {st.reads_in} reads in, {st.reads_with_adapter} with "
+          f"retained adapter, {st.subreads_out} subreads out "
+          f"({st.bases_out}/{st.bases_in} bases)")
+    return 0
+
+
+def cmd_assemb(argv: list[str]) -> int:
+    """`biokanga assemb` parity (CdeNovoAssemb, deNovoAssemb.cpp:109),
+    following biokanga_tpu/cli.py:1504-1536."""
+    p = argparse.ArgumentParser(prog="biokanga-tpu-torch assemb")
+    p.add_argument("-i", "--inreads", action="append", required=True)
+    p.add_argument("-o", "--out", required=True, help="contig FASTA")
+    p.add_argument("--init-overlap", type=int, default=150)
+    p.add_argument("--final-overlap", type=int, default=25)
+    p.add_argument("--min-seq-len", type=int, default=80)
+    p.add_argument("--max-subs-100", type=float, default=1.0)
+    p.add_argument("-F", "--log", default=None)
+    _add_device(p)
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    log = open_diagnostics(args.log, name="biokanga-tpu-torch")
+    sw = StopWatch()
+    from .assembly.assemble import assemble
+    from .seq.fasta import read_seqs, write_fasta
+
+    seqs = []
+    for path in args.inreads:
+        seqs.extend(r.codes for r in read_seqs(path))
+    contigs, st = assemble(
+        seqs, init_overlap=args.init_overlap,
+        final_overlap=args.final_overlap, min_seq_len=args.min_seq_len,
+        max_subs_per_100=args.max_subs_100, device=device,
+    )
+    contigs.sort(key=len, reverse=True)
+    write_fasta(args.out, ((f"contig{i+1}", c)
+                           for i, c in enumerate(contigs)))
+    log.info(
+        "assembled %d seqs -> %d contigs (%d bp, max %d) in %d passes,"
+        " %.1fs", len(seqs), st.n_contigs, st.total_bp, st.max_contig,
+        st.passes, sw.elapsed(),
+    )
+    return 0
+
+
+def cmd_scaffold(argv: list[str]) -> int:
+    """`biokanga scaffold` parity (CScaffolder, Scaffolder.cpp:772),
+    following biokanga_tpu/cli.py:1539-1566."""
+    p = argparse.ArgumentParser(prog="biokanga-tpu-torch scaffold")
+    p.add_argument("-c", "--contigs", required=True)
+    p.add_argument("-i", "--pe1", required=True)
+    p.add_argument("-u", "--pe2", required=True)
+    p.add_argument("-o", "--out", required=True, help="scaffold FASTA")
+    p.add_argument("--insert-size", type=int, default=400)
+    p.add_argument("--min-votes", type=int, default=2)
+    p.add_argument("-F", "--log", default=None)
+    _add_device(p)
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    log = open_diagnostics(args.log, name="biokanga-tpu-torch")
+    from .assembly.scaffold import scaffold
+    from .seq.fasta import read_blocks, read_seqs, write_fasta
+
+    contigs = [r.codes for r in read_seqs(args.contigs)]
+    b1 = next(read_blocks(args.pe1, block_size=1 << 30))
+    b2 = next(read_blocks(args.pe2, block_size=1 << 30))
+    scaffolds, paths = scaffold(
+        contigs, b1.codes, b1.lengths, b2.codes, b2.lengths,
+        insert_size=args.insert_size, min_votes=args.min_votes,
+        device=device,
+    )
+    write_fasta(args.out, ((f"scaffold{i+1}", s)
+                           for i, s in enumerate(scaffolds)))
+    n_joined = sum(1 for p_ in paths if len(p_) > 1)
+    log.info("%d contigs -> %d scaffolds (%d joined paths)",
+             len(contigs), len(scaffolds), n_joined)
+    return 0
+
+
+def cmd_contigs(argv: list[str]) -> int:
+    """`pacbiokanga contigs` parity (CPBAssemb): assemble error-corrected
+    long reads with a relaxed-identity overlap schedule, following
+    biokanga_tpu/cli.py:1620-1657."""
+    p = argparse.ArgumentParser(prog="biokanga-tpu-torch contigs")
+    p.add_argument("-i", "--inreads", action="append", required=True)
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--min-overlap", type=int, default=500)
+    p.add_argument("--final-overlap", type=int, default=100)
+    p.add_argument("--max-subs-100", type=float, default=5.0)
+    p.add_argument("--no-kmer-dedup", action="store_true",
+                   help="skip the indel-tolerant k-mer containment "
+                        "collapse of redundant contigs")
+    _add_device(p)
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    from .assembly.assemble import assemble, kmer_containment_dedup
+    from .seq.fasta import read_seqs, write_fasta
+
+    seqs = []
+    for path in args.inreads:
+        seqs.extend(r.codes for r in read_seqs(path))
+    contigs, st = assemble(
+        seqs, init_overlap=args.min_overlap,
+        final_overlap=args.final_overlap, min_seq_len=200,
+        max_subs_per_100=args.max_subs_100, device=device,
+    )
+    if not args.no_kmer_dedup:
+        # corrected CLR reads carry residual indels that defeat the
+        # Hamming containment pass; collapse contigs whose canonical
+        # 32-mers are already covered by kept longer contigs
+        contigs = kmer_containment_dedup(contigs)
+        st.n_contigs = len(contigs)
+        st.total_bp = int(sum(len(c) for c in contigs))
+        st.max_contig = int(max((len(c) for c in contigs), default=0))
+    contigs.sort(key=len, reverse=True)
+    write_fasta(args.out, ((f"contig{i+1}", c)
+                           for i, c in enumerate(contigs)))
+    print(f"{len(seqs)} reads -> {st.n_contigs} contigs (max {st.max_contig})")
+    return 0
+
+
+def cmd_pescaffold(argv: list[str]) -> int:
+    """`biokanga pescaffold` parity (CPEScaffold, PEScaffold.cpp),
+    following biokanga_tpu/cli.py:2504-2518.  It reads two SAM files on
+    the host and runs nothing on a device, so it takes no --device."""
+    p = argparse.ArgumentParser(prog="biokanga-tpu-torch pescaffold")
+    p.add_argument("-i", "--pe1sam", required=True)
+    p.add_argument("-u", "--pe2sam", required=True)
+    p.add_argument("-o", "--out", required=True)
+    p.add_argument("--min-votes", type=int, default=2)
+    args = p.parse_args(argv)
+    from .tools.pescaffold import pe_scaffold, write_pescaffold_csv
+
+    paths = pe_scaffold(args.pe1sam, args.pe2sam, args.min_votes)
+    write_pescaffold_csv(args.out, paths)
+    joined = sum(1 for x in paths if len(x) > 1)
+    print(f"{len(paths)} scaffold paths ({joined} multi-contig)")
+    return 0
+
+
 SUBCOMMANDS = {"index": cmd_index, "align": cmd_align,
-               "ecreads": cmd_ecreads, "swservice": cmd_swservice}
+               "ecreads": cmd_ecreads, "swservice": cmd_swservice,
+               "pbfilter": cmd_pbfilter, "assemb": cmd_assemb,
+               "scaffold": cmd_scaffold, "contigs": cmd_contigs,
+               "pescaffold": cmd_pescaffold}
 
 
 def main(argv: list[str] | None = None) -> int:

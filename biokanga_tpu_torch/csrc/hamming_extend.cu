@@ -48,6 +48,18 @@
 // kernel's simpler mapping.  Several candidates a thread, 16-byte row
 // loads and read words staged in shared memory ran slower (PERF.md, #3's
 // designs tried).
+//
+// The windowed entry (#3w), `hamming_extend_packed_win`, replaces the XLA
+// function biokanga_tpu/ops/extend_packed.py `hamming_extend_packed_win`,
+// the hot loop of the assembler's overlap sweep (assembly/scale_overlap):
+// the same kernel with a window per candidate in place of the read's
+// length.  win (B, C) is clipped to [0, 16 W]; a candidate needs win > 0,
+// locus >= 0, locus + win - 1 < n and its window (not the read) inside
+// one entry; the lane mask is the window's; read and genome Ns count as
+// mismatches; the output is the int32 count, unclamped, and 2^30 where
+// invalid.  A candidate counts only the ceil(win / 16) words its window
+// covers, so the loop path (W > 16: overlaps of 257 to 4,096 bases) does
+// the work this call's windows need, not W words each.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,7 +124,8 @@ __device__ __forceinline__ uint32_t row_word(const uint32_t* __restrict__ tab,
     return __ldg(tab + (int64_t)r * 16 + (i & 15));
 }
 
-// Any word count, rows clamped to the table: reads past 256 bases.
+// Any word count, rows clamped to the table: reads past 256 bases, and
+// the first W words of a window.
 __device__ int mismatches_any(const uint32_t* __restrict__ rows,
                               const uint32_t* __restrict__ n_rows, int R,
                               int64_t locus, const uint32_t* __restrict__ rc,
@@ -140,8 +153,10 @@ __device__ int mismatches_any(const uint32_t* __restrict__ rows,
 // NW = 1..16: a candidate's window words in registers; NW = 0: any word
 // count, a loop.  One thread a candidate; the threads of a block take
 // consecutive candidates, so a warp's lanes share one or two reads and
-// their words come from L1.
-template <int NW, bool HAS_N>
+// their words come from L1.  WIN: the compare window is win[i] (clipped
+// to [0, 16 W]) and the output int32 (module note); else the read's
+// length and uint8.
+template <int NW, bool HAS_N, bool WIN>
 __global__ void __launch_bounds__(kThreads)
 hamming_extend_kernel(const uint32_t* __restrict__ rows,
                       const uint32_t* __restrict__ n_rows, int R,
@@ -151,7 +166,8 @@ hamming_extend_kernel(const uint32_t* __restrict__ rows,
                       const uint32_t* __restrict__ rcodes,
                       const uint32_t* __restrict__ rnlane,
                       const int32_t* __restrict__ lengths,
-                      uint8_t* __restrict__ out, int B, int C, int W) {
+                      const int32_t* __restrict__ win, void* __restrict__ out,
+                      int B, int C, int W) {
     extern __shared__ int32_t s_starts[];
     const bool staged = n_starts <= kSmemStarts;
     if (staged)
@@ -168,7 +184,14 @@ hamming_extend_kernel(const uint32_t* __restrict__ rows,
         bool ok = valid[i] != 0;
         const int b = narrow ? (int)((uint32_t)i / (uint32_t)C)
                              : (int)(i / C);
-        const int len = lengths[b];
+        int len;
+        if constexpr (WIN) {
+            const int w = win[i];
+            len = w < 0 ? 0 : (w > 16 * W ? 16 * W : w);
+            ok = ok && len > 0;
+        } else {
+            len = lengths[b];
+        }
         // last = locus + len - 1 < genome_len
         ok = ok && locus >= 0 && locus <= (int64_t)genome_len - len;
         const int64_t last = (int64_t)locus + len - 1;
@@ -177,13 +200,13 @@ hamming_extend_kernel(const uint32_t* __restrict__ rows,
                                           last)
                         : one_entry<false>(starts, n_starts, top, locus,
                                            last);
-        uint8_t res = 255;
+        int mm = -1;
         if (ok) {
             const uint32_t* rc = rcodes + (int64_t)b * W;
             const uint32_t* rn = rnlane + (int64_t)b * W;
             const int r0 = locus >> 7;
             const int s16 = (locus >> 4) & 7;
-            int mm = 0;
+            mm = 0;
             if (NW > 0 && r0 + 2 * ((s16 + NW) >> 4) < R) {
                 // words s16 .. s16+NW of row r0, and of row r0+2 (32 words
                 // on) once past the row's 16
@@ -205,12 +228,16 @@ hamming_extend_kernel(const uint32_t* __restrict__ rows,
                                   sh, __ldg(rc + j), __ldg(rn + j),
                                   len_mask(len, j));
             } else {
+                // a window counts only the words it covers
                 mm = mismatches_any(rows, HAS_N ? n_rows : nullptr, R, locus,
-                                    rc, rn, len, W);
+                                    rc, rn, len, WIN ? (len + 15) >> 4 : W);
             }
-            res = (uint8_t)(mm < 254 ? mm : 254);
         }
-        out[i] = res;
+        if constexpr (WIN)
+            static_cast<int32_t*>(out)[i] = mm < 0 ? 1 << 30 : mm;
+        else
+            static_cast<uint8_t*>(out)[i] =
+                (uint8_t)(mm < 0 ? 255 : (mm < 254 ? mm : 254));
     }
 }
 
@@ -223,15 +250,16 @@ struct Args {
     const uint8_t* valid;
     const uint32_t *rcodes, *rnlane;
     const int32_t* lengths;
-    uint8_t* out;
+    const int32_t* win;       // NULL but for the windowed entry
+    void* out;
     int B, C, W;
 };
 
 constexpr int kMaxDevices = 64;
 
-template <int NW, bool HAS_N>
+template <int NW, bool HAS_N, bool WIN>
 cudaError_t launch(const Args& x, cudaStream_t stream) {
-    const auto kernel = hamming_extend_kernel<NW, HAS_N>;
+    const auto kernel = hamming_extend_kernel<NW, HAS_N, WIN>;
     const size_t smem =
         x.n_starts <= kSmemStarts ? (size_t)x.n_starts * sizeof(int32_t) : 0;
     // one wave of blocks on each card, asked of the runtime on the first
@@ -258,19 +286,29 @@ cudaError_t launch(const Args& x, cudaStream_t stream) {
     const int grid = (int)(want < cap ? want : cap);
     kernel<<<grid, kThreads, smem, stream>>>(
         x.rows, x.n_rows, x.R, x.genome_len, x.starts, x.n_starts, x.loci,
-        x.valid, x.rcodes, x.rnlane, x.lengths, x.out, x.B, x.C, x.W);
+        x.valid, x.rcodes, x.rnlane, x.lengths, x.win, x.out, x.B, x.C,
+        x.W);
     return cudaGetLastError();
 }
 
 // The kernel for W words: NW = W up to 16, else the loop (NW = 0).
-template <bool HAS_N, int NW = 1>
+template <bool HAS_N, bool WIN, int NW = 1>
 cudaError_t launch_words(const Args& x, cudaStream_t stream) {
     if constexpr (NW <= kMaxFastWords) {
-        if (x.W == NW) return launch<NW, HAS_N>(x, stream);
-        return launch_words<HAS_N, NW + 1>(x, stream);
+        if (x.W == NW) return launch<NW, HAS_N, WIN>(x, stream);
+        return launch_words<HAS_N, WIN, NW + 1>(x, stream);
     } else {
-        return launch<0, HAS_N>(x, stream);
+        return launch<0, HAS_N, WIN>(x, stream);
     }
+}
+
+template <bool WIN>
+int launch_any(const Args& x, void* stream) {
+    if (x.B <= 0 || x.C <= 0) return (int)cudaGetLastError();
+    if (x.R <= 0 || x.W < 0) return (int)cudaErrorInvalidValue;
+    const auto s = (cudaStream_t)stream;
+    return (int)(x.n_rows ? launch_words<true, WIN>(x, s)
+                          : launch_words<false, WIN>(x, s));
 }
 
 }  // namespace
@@ -280,15 +318,27 @@ extern "C" int hamming_extend_packed(
     const void* entry_starts, int n_starts, const void* loci,
     const void* valid, const void* rcodes, const void* rnlane,
     const void* lengths, void* out, int B, int C, int W, void* stream) {
-    if (B <= 0 || C <= 0) return (int)cudaGetLastError();
-    if (R <= 0 || W < 0) return (int)cudaErrorInvalidValue;
-    const Args x{(const uint32_t*)rows,   (const uint32_t*)n_rows, R,
-                 genome_len,              (const int32_t*)entry_starts,
-                 n_starts,                (const int32_t*)loci,
-                 (const uint8_t*)valid,   (const uint32_t*)rcodes,
-                 (const uint32_t*)rnlane, (const int32_t*)lengths,
-                 (uint8_t*)out,           B,
-                 C,                       W};
-    const auto s = (cudaStream_t)stream;
-    return (int)(n_rows ? launch_words<true>(x, s) : launch_words<false>(x, s));
+    return launch_any<false>(
+        Args{(const uint32_t*)rows, (const uint32_t*)n_rows, R, genome_len,
+             (const int32_t*)entry_starts, n_starts, (const int32_t*)loci,
+             (const uint8_t*)valid, (const uint32_t*)rcodes,
+             (const uint32_t*)rnlane, (const int32_t*)lengths, nullptr, out,
+             B, C, W},
+        stream);
+}
+
+// The windowed entry: win (B, C) int32 in place of lengths, out (B, C)
+// int32.
+extern "C" int hamming_extend_packed_win(
+    const void* rows, const void* n_rows, int R, int genome_len,
+    const void* entry_starts, int n_starts, const void* loci,
+    const void* valid, const void* rcodes, const void* rnlane,
+    const void* win, void* out, int B, int C, int W, void* stream) {
+    return launch_any<true>(
+        Args{(const uint32_t*)rows, (const uint32_t*)n_rows, R, genome_len,
+             (const int32_t*)entry_starts, n_starts, (const int32_t*)loci,
+             (const uint8_t*)valid, (const uint32_t*)rcodes,
+             (const uint32_t*)rnlane, nullptr, (const int32_t*)win, out, B,
+             C, W},
+        stream);
 }

@@ -63,8 +63,14 @@
 // path does; the last merge writes the first C positions out.  A row of
 // P = 2^19 takes 1 + 4 + 4 launches, each a pass over the scratch rows:
 // the passes' bytes bound it.  Any P whose scratch rows fit in device
-// memory sorts; positions are 64-bit.  Only the one-key sort has this
-// path; the accept sort is at most 3,072 pairs wide.
+// memory sorts; positions are 64-bit.
+//
+// Pair rows past 16,384 (the sharded multi-hit union's K x n_sp pairs:
+// 33 sp ranks at -R 500) take the same path with each pair packed into
+// one 64-bit word in scratch, as the block path packs it: chunks of
+// 16,384 pairs (the pair block path's reach), 16 a lane, and a level
+// pass holding at most 32 chunks' columns a thread.  The levels and the
+// tail are templated on the element type, so both sorts run one network.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -433,8 +439,36 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // ---- rows past the block path: a scratch row of P positions ----------
 
-constexpr int kWideChunk = 32 * 1024;  // positions a block sorts or merges
-constexpr int kWideV = 32;             // values a lane (a warp: 1,024)
+// What the wide path does for each element type: positions a block sorts
+// or merges (the block path's reach), values a lane, and the largest
+// group of spans one level pass holds in registers (2^kMaxLogG spans, a
+// column and its mirror of each: 2 x 64 int32 or 2 x 32 uint64 a thread).
+template <typename T>
+struct Wide;
+template <>
+struct Wide<int32_t> {
+    static constexpr int kChunk = 32 * 1024, kV = 32, kMaxLogG = 6;
+};
+template <>
+struct Wide<u64> {
+    static constexpr int kChunk = 16 * 1024, kV = 16, kMaxLogG = 5;
+};
+
+// Positions i .. i+3 of scratch rows as 16-byte stores.
+__device__ __forceinline__ void store4_at(int32_t* s, int64_t i, int32_t a,
+                                          int32_t b, int32_t c, int32_t d) {
+    *reinterpret_cast<int4*>(s + i) = make_int4(a, b, c, d);
+}
+__device__ __forceinline__ void store4_at(u64* s, int64_t i, u64 a, u64 b,
+                                          u64 c, u64 d) {
+    *reinterpret_cast<ulonglong2*>(s + i) = make_ulonglong2(a, b);
+    *reinterpret_cast<ulonglong2*>(s + i + 2) = make_ulonglong2(c, d);
+}
+
+// Column of flat position i of rows of P = 2^log_p positions.
+__device__ __forceinline__ int64_t col_of(int64_t i, int log_p) {
+    return i & ((int64_t(1) << log_p) - 1);
+}
 
 // Reads a (B, C) row as the first C of P = 2^log_p positions, the rest
 // INT32_MAX; writes positions to the (B, P) scratch rows.  With vec, C is
@@ -449,11 +483,11 @@ struct PaddedIn {
     int log_p;
 
     __device__ T load(int64_t i) const {
-        const int64_t col = i & ((int64_t(1) << log_p) - 1);
+        const int64_t col = col_of(i, log_p);
         return col < C ? __ldg(x + (i >> log_p) * C + col) : kPad;
     }
     __device__ void load4(int64_t i, T& a, T& b, T& c, T& d) const {
-        const int64_t col = i & ((int64_t(1) << log_p) - 1);
+        const int64_t col = col_of(i, log_p);
         if (col < C) {
             const int4 q = __ldg(
                 reinterpret_cast<const int4*>(x + (i >> log_p) * C + col));
@@ -467,7 +501,43 @@ struct PaddedIn {
     }
     __device__ void store(int64_t i, T v) const { s[i] = v; }
     __device__ void store4(int64_t i, T a, T b, T c, T d) const {
-        *reinterpret_cast<int4*>(s + i) = make_int4(a, b, c, d);
+        store4_at(s, i, a, b, c, d);
+    }
+};
+
+// The same for (key, val) rows, each pair packed as the block path packs
+// it; the pad (INT32_MAX, INT32_MAX) packs to the largest key.
+struct PaddedIn2 {
+    using T = u64;
+    static constexpr T kPad = ~0ull;
+    const int32_t* __restrict__ key;
+    const int32_t* __restrict__ val;
+    u64* __restrict__ s;
+    int64_t C;
+    int log_p;
+
+    __device__ T load(int64_t i) const {
+        const int64_t col = col_of(i, log_p);
+        const int64_t at = (i >> log_p) * C + col;
+        return col < C ? pack(__ldg(key + at), __ldg(val + at)) : kPad;
+    }
+    __device__ void load4(int64_t i, T& a, T& b, T& c, T& d) const {
+        const int64_t col = col_of(i, log_p);
+        if (col < C) {
+            const int64_t at = (i >> log_p) * C + col;
+            const int4 k = __ldg(reinterpret_cast<const int4*>(key + at));
+            const int4 v = __ldg(reinterpret_cast<const int4*>(val + at));
+            a = pack(k.x, v.x);
+            b = pack(k.y, v.y);
+            c = pack(k.z, v.z);
+            d = pack(k.w, v.w);
+        } else {
+            a = b = c = d = kPad;
+        }
+    }
+    __device__ void store(int64_t i, T v) const { s[i] = v; }
+    __device__ void store4(int64_t i, T a, T b, T c, T d) const {
+        store4_at(s, i, a, b, c, d);
     }
 };
 
@@ -479,29 +549,58 @@ struct PaddedOut {
     int log_p;
 
     __device__ void store(int64_t i, T v) const {
-        const int64_t col = i & ((int64_t(1) << log_p) - 1);
+        const int64_t col = col_of(i, log_p);
         if (col < C) out[(i >> log_p) * C + col] = v;
     }
     __device__ void store4(int64_t i, T a, T b, T c, T d) const {
-        const int64_t col = i & ((int64_t(1) << log_p) - 1);
+        const int64_t col = col_of(i, log_p);
         if (col < C)
             *reinterpret_cast<int4*>(out + (i >> log_p) * C + col) =
                 make_int4(a, b, c, d);
     }
 };
 
-// Writes positions back to the scratch rows (where the tail read them).
-struct ScratchOut {
-    using T = int32_t;
-    int32_t* s;
+// The same for pairs: keys and values to their two (B, C) outputs.
+struct PaddedOut2 {
+    using T = u64;
+    int32_t* __restrict__ out_key;
+    int32_t* __restrict__ out_val;
+    int64_t C;
+    int log_p;
 
-    __device__ void store(int64_t i, T v) const { s[i] = v; }
+    __device__ void store(int64_t i, T v) const {
+        const int64_t col = col_of(i, log_p);
+        if (col < C) {
+            const int64_t at = (i >> log_p) * C + col;
+            out_key[at] = key_of(v);
+            out_val[at] = val_of(v);
+        }
+    }
     __device__ void store4(int64_t i, T a, T b, T c, T d) const {
-        *reinterpret_cast<int4*>(s + i) = make_int4(a, b, c, d);
+        const int64_t col = col_of(i, log_p);
+        if (col < C) {
+            const int64_t at = (i >> log_p) * C + col;
+            *reinterpret_cast<int4*>(out_key + at) =
+                make_int4(key_of(a), key_of(b), key_of(c), key_of(d));
+            *reinterpret_cast<int4*>(out_val + at) =
+                make_int4(val_of(a), val_of(b), val_of(c), val_of(d));
+        }
     }
 };
 
-// Stages of a merge at strides >= D = 2^log_d (a multiple of kWideChunk)
+// Writes positions back to the scratch rows (where the tail read them).
+template <typename E>
+struct ScratchOut {
+    using T = E;
+    T* s;
+
+    __device__ void store(int64_t i, T v) const { s[i] = v; }
+    __device__ void store4(int64_t i, T a, T b, T c, T d) const {
+        store4_at(s, i, a, b, c, d);
+    }
+};
+
+// Stages of a merge at strides >= D = 2^log_d (a multiple of the chunk)
 // in one pass over the scratch rows (their B * P positions as one array:
 // every merge lies inside a row), over groups of G * D positions.  Thread
 // t takes, in one group, column c < D / 2 and its mirror D - 1 - c of the
@@ -512,15 +611,15 @@ struct ScratchOut {
 // s * D pairs x[j] with x[j + s] and y[j] with y[j + s], down to s = 1.
 // Neighbouring threads take neighbouring columns, so the loads and stores
 // of a warp are contiguous.
-template <int G, bool FLIP>
+template <typename T, int G, bool FLIP>
 __global__ void __launch_bounds__(256)
-    sort_wide_level(int32_t* __restrict__ s, int64_t threads, int log_d) {
+    sort_wide_level(T* __restrict__ s, int64_t threads, int log_d) {
     const int64_t D = int64_t(1) << log_d, half = D >> 1;
     for (int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
          t < threads; t += (int64_t)gridDim.x * blockDim.x) {
         const int64_t c = t & (half - 1);
-        int32_t* base = s + ((t >> (log_d - 1)) << log_d) * G;
-        int32_t x[G], y[G];
+        T* base = s + ((t >> (log_d - 1)) << log_d) * G;
+        T x[G], y[G];
 #pragma unroll
         for (int j = 0; j < G; ++j) {
             x[j] = base[j * D + c];
@@ -553,25 +652,31 @@ __global__ void __launch_bounds__(256)
     }
 }
 
-template <bool FLIP>
-cudaError_t launch_level(int32_t* s, int G, int64_t threads, int log_d,
+template <typename T, bool FLIP>
+cudaError_t launch_level(T* s, int G, int64_t threads, int log_d,
                          unsigned grid, cudaStream_t st) {
-    void (*kernel)(int32_t*, int64_t, int);
+    void (*kernel)(T*, int64_t, int);
     switch (G) {
-        case 2: kernel = sort_wide_level<2, FLIP>; break;
-        case 4: kernel = sort_wide_level<4, FLIP>; break;
-        case 8: kernel = sort_wide_level<8, FLIP>; break;
-        case 16: kernel = sort_wide_level<16, FLIP>; break;
-        case 32: kernel = sort_wide_level<32, FLIP>; break;
-        case 64: kernel = sort_wide_level<64, FLIP>; break;
+        case 2: kernel = sort_wide_level<T, 2, FLIP>; break;
+        case 4: kernel = sort_wide_level<T, 4, FLIP>; break;
+        case 8: kernel = sort_wide_level<T, 8, FLIP>; break;
+        case 16: kernel = sort_wide_level<T, 16, FLIP>; break;
+        case 32: kernel = sort_wide_level<T, 32, FLIP>; break;
+        case 64:
+            if constexpr (Wide<T>::kMaxLogG >= 6) {
+                kernel = sort_wide_level<T, 64, FLIP>;
+                break;
+            } else {
+                return cudaErrorInvalidValue;
+            }
         default: return cudaErrorInvalidValue;
     }
     kernel<<<grid, 256, 0, st>>>(s, threads, log_d);
     return cudaGetLastError();
 }
 
-// The strides below kWideChunk of a merge whose larger strides are done:
-// one block a chunk of the scratch rows, strides >= 1,024 through shared
+// The strides below the chunk of a merge whose larger strides are done:
+// one block a chunk of the scratch rows, strides >= 32 V through shared
 // memory (one pad slot every V), the rest in registers, then the chunk to
 // `dst` (back to scratch, or the output after the last merge; `vec` as
 // for the block path).  A block reads all of its chunk before it writes.
@@ -579,26 +684,27 @@ cudaError_t launch_level(int32_t* s, int G, int64_t threads, int log_d,
 // merge `dst` writes the same scratch rows in this kernel.
 template <class Dst>
 __global__ void __launch_bounds__(kBlockMaxWarps * 32)
-    sort_wide_tail(const int32_t* src, Dst dst, bool vec) {
-    constexpr int V = kWideV, kChunk = 32 * V, P = kWideChunk;
+    sort_wide_tail(const typename Dst::T* src, Dst dst, bool vec) {
+    using T = typename Dst::T;
+    constexpr int V = Wide<T>::kV, kChunk = 32 * V, P = Wide<T>::kChunk;
+    constexpr int kPer16 = 16 / sizeof(T);    // values in 16 bytes
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    int32_t* s = reinterpret_cast<int32_t*>(smem_raw);
+    T* s = reinterpret_cast<T*>(smem_raw);
     const int lane = threadIdx.x & 31;
     const int warp = __shfl_sync(kFull, (int)threadIdx.x, 0) >> 5;
     const int warps = blockDim.x >> 5;
     const int64_t base = (int64_t)blockIdx.x * P;
-    int32_t x[V];
+    T x[V];
 
     for (int c = warp; c < P / kChunk; c += warps) {
         const int first = c * kChunk + lane * V;
 #pragma unroll
-        for (int q = 0; q < V; q += 4) {
-            const int4 v =
-                *reinterpret_cast<const int4*>(src + base + first + q);
-            s[first + first / V + q] = v.x;
-            s[first + first / V + q + 1] = v.y;
-            s[first + first / V + q + 2] = v.z;
-            s[first + first / V + q + 3] = v.w;
+        for (int q = 0; q < V; q += kPer16) {
+            const uint4 v =
+                *reinterpret_cast<const uint4*>(src + base + first + q);
+            const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+            for (int k = 0; k < kPer16; ++k) s[first + first / V + q + k] = e[k];
         }
     }
     __syncthreads();
@@ -620,16 +726,73 @@ __global__ void __launch_bounds__(kBlockMaxWarps * 32)
 }
 
 template <class Dst>
-cudaError_t launch_tail(const int32_t* src, const Dst& dst, int64_t chunks,
-                        bool vec, cudaStream_t stream) {
+cudaError_t launch_tail(const typename Dst::T* src, const Dst& dst,
+                        int64_t chunks, bool vec, cudaStream_t stream) {
+    using T = typename Dst::T;
     const size_t smem =
-        (size_t)(kWideChunk + kWideChunk / kWideV) * sizeof(int32_t);
+        (size_t)(Wide<T>::kChunk + Wide<T>::kChunk / Wide<T>::kV) *
+        sizeof(T);
     const cudaError_t err =
         smem_attr((const void*)sort_wide_tail<Dst>, smem);
     if (err != cudaSuccess) return err;
     sort_wide_tail<Dst><<<(unsigned)chunks, kBlockMaxWarps * 32, smem,
                           stream>>>(src, dst, vec);
     return cudaGetLastError();
+}
+
+// The whole wide sort of B rows of P = 2^log_p positions in scratch `s`:
+// `in` reads the rows, padded, into s; `out` writes the first C of each.
+template <class In, class Out>
+cudaError_t sort_wide(const In& in, const Out& out, typename In::T* s,
+                      int B, int log_p, bool vec, cudaStream_t st) {
+    using T = typename In::T;
+    constexpr int kChunk = Wide<T>::kChunk;
+    constexpr int kLogChunk = log2i(kChunk);
+    const int64_t P = int64_t(1) << log_p;
+    const int64_t chunks = (int64_t)B * (P / kChunk);
+    // each chunk of each padded row sorted into scratch by the block path
+    cudaError_t err = launch_block<In, Wide<T>::kV>(in, (int)chunks, kChunk,
+                                                    kChunk, vec, st);
+    if (err != cudaSuccess) return err;
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return err;
+    for (int log_m = 1; kLogChunk + log_m <= log_p; ++log_m) {
+        // a merge of 2^log_m chunks: its strides >= the chunk in passes of
+        // at most 2^kMaxLogG chunks' columns a thread, the first with the
+        // mirror stage, then the strides below the chunk in the tail
+        for (int span = log_m; span > 0;) {
+            const int g =
+                span < Wide<T>::kMaxLogG ? span : Wide<T>::kMaxLogG;
+            span -= g;
+            const int64_t n = (int64_t)B * P >> (g + 1);
+            const int64_t want = (n + 255) / 256;
+            const unsigned grid =
+                (unsigned)(want < 16 * sms ? want : 16 * sms);
+            err = span + g == log_m
+                      ? launch_level<T, true>(s, 1 << g, n,
+                                              kLogChunk + span, grid, st)
+                      : launch_level<T, false>(s, 1 << g, n,
+                                               kLogChunk + span, grid, st);
+            if (err != cudaSuccess) return err;
+        }
+        err = kLogChunk + log_m == log_p
+                  ? launch_tail(s, out, chunks, vec, st)
+                  : launch_tail(s, ScratchOut<T>{s}, chunks, true, st);
+        if (err != cudaSuccess) return err;
+    }
+    return cudaGetLastError();
+}
+
+// log2 of P if P is a power of two of at least C past `chunk`, else -1.
+int wide_log_p(int C, long long P, int chunk) {
+    int log_p = 0;
+    while ((int64_t(1) << log_p) < P) ++log_p;
+    if (C <= chunk || P != int64_t(1) << log_p || P < C) return -1;
+    return log_p;
 }
 
 }  // namespace
@@ -648,52 +811,14 @@ extern "C" int sort_rows_i32(const void* x, void* out, int B, int C,
 extern "C" int sort_rows_wide_i32(const void* x, void* out, void* scratch,
                                   int B, int C, long long P, void* stream) {
     if (B <= 0 || C <= 0) return (int)cudaGetLastError();
-    int log_p = 0;
-    while ((int64_t(1) << log_p) < P) ++log_p;
-    if (C <= kWideChunk || P != int64_t(1) << log_p || P < C)
-        return (int)cudaErrorInvalidValue;
-    const auto st = (cudaStream_t)stream;
+    const int log_p = wide_log_p(C, P, Wide<int32_t>::kChunk);
+    if (log_p < 0) return (int)cudaErrorInvalidValue;
     int32_t* s = (int32_t*)scratch;
-    const int64_t chunks = (int64_t)B * (P / kWideChunk);
     const bool vec = C % 4 == 0 && aligned16(x) && aligned16(out) &&
                      aligned16(scratch);
-    // each chunk of each padded row sorted into scratch by the block path
-    cudaError_t err = launch_block<PaddedIn, kWideV>(
-        PaddedIn{(const int32_t*)x, s, C, log_p}, (int)chunks, kWideChunk,
-        kWideChunk, vec, st);
-    if (err != cudaSuccess) return (int)err;
-    int dev = 0, sms = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-    if (err != cudaSuccess) return (int)err;
-    constexpr int kLogChunk = log2i(kWideChunk);
-    for (int log_m = 1; kLogChunk + log_m <= log_p; ++log_m) {
-        // a merge of 2^log_m chunks: its strides >= the chunk in passes of
-        // at most 64 chunks' columns a thread, the first with the mirror
-        // stage, then the strides below the chunk in the tail
-        for (int span = log_m; span > 0;) {
-            const int g = span < 6 ? span : 6;
-            span -= g;
-            const int64_t n = (int64_t)B * P >> (g + 1);
-            const int64_t want = (n + 255) / 256;
-            const unsigned grid =
-                (unsigned)(want < 16 * sms ? want : 16 * sms);
-            err = span + g == log_m
-                      ? launch_level<true>(s, 1 << g, n, kLogChunk + span,
-                                           grid, st)
-                      : launch_level<false>(s, 1 << g, n, kLogChunk + span,
-                                            grid, st);
-            if (err != cudaSuccess) return (int)err;
-        }
-        err = kLogChunk + log_m == log_p
-                  ? launch_tail(s, PaddedOut{(int32_t*)out, C, log_p}, chunks,
-                                vec, st)
-                  : launch_tail(s, ScratchOut{s}, chunks, true, st);
-        if (err != cudaSuccess) return (int)err;
-    }
-    return (int)cudaGetLastError();
+    return (int)sort_wide(PaddedIn{(const int32_t*)x, s, C, log_p},
+                          PaddedOut{(int32_t*)out, C, log_p}, s, B, log_p,
+                          vec, (cudaStream_t)stream);
 }
 
 extern "C" int sort2_rows_i32(const void* key, const void* val,
@@ -706,6 +831,25 @@ extern "C" int sort2_rows_i32(const void* key, const void* val,
                      aligned16(out_key) && aligned16(out_val);
     return (int)launch_fit<TwoKey, 1, 16>(rows, B, C, vec,
                                           (cudaStream_t)stream);
+}
+
+// Pair rows of C > 16,384 pairs: scratch holds B rows of P =
+// 2^ceil(log2 C) packed pairs (uint64), 16-byte aligned.
+extern "C" int sort2_rows_wide_i32(const void* key, const void* val,
+                                   void* out_key, void* out_val,
+                                   void* scratch, int B, int C, long long P,
+                                   void* stream) {
+    if (B <= 0 || C <= 0) return (int)cudaGetLastError();
+    const int log_p = wide_log_p(C, P, Wide<u64>::kChunk);
+    if (log_p < 0) return (int)cudaErrorInvalidValue;
+    u64* s = (u64*)scratch;
+    const bool vec = C % 4 == 0 && aligned16(key) && aligned16(val) &&
+                     aligned16(out_key) && aligned16(out_val) &&
+                     aligned16(scratch);
+    return (int)sort_wide(
+        PaddedIn2{(const int32_t*)key, (const int32_t*)val, s, C, log_p},
+        PaddedOut2{(int32_t*)out_key, (int32_t*)out_val, C, log_p}, s, B,
+        log_p, vec, (cudaStream_t)stream);
 }
 
 extern "C" const char* biokanga_cuda_error_string(int err) {

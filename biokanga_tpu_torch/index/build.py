@@ -1,4 +1,5 @@
-"""Copy of biokanga_tpu/index/build.py: the host index build and its file.
+"""Copy of biokanga_tpu/index/build.py: the host index build and its file,
+and the bisulfite pair and colorspace indexes.
 
 TPU-first design: instead of the reference's full suffix array with
 pointer-chasing binary search (CSfxArrayV3, libbiokanga/SfxArrayV2.cpp —
@@ -88,8 +89,8 @@ def build_index(
     total = int(starts[-1])
     if total >= 2**31:
         raise ValueError(
-            "single-chunk index holds < 2^31 bases; chunked indexes "
-            "(biokanga_tpu/index/chunked.py) are not ported yet"
+            "single-chunk index holds < 2^31 bases; build a chunked "
+            "index (index/chunked.py build_chunked_index)"
         )
     codes = np.empty(total, dtype=np.int8)
     for i, (_, s) in enumerate(seqs):
@@ -127,12 +128,86 @@ def build_index(
     )
 
 
+def build_bisulfite_indexes(
+    seqs: list[tuple[str, np.ndarray]],
+    lut_bases: int = DEFAULT_LUT_BASES,
+) -> tuple[GenomeIndex, GenomeIndex]:
+    """Bisulfite index pair: (CT-collapsed, GA-collapsed) — the role of
+    the reference's collapsed index copies built in SfxBlock2Disk
+    (libbiokanga/SfxArrayV2.cpp:440-459; kangax -m1 mode)."""
+    from ..seq.encode import ct_collapse, ga_collapse
+
+    ct = build_index([(n, ct_collapse(s)) for n, s in seqs], lut_bases)
+    ga = build_index([(n, ga_collapse(s)) for n, s in seqs], lut_bases)
+    return ct, ga
+
+
+def save_bisulfite_index(ct: GenomeIndex, ga: GenomeIndex,
+                         path: str) -> None:
+    meta = {
+        "format_version": INDEX_FORMAT_VERSION,
+        "bisulfite": True,
+        "entry_names": ct.entry_names,
+        "lut_bases": ct.lut_bases,
+        "created_unix": time.time(),
+    }
+    arrays = {}
+    for tag, idx in (("ct", ct), ("ga", ga)):
+        arrays[f"{tag}_codes"] = idx.codes
+        arrays[f"{tag}_pos_sorted"] = idx.pos_sorted
+        arrays[f"{tag}_key_hi"] = idx.key_hi
+        arrays[f"{tag}_key_lo"] = idx.key_lo
+        arrays[f"{tag}_lut"] = idx.lut
+    np.savez(
+        path,
+        meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+        entry_starts=ct.entry_starts,
+        **arrays,
+    )
+
+
 def is_bisulfite_index(path: str) -> bool:
     with np.load(path) as z:
         if "meta" not in z:
             return False
         return bool(json.loads(z["meta"].tobytes().decode()
                                ).get("bisulfite", False))
+
+
+def load_bisulfite_index(path: str) -> tuple[GenomeIndex, GenomeIndex]:
+    with np.load(path) as z:
+        meta = json.loads(z["meta"].tobytes().decode())
+        if not meta.get("bisulfite"):
+            raise ValueError(f"{path} is not a bisulfite index")
+        out = []
+        for tag in ("ct", "ga"):
+            out.append(GenomeIndex(
+                codes=z[f"{tag}_codes"],
+                entry_names=list(meta["entry_names"]),
+                entry_starts=z["entry_starts"],
+                pos_sorted=z[f"{tag}_pos_sorted"],
+                key_hi=z[f"{tag}_key_hi"],
+                key_lo=z[f"{tag}_key_lo"],
+                lut=z[f"{tag}_lut"],
+                lut_bases=int(meta["lut_bases"]),
+            ))
+        return out[0], out[1]
+
+
+def build_colorspace_index(
+    seqs: list[tuple[str, np.ndarray]],
+    lut_bases: int = DEFAULT_LUT_BASES,
+) -> GenomeIndex:
+    """Colorspace index (kangax -C role, SfxArrayV2.cpp:300-380): each
+    entry is transformed to SOLiD dibase colors (length L-1) before the
+    standard key/LUT build.  Color loci map 1:1 to base-space starts."""
+    from ..seq.encode import to_colorspace
+
+    idx = build_index(
+        [(n, to_colorspace(s)) for n, s in seqs], lut_bases=lut_bases
+    )
+    idx.space = "color"
+    return idx
 
 
 def save_index(idx: GenomeIndex, path: str) -> None:

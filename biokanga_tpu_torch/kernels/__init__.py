@@ -42,6 +42,8 @@ _SIGNATURES = {
     "sort_rows_wide_i32": (_P, _P, _P, _I, _I, _L, _P),
     # (key, val, out_key, out_val, B, C, stream)
     "sort2_rows_i32": (_P, _P, _P, _P, _I, _I, _P),
+    # (key, val, out_key, out_val, scratch, B, C, P, stream)
+    "sort2_rows_wide_i32": (_P, _P, _P, _P, _P, _I, _I, _L, _P),
     # (rows, n_rows, R, genome_len, entry_starts, n_starts, loci, valid,
     #  rcodes, rnlane, lengths, out, B, C, W, stream)
     "hamming_extend_packed": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P,
@@ -53,6 +55,10 @@ _SIGNATURES = {
                   _I, _I, _I, _P),
     # (W, moves, *ints): int32 of device-memory state a pair
     "banded_sw_scratch": (_I, _I, ctypes.POINTER(_L)),
+    # (rows, n_rows, R, genome_len, entry_starts, n_starts, loci, valid,
+    #  rcodes, rnlane, win, out, B, C, W, stream)
+    "hamming_extend_packed_win": (_P, _P, _I, _I, _P, _I, _P, _P, _P, _P,
+                                  _P, _P, _I, _I, _I, _P),
     # (mv, best_i, best_k, bwin, out, ins_cnt, ins_base, B, La, Wd, K, T,
     #  stream)
     "sw_trace_packed": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

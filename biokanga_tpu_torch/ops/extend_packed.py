@@ -12,8 +12,13 @@ Tensors read by the kernel keep uint32 words in int32 storage (same
 bits); the plain version widens them to int64 (device.u32) because torch
 has no unsigned 32-bit shifts or popcount on the CPU.
 
-On a CUDA tensor `hamming_extend_packed` launches csrc/hamming_extend.cu
-or raises; on a CPU tensor it runs `hamming_extend_packed_plain`.
+`hamming_extend_packed_win` counts over a window of its own for each
+candidate (the assembler's overlap verification, assembly/scale_overlap):
+the first win[b, c] bases of read b against the genome at loci[b, c].
+
+On a CUDA tensor each wrapper launches its entry of
+csrc/hamming_extend.cu or raises; on a CPU tensor it runs its plain
+version (`hamming_extend_packed_plain`, `hamming_extend_packed_win_plain`).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from .. import kernels
 from ..device import U32_MASK, i32_bits, popcount32, u32, u32_from_numpy
 
 MM_INVALID = 255
+MM_WIN_INVALID = 1 << 30        # the windowed count where masked
 
 BASES_PER_WORD = 16
 ROW_STRIDE_BASES = 128          # row i starts at base 128*i
@@ -144,9 +150,10 @@ def gather_window_words(rows: torch.Tensor, loci: torch.Tensor, W: int):
 
 
 def _check_extend_args(pg, entry_starts, loci, valid, rcodes, rnlane,
-                       lengths) -> None:
+                       lengths, win=None) -> None:
     B, C = loci.shape
     W = rcodes.shape[1]
+    fn = "hamming_extend_packed" + ("" if win is None else "_win")
     if W > MAX_PACKED_READ_LEN // BASES_PER_WORD:
         raise ValueError(
             f"packed extension takes reads of at most {MAX_PACKED_READ_LEN} "
@@ -155,33 +162,37 @@ def _check_extend_args(pg, entry_starts, loci, valid, rcodes, rnlane,
             "valid": (valid, torch.bool, (B, C)),
             "rcodes": (rcodes, torch.int32, (B, W)),
             "rnlane": (rnlane, torch.int32, (B, W)),
-            "lengths": (lengths, torch.int32, (B,)),
             "entry_starts": (entry_starts, torch.int32, None),
             "rows": (pg.rows, torch.int32, None)}
+    if win is None:
+        want["lengths"] = (lengths, torch.int32, (B,))
+    else:
+        want["win"] = (win, torch.int32, (B, C))
     if pg.n_rows is not None:
         want["n_rows"] = (pg.n_rows, torch.int32, tuple(pg.rows.shape))
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype or (shape is not None and tuple(t.shape) != shape):
-            raise ValueError(f"hamming_extend_packed: {name} is "
+            raise ValueError(f"{fn}: {name} is "
                              f"{tuple(t.shape)} {t.dtype}, want {shape} {dtype}")
         if t.device != loci.device:
-            raise ValueError(f"hamming_extend_packed: {name} on {t.device}, "
+            raise ValueError(f"{fn}: {name} on {t.device}, "
                              f"loci on {loci.device}")
+    if loci.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: unsupported device {loci.device}")
 
 
-def hamming_extend_packed_plain(pg, entry_starts, loci, valid, rcodes,
-                                rnlane, lengths):
-    B, C = loci.shape
+def _window_mismatches(pg, entry_starts, loci, valid, rcodes, rnlane,
+                       span):
+    """Mismatches of the first span[b, c] bases of read b at loci[b, c]
+    for the candidates that pass the flag, range and one-entry tests:
+    (row, col, count) of those, the rest left out."""
     W = rcodes.shape[1]
-    n = pg.length
-
-    # entry containment: first and last base in one entry
     starts = entry_starts.to(torch.int64)
     loci64 = loci.to(torch.int64)
-    last = loci64 + (lengths.to(torch.int64)[:, None] - 1)
+    last = loci64 + span - 1
     ent_a = torch.searchsorted(starts, loci64, right=True)
     ent_b = torch.searchsorted(starts, last, right=True)
-    valid = valid & (loci64 >= 0) & (last < n) & (ent_a == ent_b)
+    valid = valid & (loci64 >= 0) & (last < pg.length) & (ent_a == ent_b)
 
     # the words of valid candidates only: (N, W) for N of them
     row, col = valid.nonzero(as_tuple=True)
@@ -192,15 +203,54 @@ def hamming_extend_packed_plain(pg, entry_starts, loci, valid, rcodes,
         x = x | gather_window_words(pg.n_rows, at, W)
     lanes = (x | (x >> 1)) & 0x55555555
 
-    # keep the first clamp(len - 16j, 0, 16) lanes of word j (MSB-first)
+    # keep the first clamp(span - 16j, 0, 16) lanes of word j (MSB-first)
     wb = torch.arange(W, device=loci.device) * 16
-    v = torch.clamp(lengths.to(torch.int64)[row, None] - wb[None, :], 0, 16)
+    v = torch.clamp(span[row, col, None] - wb[None, :], 0, 16)
     lane_mask = torch.where(v == 0, 0, (0x55555555 << (2 * (16 - v))) & U32_MASK)
-    mm = popcount32(lanes & lane_mask).sum(-1)
-    out = torch.full((B, C), MM_INVALID, dtype=torch.uint8,
+    return row, col, popcount32(lanes & lane_mask).sum(-1)
+
+
+def hamming_extend_packed_plain(pg, entry_starts, loci, valid, rcodes,
+                                rnlane, lengths):
+    span = lengths.to(torch.int64)[:, None].expand(loci.shape)
+    row, col, mm = _window_mismatches(pg, entry_starts, loci, valid, rcodes,
+                                      rnlane, span)
+    out = torch.full(loci.shape, MM_INVALID, dtype=torch.uint8,
                      device=loci.device)
     out[row, col] = torch.clamp(mm, max=MM_INVALID - 1).to(torch.uint8)
     return out
+
+
+def hamming_extend_packed_win_plain(pg, entry_starts, loci, valid, rcodes,
+                                    rnlane, win):
+    span = torch.clamp(win.to(torch.int64), 0, rcodes.shape[1] * BASES_PER_WORD)
+    row, col, mm = _window_mismatches(pg, entry_starts, loci, valid & (span > 0),
+                                      rcodes, rnlane, span)
+    out = torch.full(loci.shape, MM_WIN_INVALID, dtype=torch.int32,
+                     device=loci.device)
+    out[row, col] = mm.to(torch.int32)
+    return out
+
+
+def _launch(name: str, pg: PackedGenome, entry_starts, loci, valid, rcodes,
+            rnlane, per, out):
+    """Launch the C entry `name` of csrc/hamming_extend.cu; `per` is the
+    lengths (B,) or the windows (B, C)."""
+    B, C = loci.shape
+    if not (B and C):
+        return
+    rows = pg.rows.contiguous()
+    n_rows = None if pg.n_rows is None else pg.n_rows.contiguous()
+    args = [t.contiguous() for t in (entry_starts, loci, valid, rcodes,
+                                     rnlane, per)]
+    lib = kernels.library()
+    with torch.cuda.device(loci.device):
+        err = getattr(lib, name)(
+            rows.data_ptr(), None if n_rows is None else n_rows.data_ptr(),
+            rows.shape[0], pg.length, args[0].data_ptr(), args[0].shape[0],
+            *[t.data_ptr() for t in args[1:]], out.data_ptr(), B, C,
+            rcodes.shape[1], kernels.stream_ptr(loci.device))
+    kernels.check(err, name)
 
 
 def hamming_extend_packed(pg: PackedGenome, entry_starts, loci, valid,
@@ -215,27 +265,37 @@ def hamming_extend_packed(pg: PackedGenome, entry_starts, loci, valid,
     if loci.device.type == "cpu":
         return hamming_extend_packed_plain(pg, entry_starts, loci, valid,
                                            rcodes, rnlane, lengths)
-    if loci.device.type != "cuda":
-        raise ValueError(f"hamming_extend_packed: unsupported device "
-                         f"{loci.device}")
-    B, C = loci.shape
-    W = rcodes.shape[1]
-    out = torch.empty((B, C), dtype=torch.uint8, device=loci.device)
-    if B and C:
-        rows = pg.rows.contiguous()
-        n_rows = None if pg.n_rows is None else pg.n_rows.contiguous()
-        args = [t.contiguous() for t in (entry_starts, loci, valid, rcodes,
-                                         rnlane, lengths)]
-        lib = kernels.library()
-        with torch.cuda.device(loci.device):
-            err = lib.hamming_extend_packed(
-                rows.data_ptr(), None if n_rows is None else n_rows.data_ptr(),
-                rows.shape[0], pg.length, args[0].data_ptr(), args[0].shape[0],
-                *[t.data_ptr() for t in args[1:]], out.data_ptr(), B, C, W,
-                kernels.stream_ptr(loci.device))
-        kernels.check(err, "hamming_extend_packed")
+    out = torch.empty(loci.shape, dtype=torch.uint8, device=loci.device)
+    if loci.numel():
+        _launch("hamming_extend_packed", pg, entry_starts, loci, valid,
+                rcodes, rnlane, lengths, out)
         hamming_extend_packed.launches += 1
     return out
 
 
 hamming_extend_packed.launches = 0
+
+
+def hamming_extend_packed_win(pg: PackedGenome, entry_starts, loci, valid,
+                              rcodes, rnlane, win):
+    """(B, C) int32 mismatch counts over the first win[b, c] bases of read
+    b at loci[b, c]; MM_WIN_INVALID where masked.
+
+    As hamming_extend_packed, with a window a candidate: win (B, C) int32
+    is clipped to [0, 16 W]; a candidate needs win > 0, locus >= 0,
+    locus + win - 1 < n and its window inside one entry.  The count is
+    not clamped (long windows pass 255)."""
+    _check_extend_args(pg, entry_starts, loci, valid, rcodes, rnlane, None,
+                       win=win)
+    if loci.device.type == "cpu":
+        return hamming_extend_packed_win_plain(pg, entry_starts, loci, valid,
+                                               rcodes, rnlane, win)
+    out = torch.empty(loci.shape, dtype=torch.int32, device=loci.device)
+    if loci.numel():
+        _launch("hamming_extend_packed_win", pg, entry_starts, loci, valid,
+                rcodes, rnlane, win, out)
+        hamming_extend_packed_win.launches += 1
+    return out
+
+
+hamming_extend_packed_win.launches = 0

@@ -10,13 +10,12 @@ matrix is sorted along C, one read per row:
 On a CUDA tensor each wrapper launches its kernel from csrc/sort_rows.cu
 (a bitonic network; one warp a row with the row in registers up to 1,024
 values or 512 pairs, one block a row through shared memory up to 32,768
-values or 16,384 pairs, and for the dedup sort a scratch row in device
-memory past that, at any width whose scratch rows fit; see the source
-note there) or raises; on a CPU tensor it runs the plain version beside
-it, at any width.  The align path's widest dedup row is 369 cores x
-1,024 positions (4,096 bp reads, `-m ultra`).  `sort2_rows` refuses pair
-rows past 16,384 on every device, so its two paths accept the same
-inputs.
+values or 16,384 pairs, and a scratch row in device memory past that,
+at any width whose scratch rows fit; see the source note there) or
+raises; on a CPU tensor it runs the plain version beside it, at any
+width.  The align path's widest dedup row is 369 cores x 1,024 positions
+(4,096 bp reads, `-m ultra`); the widest pair row is the sharded
+multi-hit union's K x n_sp pairs (parallel/sharded.py).
 """
 from __future__ import annotations
 
@@ -26,20 +25,15 @@ from .. import kernels
 
 # shared-memory reach of csrc/sort_rows.cu's block path: a row of P
 # values or pairs and P/32 or P/16 pad slots, 132 KB and 136 KB.  Wider
-# one-key rows take the scratch-row path; wider pair rows are refused.
+# rows take the scratch-row path.
 MAX_SORT_C = 32_768
 MAX_SORT2_C = 16_384
 
 
-def _check_rows(name: str, x: torch.Tensor, limit: int | None) -> None:
+def _check_rows(name: str, x: torch.Tensor) -> None:
     if x.dtype != torch.int32 or x.dim() != 2:
         raise ValueError(f"{name}: want a (B, C) int32 tensor, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    if limit is not None and x.shape[1] > limit:
-        raise ValueError(
-            f"{name}: rows of {x.shape[1]} values exceed the sort kernel's "
-            f"limit of {limit} (shared memory); longer reads are not "
-            f"supported yet")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
 
@@ -58,7 +52,7 @@ def sort2_rows_plain(key: torch.Tensor, val: torch.Tensor):
 
 def sort_rows(x: torch.Tensor) -> torch.Tensor:
     """Ascending sort of each row of a (B, C) int32 tensor."""
-    _check_rows("sort_rows", x, None)
+    _check_rows("sort_rows", x)
     if x.device.type == "cpu":
         return sort_rows_plain(x)
     B, C = x.shape
@@ -89,8 +83,8 @@ sort_rows.launches = 0
 
 def sort2_rows(key: torch.Tensor, val: torch.Tensor):
     """Sort each row of two (B, C) int32 tensors by (key, val)."""
-    _check_rows("sort2_rows", key, MAX_SORT2_C)
-    _check_rows("sort2_rows", val, MAX_SORT2_C)
+    _check_rows("sort2_rows", key)
+    _check_rows("sort2_rows", val)
     if key.shape != val.shape or key.device != val.device:
         raise ValueError("sort2_rows: key and val differ in shape or device")
     if key.device.type == "cpu":
@@ -100,11 +94,20 @@ def sort2_rows(key: torch.Tensor, val: torch.Tensor):
     B, C = key.shape
     if B and C:
         lib = kernels.library()
+        stream = kernels.stream_ptr(key.device)
+        ptrs = (key.data_ptr(), val.data_ptr(), ok.data_ptr(), ov.data_ptr())
         with torch.cuda.device(key.device):
-            err = lib.sort2_rows_i32(key.data_ptr(), val.data_ptr(),
-                                     ok.data_ptr(), ov.data_ptr(), B, C,
-                                     kernels.stream_ptr(key.device))
-        kernels.check(err, "sort2_rows_i32")
+            if C <= MAX_SORT2_C:
+                err = lib.sort2_rows_i32(*ptrs, B, C, stream)
+            else:
+                # packed pairs: one int64 scratch row of P a row
+                P = 1 << (C - 1).bit_length()
+                scratch = torch.empty((B, P), dtype=torch.int64,
+                                      device=key.device)
+                err = lib.sort2_rows_wide_i32(*ptrs, scratch.data_ptr(), B,
+                                              C, P, stream)
+        kernels.check(err, "sort2_rows_i32" if C <= MAX_SORT2_C
+                      else "sort2_rows_wide_i32")
         sort2_rows.launches += 1
     return ok, ov
 

@@ -500,3 +500,61 @@ def ec_reads(
     return corrected, {"reads": n, "overlaps_used": n_pairs_used,
                        "target_chunks": -(-n // target_chunk),
                        "pairs": n_pairs, **times.ms()}
+
+
+def ec_reads_checkpointed(
+    reads: list[np.ndarray],
+    params: ECParams | None = None,
+    checkpoint_dir: str | None = None,
+    group: int = 128,
+    device: torch.device | str = "cuda",
+) -> tuple[list[np.ndarray], dict]:
+    """ec_reads in resumable probe GROUPS (biokanga_tpu/pacbio/ecreads.py:
+    329-380): each group of `group` probes is corrected against the full
+    read set and persisted as one atomic cell (utils/checkpoint.
+    SweepCheckpoint); a killed run resumes at the first missing group.
+    One round, as in the JAX package; the corrected reads equal
+    `ec_reads(..., rounds=1)`'s, since a probe's votes do not depend on
+    the other probes of its group."""
+    from ..utils.checkpoint import SweepCheckpoint, config_signature
+
+    p = params or ECParams()
+    dev = resolve_device(device)
+    ckpt = None
+    if checkpoint_dir:
+        sig = config_signature(
+            ["ecreads", len(reads),
+             [int(len(r)) for r in reads[:64]], p, group]
+        )
+        ckpt = SweepCheckpoint(checkpoint_dir, sig)
+    entries = [(f"r{i}", s) for i, s in enumerate(reads)]
+    entries += [(f"rc{i}", revcomp(s)) for i, s in enumerate(reads)]
+    didx, starts = _build_ec_index(entries, dev)
+    times = _StageTimes(dev)
+    corrected: list[np.ndarray] = []
+    overlaps = pairs = 0
+    for g0 in range(0, len(reads), group):
+        gi = g0 // group
+        rows = list(range(g0, min(g0 + group, len(reads))))
+        if ckpt is not None and ckpt.has(0, gi):
+            z = ckpt.load(0, gi)
+            ofs = 0
+            for L in z["lengths"]:
+                corrected.append(z["flat"][ofs:ofs + int(L)].astype(np.int8))
+                ofs += int(L)
+            overlaps += int(z["overlaps"])
+            continue
+        sub, st = _correct_probes([reads[i] for i in rows], starts, didx,
+                                  reads, p, times, probe_gids=rows)
+        if ckpt is not None:
+            ckpt.save(0, gi, {
+                "lengths": np.asarray([len(c) for c in sub], np.int64),
+                "flat": (np.concatenate(sub) if sub
+                         else np.zeros(0, np.int8)),
+                "overlaps": np.int64(st["overlaps_used"]),
+            })
+        corrected.extend(sub)
+        overlaps += st["overlaps_used"]
+        pairs += st["pairs"]
+    return corrected, {"reads": len(reads), "overlaps_used": overlaps,
+                       "pairs": pairs, **times.ms()}

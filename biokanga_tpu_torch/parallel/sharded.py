@@ -113,14 +113,22 @@ def merge_over_sp(mesh: Mesh, res: dict, lengths: torch.Tensor,
     group (biokanga_tpu/parallel/sharded.py:177-260): one all-gather of
     an (B, 8 + 2K) int32 summary, then the merge on the rank's device."""
     i32 = torch.int32
-    K = res["ml_loci"].shape[1]
     summary = torch.cat([
         torch.stack([res[k].to(i32) for k in (
             "best_mm", "next_mm", "inst", "is_rc", "locus", "overflow",
             "n_over", "cap_trunc")], 1),
         res["ml_mm"].to(i32) * 2 + res["ml_rc"].to(i32),
         res["ml_loci"].to(i32)], 1)
-    g = all_gather_sp(mesh, summary)                      # (n_sp, B, F)
+    return merge_gathered(all_gather_sp(mesh, summary), lengths, ap)
+
+
+def merge_gathered(g: torch.Tensor, lengths: torch.Tensor,
+                   ap: AlignParams) -> dict:
+    """The merge over sp of the gathered (n_sp, B, 8 + 2K) int32 summaries
+    (merge_over_sp's layout: the eight per-read fields, then K keys
+    mm * 2 + rc, then K loci)."""
+    i32 = torch.int32
+    K = (g.shape[2] - 8) // 2
     best, nxt, inst, rc, loc, ovf, n_over, cap_trunc = g[..., :8].unbind(-1)
     okey = best * 2 + rc
     # chunk order is global-locus order at equal (mm, strand): strictly
@@ -141,7 +149,8 @@ def merge_over_sp(mesh: Mesh, res: dict, lengths: torch.Tensor,
     unique = any_hit & ((next_star - b_star) >= ap.min_edit_dist)
 
     # top-K multi-hit union: a sort by (mm*2+rc, chunk, local locus), the
-    # first two keys folded into one (chunk < n_sp)
+    # first two keys folded into one (chunk < n_sp; 511 * n_sp < 2^31).
+    # Rows of K x n_sp pairs past 16,384 take the sort's wide path.
     n_sp, B = g.shape[:2]
     chunk = torch.arange(n_sp, dtype=i32, device=g.device)[:, None, None]
     key = (g[..., 8:8 + K] * n_sp + chunk).permute(1, 0, 2).reshape(B, -1)

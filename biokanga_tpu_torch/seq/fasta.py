@@ -90,6 +90,67 @@ def read_fastq(path: str) -> Iterator[SeqRecord]:
             )
 
 
+_CS_LUT = np.full(256, -1, dtype=np.int8)
+for _i, _c in enumerate(b"0123"):
+    _CS_LUT[_c] = _i
+_CS_LUT[ord(".")] = 4
+
+
+def read_csfasta(path: str) -> Iterator[SeqRecord]:
+    """Stream SOLiD .csfasta records: fasta-style headers, sequence lines
+    of a primer base followed by color digits 0-3 ('.' = no-call).  The
+    primer base and the primer-dependent first color are stripped; codes
+    are color values 0..3 (4 = no-call), directly alignable against a
+    colorspace index (the reference's colorspace read handling,
+    SfxArrayV2.cpp:300-380)."""
+    name = None
+    chunks: list[bytes] = []
+
+    def emit():
+        raw = b"".join(chunks)
+        colors = _CS_LUT[np.frombuffer(raw, dtype=np.uint8)]
+        if len(colors) and colors[0] < 0:  # leading primer base char
+            colors = colors[1:]
+        if len(colors):  # drop primer-dependent first color
+            colors = colors[1:]
+        colors = np.where(colors < 0, 4, colors).astype(np.int8)
+        return SeqRecord(name, colors)
+
+    with _open_text(path) as f:
+        for line in f:
+            line = line.rstrip()
+            if not line or line.startswith(b"#"):
+                continue
+            if line.startswith(b">"):
+                if name is not None:
+                    yield emit()
+                name = line[1:].split()[0].decode() if line[1:] else ""
+                chunks = []
+            else:
+                chunks.append(line)
+        if name is not None:
+            yield emit()
+
+
+def write_csfasta(path: str, records, primer: str = "T") -> None:
+    """records: iterable of (name, base_codes).  Each record is emitted as
+    primer base + first color (primer->base0) + internal colors."""
+    from .encode import to_colorspace
+
+    pcode = ascii_to_codes(primer.encode())[0]
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "wb") as f:
+        for name, codes in records:
+            full = np.concatenate(
+                [np.array([pcode], dtype=np.int8),
+                 np.asarray(codes, dtype=np.int8)]
+            )
+            colors = to_colorspace(full)
+            txt = "".join("." if c >= 4 else str(int(c)) for c in colors)
+            f.write(b">" + name.encode() + b"\n"
+                    + primer.encode() + txt.encode() + b"\n")
+
+
 def write_fasta(path: str, records, width: int = 70) -> None:
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "wb") as f:
@@ -199,6 +260,7 @@ def _read_blocks_py(
     path: str,
     block_size: int = 4096,
     max_len: int | None = None,
+    records: Iterator[SeqRecord] | None = None,
 ) -> Iterator[ReadBlock]:
     names: list[str] = []
     seqs: list[np.ndarray] = []
@@ -222,7 +284,7 @@ def _read_blocks_py(
         names, seqs, quals, any_qual = [], [], [], False
         return blk
 
-    for rec in read_seqs(path):
+    for rec in records if records is not None else read_seqs(path):
         names.append(rec.name)
         seqs.append(rec.codes)
         quals.append(rec.qual)
@@ -231,3 +293,11 @@ def _read_blocks_py(
             yield flush()
     if seqs:
         yield flush()
+
+
+def read_csfasta_blocks(
+    path: str, block_size: int = 4096, max_len: int | None = None
+) -> Iterator[ReadBlock]:
+    """Batch SOLiD .csfasta color reads into fixed-width blocks."""
+    yield from _read_blocks_py(path, block_size, max_len,
+                               records=read_csfasta(path))

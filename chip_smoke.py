@@ -9,7 +9,9 @@ Phases, each of which raises on failure:
      card, at the shapes the align path gives them (the sorts also at
      every width of their dispatch: one warp a row up to 1,024 values or
      512 pairs, one block a row up to 32,768, a scratch row past that, the
-     rescue ladder's dedup rows of reads up to 4,096 bp), and time both;
+     rescue ladder's dedup rows of reads up to 4,096 bp; the pair sort
+     past 16,384 pairs, the sharded multi-hit union's rows, at 16,385,
+     16,500 and 65,536 pairs), and time both;
      the sorts beside torch.sort and their bounds at the SE and fused PE
      shapes and at the wide rows; the extension also on every case of
      tests/extend_edge_cases.py and on a 100,000-contig genome;
@@ -128,14 +130,47 @@ Phases, each of which raises on failure:
      card) whose CSV equals a --device cpu run's, its ranks' kernel
      launches read from their stderr, and, in this process, a world of
      one over NCCL giving the SE cell equal to AlignEngine.
-Phases 16 and 17 run on the card right after phase 6; their --device
-cpu child processes go on beside phases 7-15 and 18 and are compared
-after phase 18.
+ 20. hold the windowed extension (hamming_extend_packed_win, #3w, the
+     assembler's overlap verify) against its plain version on every case
+     of tests/win_edge_cases.py (windows across an entry cut, win = 0,
+     windows past the genome's end, Ns in reads and genome) and at the
+     sweep's (4,096, 192) for W = 10, 64 and 256, each timed beside its
+     plain version and its bound;
+ 21. the bisulfite cell: `index -m 1` of the 4.6 Mbp genome, 262,144 x
+     100 bp bisulfite reads (tests/bs_reads.py: half top, half bottom
+     strand, C->T at 0.98) through `align --device cuda`: >= 0.9375 of
+     the reads placed uniquely are at origin on the right strand, and
+     the share of all reads so placed is printed (no bar: the JAX
+     package's core length leaves most reads without a hit at this size,
+     ROADMAP.md queue 3); the same on a 0.5 Mbp genome with 65,536 reads,
+     where >= 0.9375 of all reads must be so placed; the CLI wall and
+     BisulfiteAligner's reads/s; the first 4,096 reads' SAM byte for byte
+     from a --device cpu child;
+ 22. the colorspace cell: `index -C`, 262,144 x 75 bp reads at 1%
+     substitutions as .csfasta colours (primer T), >= 0.9667 unique at
+     origin; the same timings and CPU-against-card SAM check;
+ 23. PacBio: phase 9's EC cell through `ecreads --checkpoint-dir`, once
+     unbroken and once resumed after half its group files were deleted,
+     both FASTAs equal to an unbroken `--rounds 1` run; `contigs` on
+     phase 9's corrected reads, --device cuda against a --device cpu
+     child, with its wall and N50;
+ 24. the assembly cell (BENCH_ASM.json's 0.5mbp_30x_r4: 50,000 error-free
+     pairs of 2 x 150 bp from a 0.5 Mbp genome) through `assemb` on the
+     card: wall, passes, contigs, N50, launches of #1-#3 and #3w, peak
+     device memory, and every contig an exact genome substring; then
+     `assemb` on the 20 kb, 2,400-read case of
+     tests/test_assembly_scaled.py, `scaffold` and `pescaffold` on two
+     contigs, each card against a --device cpu child byte for byte.
+Phases 16 and 17 run on the card right after phase 6, and 21-22 after
+them; their --device cpu child processes go on beside the phases that
+follow and are compared after phase 18 (16-17) and at the end (21-24).
+Phase 20 runs right after phase 3, 23 after phase 13 and 24 after 18.
 Phase 3 also holds the extension kernel at the orphan rescue's shape
 (2,048 windows of 500 consecutive loci, some off the genome's ends).
-The kernels line gives #1-#3 their launches on every path above, and
-every kernel its launches on phase 19's sharded, EC-mesh and swservice
-paths (summed over the ranks).
+The kernels line gives #1-#3 their launches on every path above, #3w
+its launches on the assembly cell, every kernel its launches on phase
+19's sharded, EC-mesh and swservice paths (summed over the ranks), and
+on the paths of phases 21-24 where it ran.
 The last two lines are a JSON object per kernel and the result line.
 Exits non-zero without CUDA or outside the repository.  Needs one card.
 
@@ -256,6 +291,25 @@ RANK_OPTIONS_LAYOUT = (1, 2)
 RANK_INDEX = {2: "ck2.npz", 4: "ck.npz"}
 EC_RANKS = 2
 SWS_PROBES, SWS_LEN, SWS_BAND = 24, 400, 32   # 24 x 24 cross pairs
+
+# the pair sort past its block path (phase 3): the sharded multi-hit
+# union's rows at 3,277 sp ranks (-R 5), 33 (-R 500), and four times that
+WIDE_SORT2_SHAPES = ((512, 16_385), (512, 16_500), (64, 65_536))
+# the windowed extension (phase 20): the assembler's sweep batch of 4,096
+# queries, its candidate cap and the word counts of 150 bp reads and of
+# contigs past 1 kb and at the 4,096-base verify cap; integer operations
+# a covered word (funnel shift, XOR, OR, fold, mask, popcount, add, lane
+# mask; two more with an N plane) and a candidate (loads, flags, range)
+WIN_B, WIN_C, WIN_WORDS = 4_096, 192, (10, 64, 256)
+WIN_OPS_PER_WORD, WIN_OPS_PER_CAND = 12, 20
+# bisulfite and colorspace cells (phases 21-22) on the phase 4 genome:
+# the bars are the JAX tests' 60/64 (tests/test_bisulfite.py:62) and
+# 290/300 (tests/test_colorspace.py:67); 75 bp is SOLiD 5500's fragment
+BS_READS, MIN_BS_SHARE = 262_144, 0.9375
+BS_SMALL_BP, BS_SMALL_READS = 500_000, 65_536
+CS_READS, CS_READ_LEN, MIN_CS_SHARE = 262_144, 75, 0.9667
+# the assembly cell (phase 24): BENCH_ASM.json's row 0.5mbp_30x_r4
+ASM_GENOME_BP, ASM_PAIRS = 500_000, 50_000
 
 # least-time bounds (NVIDIA H100 SXM data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
@@ -392,6 +446,8 @@ def check_sorts(dev, rng):
         raise AssertionError(f"sort kernels disagree with torch.sort: {err}")
     wide = _check_wide_sort(dev)
     err["sort_rows"] = max(err["sort_rows"], wide.pop("err"))
+    wide2 = _check_wide_sort2(dev)
+    err["sort2_rows"] = max(err["sort2_rows"], wide2.pop("err"))
 
     # time at the fast pass's shapes: B = 65,536 reads of 100 bp, and the
     # paired-end path's fused batches of both mates, twice the rows
@@ -415,6 +471,7 @@ def check_sorts(dev, rng):
                 timing[name]["ms_fused_pe"] = t["ms"]
         del x, key, val
     timing["sort_rows"]["wide"] = wide
+    timing["sort2_rows"]["wide"] = wide2
     return err, timing
 
 
@@ -797,7 +854,7 @@ def long_read_parity():
             widths[d] = []
             pipeline.sort_rows = lambda x, w=widths[d]: (
                 w.append(x.shape[1]), sort_rows(x))[1]
-            _reset_align_launches()
+            _reset_kernel_launches()
             rc = cli.main(["align", "-i", str(WORK / "long.fq"),
                            "-I", str(WORK / "long.npz"),
                            "-o", str(WORK / f"long_{d}.sam"), "--device", d])
@@ -1518,21 +1575,13 @@ def _pe_origin_fractions(path: Path, n_pairs: int) -> tuple[float, float]:
     return proper / n_pairs, at_origin / max(proper, 1)
 
 
+ALIGN_KERNELS = ("sort_rows", "sort2_rows", "hamming_extend_packed")
+
+
 def _align_launches() -> dict:
-    from biokanga_tpu_torch.ops import extend_packed, sort
-
-    return {"sort_rows": sort.sort_rows.launches,
-            "sort2_rows": sort.sort2_rows.launches,
-            "hamming_extend_packed":
-                extend_packed.hamming_extend_packed.launches}
-
-
-def _reset_align_launches() -> None:
-    from biokanga_tpu_torch.ops import extend_packed, sort
-
-    for fn in (sort.sort_rows, sort.sort2_rows,
-               extend_packed.hamming_extend_packed):
-        fn.launches = 0
+    """Launch counts of the align path's kernels, #1-#3."""
+    counts = _kernel_launches()
+    return {k: counts[k] for k in ALIGN_KERNELS}
 
 
 def pe_full_width(seqs, smi):
@@ -1550,7 +1599,7 @@ def pe_full_width(seqs, smi):
     _write_pairs("pehead", names, reads, N_PARITY)
     print(f"PE read set: {N_PAIRS} pairs of 2 x {READ_LEN} bp, inserts "
           f"{PE_INSERT} ({time.monotonic() - t0:.1f} s to simulate and write)")
-    _reset_align_launches()
+    _reset_kernel_launches()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     st = _align_pe("pe", "ref.npz", "pe_out", "cuda")
@@ -1593,7 +1642,7 @@ def pe_parity():
     _write_pairs("perep", rnames, rreads, N_REPEAT_PAIRS)
     st = {}
     for d in ("cpu", "cuda"):
-        _reset_align_launches()
+        _reset_kernel_launches()
         st[d] = _align_pe("perep", "perep.npz", f"perep_{d}", d,
                           ["--peinsertdist", str(WORK / f"perep_{d}.csv")])
     launches = _align_launches()
@@ -1950,7 +1999,7 @@ def se_options_cell(seqs, dev, smi):
     for flag, name in side.items():
         argv += [flag, str(WORK / name)]
     ms, undo = _timed_parts()
-    _reset_align_launches()
+    _reset_kernel_launches()
     try:
         import torch
 
@@ -2197,7 +2246,7 @@ def chunked_cli_start(seqs) -> dict:
         runs[kind] = {"proc": _cpu_child(argv["cpu"], f"ck_{kind}_cpu")}
         runs[kind]["argv"] = argv["cuda"]
     for kind, run in runs.items():
-        _reset_align_launches()
+        _reset_kernel_launches()
         run["wall"] = _timed_cli(run["argv"] + ["--device", "cuda"])
         run["launches"] = _align_launches()
         if min(run["launches"].values()) < 1:
@@ -2293,7 +2342,7 @@ def long_reads_start(seqs):
         return out
 
     pipeline.hamming_extend = timed
-    _reset_align_launches()
+    _reset_kernel_launches()
     try:
         wall = _timed_cli(argv["cuda"] + ["--device", "cuda"])
     finally:
@@ -2338,7 +2387,7 @@ def long_reads_finish(run, seqs, dev, smi) -> dict:
     for d in ("cuda", "cpu"):
         lr = LongReadAligner(AlignEngine(to_device(idx, torch.device(d)),
                                          AlignParams()))
-        _reset_align_launches()
+        _reset_kernel_launches()
         torch.cuda.synchronize()
         t0 = time.monotonic()
         out[d] = lr.align(reads, lens)
@@ -2513,7 +2562,7 @@ def big_genome_cell(dev, smi, n_bp=BIG_GENOME_BP, n_pairs=BIG_PAIRS,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_align_launches()
+    _reset_kernel_launches()
     marks = {}
 
     def progress(phase, k):
@@ -2575,25 +2624,6 @@ def big_genome_cell(dev, smi, n_bp=BIG_GENOME_BP, n_pairs=BIG_PAIRS,
 
 
 # -------------------------------------------------------- several ranks ----
-
-def _rank_launches() -> dict:
-    """Launch counts of every kernel wrapper in this process."""
-    from biokanga_tpu_torch.ops import banded_sw, sw_trace
-
-    return {**_align_launches(),
-            "banded_sw_moves": banded_sw.banded_sw_moves.launches,
-            "banded_sw_score": banded_sw.banded_sw_score.launches,
-            "sw_trace": sw_trace.traceback_cols_packed.launches}
-
-
-def _reset_rank_launches() -> None:
-    from biokanga_tpu_torch.ops import banded_sw, sw_trace
-
-    _reset_align_launches()
-    banded_sw.banded_sw_moves.launches = 0
-    banded_sw.banded_sw_score.launches = 0
-    sw_trace.traceback_cols_packed.launches = 0
-
 
 def _save(name: str, obj) -> None:
     import pickle
@@ -2684,10 +2714,10 @@ def _rank_main(rank: int, world: int, init_method: str) -> None:
             warm = mesh.rows(BATCH)
             sa.align(reads[:BATCH][warm], lengths[:BATCH][warm])
             torch.cuda.reset_peak_memory_stats()
-            _reset_rank_launches()
+            _reset_kernel_launches()
             blocks, wall = one_pass(sa, mesh, reads, lengths)
             peak, launches = torch.cuda.max_memory_allocated(), \
-                _rank_launches()
+                _kernel_launches()
             coll.update(s=0.0, wait_s=0.0, n=0)
             sharded.all_gather_sp = timed_gather
             try:
@@ -2709,7 +2739,7 @@ def _rank_main(rank: int, world: int, init_method: str) -> None:
         # the options sample: align_extended and the sharded pileup
         mesh = make_mesh(*RANK_OPTIONS_LAYOUT)
         if mesh is not None:
-            _reset_rank_launches()
+            _reset_kernel_launches()
             blk = next(read_blocks(str(WORK / "ck_se.fq"), block_size=BATCH))
             sa = sharded.ShardedAligner(
                 mesh, load_chunked_index(str(WORK / RANK_INDEX[2])),
@@ -2728,7 +2758,7 @@ def _rank_main(rank: int, world: int, init_method: str) -> None:
             planes = [all_gather_sp(mesh, p).cpu().numpy() for p in planes]
             torch.cuda.synchronize()
             report["options"] = {"wall_s": time.perf_counter() - t0,
-                                 "launches": _rank_launches()}
+                                 "launches": _kernel_launches()}
             if rank == 0:
                 _save("ranks_options", {
                     "res": res, "planes": [sharded.combine_pileup_planes(
@@ -2738,7 +2768,7 @@ def _rank_main(rank: int, world: int, init_method: str) -> None:
         # the EC cell with EC_RANKS ranks: the CLI defaults, two rounds
         mesh = make_sw_mesh(EC_RANKS)
         if mesh is not None:
-            _reset_rank_launches()
+            _reset_kernel_launches()
             recs = list(read_seqs(str(WORK / "ec_h2h.fa")))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2750,7 +2780,7 @@ def _rank_main(rank: int, world: int, init_method: str) -> None:
             torch.cuda.synchronize()
             report["ec"] = {"wall_s": time.perf_counter() - t0,
                             "overlaps": st["overlaps_used"],
-                            "launches": _rank_launches()}
+                            "launches": _kernel_launches()}
             write_fasta(str(WORK / f"ec_h2h_rank{rank}.fa"),
                         zip([x.name for x in recs], corrected))
         _save(f"ranks_report{rank}", report)
@@ -2996,6 +3026,609 @@ def several_ranks(seqs, dev, smi, engine_rate) -> dict:
     return launches
 
 
+# ------------------------------------------- #2 wide and #3w (3, 20) ----
+
+def _check_wide_sort2(dev) -> dict:
+    """sort2_rows past the block path's 16,384 pairs (the sharded
+    multi-hit union's K x n_sp rows) against its plain version, exactly,
+    on random, all-INT32_MAX and duplicate rows, also off 16-byte
+    alignment; each shape timed beside torch.sort of the packed int64
+    keys and its bound.  Returns {"err": e, "BxC": timing, ...}."""
+    import torch
+
+    from biokanga_tpu_torch.ops import sort
+
+    out = {"err": 0}
+    for B, C in WIDE_SORT2_SHAPES:
+        for k, kind in enumerate(("random", "all_max", "dups")):
+            key = _wide_rows(dev, B, C, kind, C + 11 * k)
+            if kind == "random":               # union keys: < 511 x n_sp
+                key = torch.where(key == I32_MAX, key, key & 0xFFFFF)
+            val = _wide_rows(dev, B, C, "random" if k else "dups", C + k)
+            for kk, vv in ((key, val),
+                           (key.reshape(-1)[1:1 + (B - 1) * C].view(B - 1, C),
+                            val.reshape(-1)[1:1 + (B - 1) * C].view(B - 1,
+                                                                    C))):
+                if not kk.numel():
+                    continue
+                (gk, gv), (wk, wv) = (sort.sort2_rows(kk, vv),
+                                      sort.sort2_rows_plain(kk, vv))
+                out["err"] = max(out["err"], _max_abs_err(gk, wk),
+                                 _max_abs_err(gv, wv))
+            del key, val
+    if out["err"]:
+        raise AssertionError(f"wide sort2_rows disagrees: {out['err']}")
+    print(f"sort2_rows past 16,384 pairs exact at {WIDE_SORT2_SHAPES} on "
+          f"random, all-INT32_MAX and duplicate rows")
+    for B, C in WIDE_SORT2_SHAPES:
+        key = _wide_rows(dev, B, C, "random", 5) & 0xFFFFF
+        val = _wide_rows(dev, B, C, "random", 6)
+        t = _sort_timing((key, val))
+        out[f"{B}x{C}"] = dict(ms=t["ms"], plain_ms=t["plain_ms"],
+                               library_ms=t["library_ms"],
+                               bound_ms=t["bound"][0], bound_by=t["bound"][1])
+        print(f"sort2_rows at ({B}, {C} pairs): kernel {t['ms']:.4f} ms, "
+              f"plain torch {t['plain_ms']:.4f} ms, torch.sort of packed "
+              f"int64 {t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} "
+              f"ms ({t['bound'][1]})")
+        del key, val
+    torch.cuda.empty_cache()
+    return out
+
+
+def _win_args(dev, case):
+    """The windowed extension's arguments on the card for one
+    tests/win_edge_cases.py case."""
+    import torch
+
+    from biokanga_tpu_torch.ops import extend_packed as ep
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import win_edge_cases
+
+    g, starts, reads, lens, loci, valid, win = win_edge_cases.win_case(*case)
+    pg = ep.pack_genome(g, dev)
+    rc, rn = ep.pack_reads(torch.from_numpy(reads).to(dev),
+                           torch.from_numpy(lens).to(dev))
+    return (pg, torch.from_numpy(starts.astype(np.int32)).to(dev),
+            torch.from_numpy(loci).to(dev), torch.from_numpy(valid).to(dev),
+            rc, rn, torch.from_numpy(win).to(dev))
+
+
+def _win_bound(args, out) -> tuple[float, str]:
+    """The windowed extension's least time on these inputs: every input
+    read once and the output written once, against the integer
+    operations of the candidates that pass the flag, range and one-entry
+    tests (those whose output is a count), each over the words its
+    window covers."""
+    from biokanga_tpu_torch.ops import extend_packed as ep
+
+    pg, starts, loci, valid, rc, rn, win = args
+    ok = out != ep.MM_WIN_INVALID
+    W = rc.shape[1]
+    words = ((win.clamp(0, 16 * W) + 15) // 16)[ok].sum().item()
+    per_word = WIN_OPS_PER_WORD + (2 if pg.has_n else 0)
+    search = 3 * max(1, math.ceil(math.log2(starts.numel() + 1)))
+    n_ops = (words * per_word + int(ok.sum()) * search
+             + loci.numel() * WIN_OPS_PER_CAND)
+    n_bytes = _nbytes(pg.rows, pg.n_rows, starts, loci, valid, rc, rn, win,
+                      out)
+    return _bound(n_bytes, n_ops)
+
+
+def check_extend_win(dev):
+    """Phase 20: hamming_extend_packed_win (#3w) against its plain
+    version on every case of tests/win_edge_cases.py (windows across an
+    entry cut, win <= 0 and past 16 W, windows past the genome's end, Ns
+    in the reads and the genome, W on both sides of the unrolled 16) and
+    at the assembler's sweep shapes (4,096, 192) for W = 10, 64 and 256;
+    each of those timed with its plain version and its bound.  Returns
+    (max_abs_err, timing)."""
+    import torch
+
+    from biokanga_tpu_torch.ops import extend_packed as ep
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import win_edge_cases
+
+    err = 0
+    for case in win_edge_cases.cases():
+        a = _win_args(dev, case)
+        err = max(err, _max_abs_err(ep.hamming_extend_packed_win(*a),
+                                    ep.hamming_extend_packed_win_plain(*a)))
+    timing = {}
+    for W in WIN_WORDS:
+        a = _win_args(dev, (20 + W, WIN_B, WIN_C, W, W != 64))
+        got = ep.hamming_extend_packed_win(*a)
+        want = ep.hamming_extend_packed_win_plain(*a)
+        err = max(err, _max_abs_err(got, want))
+        bound_ms, by = _win_bound(a, want)
+        n_ok = int((want != ep.MM_WIN_INVALID).sum())
+        t = dict(ms=_timed_ms(lambda: ep.hamming_extend_packed_win(*a)),
+                 plain_ms=_timed_ms(
+                     lambda: ep.hamming_extend_packed_win_plain(*a), 3),
+                 library_ms=None, bound=(bound_ms, by), valid=n_ok)
+        timing[W] = t
+        print(f"hamming_extend_packed_win at ({WIN_B}, {WIN_C}), W {W} "
+              f"({'with' if a[0].has_n else 'no'} N plane; {n_ok} counted "
+              f"windows): kernel {t['ms']:.4f} ms, plain torch "
+              f"{t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+        del a, got, want
+    if err:
+        raise AssertionError(f"hamming_extend_packed_win disagrees: {err}")
+    print(f"hamming_extend_packed_win exact on {len(win_edge_cases.cases())} "
+          f"edge cases and at W = {WIN_WORDS}")
+    torch.cuda.empty_cache()
+    head = dict(timing[WIN_WORDS[0]])
+    head["by_words"] = {str(W): {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                                 "bound_ms": t["bound"][0],
+                                 "bound_by": t["bound"][1]}
+                        for W, t in timing.items()}
+    return err, head
+
+
+# -------------------------------------- bisulfite, colorspace (21, 22) ----
+
+def _kernel_launches() -> dict:
+    """Launch counts of every kernel wrapper in this process."""
+    from biokanga_tpu_torch.ops import banded_sw, extend_packed, sort, sw_trace
+
+    return {"sort_rows": sort.sort_rows.launches,
+            "sort2_rows": sort.sort2_rows.launches,
+            "hamming_extend_packed":
+                extend_packed.hamming_extend_packed.launches,
+            "hamming_extend_packed_win":
+                extend_packed.hamming_extend_packed_win.launches,
+            "banded_sw_moves": banded_sw.banded_sw_moves.launches,
+            "banded_sw_score": banded_sw.banded_sw_score.launches,
+            "sw_trace": sw_trace.traceback_cols_packed.launches}
+
+
+def _reset_kernel_launches() -> None:
+    from biokanga_tpu_torch.ops import banded_sw, extend_packed, sort, sw_trace
+
+    for fn in (sort.sort_rows, sort.sort2_rows,
+               extend_packed.hamming_extend_packed,
+               extend_packed.hamming_extend_packed_win,
+               banded_sw.banded_sw_moves, banded_sw.banded_sw_score,
+               sw_trace.traceback_cols_packed):
+        fn.launches = 0
+
+
+def _two_pass_rate(aligner, reads, lengths) -> float:
+    """Reads/s of a two-pass aligner's align_batch over `reads` in
+    batches of BATCH, after one warm batch, between synchronisations."""
+    import torch
+
+    aligner.align_batch(reads[:BATCH], lengths[:BATCH])
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for s in range(0, len(reads), BATCH):
+        aligner.align_batch(reads[s:s + BATCH], lengths[s:s + BATCH])
+    torch.cuda.synchronize()
+    return len(reads) / (time.monotonic() - t0)
+
+
+def _bs_align(tag: str, genome: np.ndarray, n_reads: int, seed: int):
+    """`index -m 1` of WORK/<tag>.fa, then n_reads bisulfite reads of
+    100 bp (tests/bs_reads.py) through `align --device cuda`.  Returns
+    (reads, index seconds, CLI seconds, launches, recall: the share of
+    all reads placed uniquely at origin on the right strand, precision:
+    that share among the reads placed uniquely)."""
+    from biokanga_tpu_torch import cli
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from bs_reads import bs_reads
+
+    t0 = time.monotonic()
+    if cli.main(["index", "-m", "1", "-i", str(WORK / f"{tag}.fa"), "-o",
+                 str(WORK / f"{tag}_bs.npz"), "--lut-bases", "10"]) != 0:
+        raise AssertionError(f"index -m 1 of {tag} failed")
+    index_s = time.monotonic() - t0
+    names, reads, starts, bottom = bs_reads(genome, n_reads, READ_LEN,
+                                            np.random.default_rng(seed))
+    _write_fastq(WORK / f"{tag}_bs.fq", names, reads)
+    _reset_kernel_launches()
+    cli_s = _timed_cli(["align", "-i", str(WORK / f"{tag}_bs.fq"), "-I",
+                        str(WORK / f"{tag}_bs.npz"), "-o",
+                        str(WORK / f"{tag}_bs.sam"), "--device", "cuda",
+                        "--batch-size", str(BATCH)])
+    launches = _kernel_launches()
+    if min(launches[k] for k in ALIGN_KERNELS) < 1:
+        raise AssertionError(f"phase 21: kernels not launched: {launches}")
+    placed = ok = 0
+    for rec in _records(WORK / f"{tag}_bs.sam"):
+        f = rec.split("\t")
+        flag, i = int(f[1]), int(f[0][2:])
+        if flag & 4 or f[4] != "60":
+            continue
+        placed += 1
+        ok += (int(f[3]) == starts[i] + 1
+               and bool(flag & 16) == bool(bottom[i]))
+    return (names, reads, index_s, cli_s, launches, ok / n_reads,
+            ok / max(placed, 1))
+
+
+def bisulfite_cell(seqs, dev, smi) -> dict:
+    """Phase 21: whole-genome bisulfite resequencing of the 4.6 Mbp
+    genome: `index -m 1`, then BS_READS reads of 100 bp (half top, half
+    bottom strand, C->T at 0.98; tests/bs_reads.py) through `align
+    --device cuda`; the recall (share placed uniquely at origin on the
+    right strand), the precision (that share among the reads placed),
+    the CLI wall and BisulfiteAligner's reads/s.  The JAX package's
+    bisulfite path keeps the core length it derives for a 4-letter
+    genome, so in the 3-letter collapsed genome every core of a read
+    over-occurs at this size, is skipped, and most reads get no hit
+    (ROADMAP.md queue 3; the port gives the JAX result dicts here,
+    tests/test_torch_bisulfite.py): the recall at 4.6 Mbp is printed
+    with no bar, and the JAX test's bar (60/64, tests/test_bisulfite.py:
+    62) holds on a BS_SMALL_BP genome with BS_SMALL_READS reads, where
+    that core length still resolves.  The precision bar holds on both.
+    The first N_PARITY reads of the big cell go through a --device cpu
+    child.  Returns the run's launches and what two_pass_finish
+    compares."""
+    from biokanga_tpu_torch import cli
+    from biokanga_tpu_torch.align.bisulfite import BisulfiteAligner
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.align.pipeline import AlignEngine
+    from biokanga_tpu_torch.index.build import load_bisulfite_index
+    from biokanga_tpu_torch.index.device import to_device
+    from biokanga_tpu_torch.seq.fasta import write_fasta
+    from biokanga_tpu_torch.sim.simreads import random_genome
+
+    (names, reads, index_s, cli_s, launches, recall,
+     precision) = _bs_align("ref", seqs[0][1], BS_READS, 21)
+    _write_fastq(WORK / "bs_head.fq", names[:N_PARITY], reads[:N_PARITY])
+    child = _cpu_child(["align", "-i", str(WORK / "bs_head.fq"), "-I",
+                        str(WORK / "ref_bs.npz"), "-o",
+                        str(WORK / "bs_head_cpu.sam")], "bs_head_cpu")
+    if cli.main(["align", "-i", str(WORK / "bs_head.fq"), "-I",
+                 str(WORK / "ref_bs.npz"), "-o",
+                 str(WORK / "bs_head_cuda.sam"), "--device", "cuda",
+                 "--batch-size", str(BATCH)]) != 0:
+        raise AssertionError("phase 21: head align failed")
+    ct, ga = load_bisulfite_index(str(WORK / "ref_bs.npz"))
+    bs = BisulfiteAligner(
+        AlignEngine(to_device(ct, dev), AlignParams(strand="sense",
+                                                    batch_size=BATCH)),
+        AlignEngine(to_device(ga, dev), AlignParams(strand="antisense",
+                                                    batch_size=BATCH)))
+    rate = _two_pass_rate(bs, reads, np.full(BS_READS, READ_LEN, np.int32))
+    del bs, ct, ga
+    small = random_genome([("chr", BS_SMALL_BP)], seed=43)
+    write_fasta(str(WORK / "bs_small.fa"), small)
+    (_, _, _, small_s, small_launches, small_recall,
+     small_precision) = _bs_align("bs_small", small[0][1], BS_SMALL_READS, 23)
+    print(f"bisulfite cell: index -m 1 of {GENOME_BP} bp in {index_s:.2f} "
+          f"s; align --device cuda of {BS_READS} x {READ_LEN} bp reads in "
+          f"{cli_s:.2f} s (CLI wall); recall {recall:.6f} (no bar: the JAX "
+          f"package's core length, ROADMAP.md queue 3), precision "
+          f"{precision:.6f}; BisulfiteAligner.align_batch {rate:.1f} "
+          f"reads/s; launches {launches}. On {BS_SMALL_BP} bp: "
+          f"{BS_SMALL_READS} reads in {small_s:.2f} s, recall "
+          f"{small_recall:.6f}, precision {small_precision:.6f}, launches "
+          f"{small_launches} ({smi})")
+    if min(precision, small_precision, small_recall) < MIN_BS_SHARE:
+        raise AssertionError(f"phase 21: precision {precision:.4f} / "
+                             f"{small_precision:.4f} or recall on "
+                             f"{BS_SMALL_BP} bp {small_recall:.4f} < "
+                             f"{MIN_BS_SHARE}")
+    return {"launches": launches, "child": child, "tag": "bs_head"}
+
+
+def _write_csfasta(path: Path, names, reads, primer: int = 3) -> None:
+    """The .csfasta of base reads of one length (primer T), the bytes of
+    the package's write_csfasta, built a block of records at a time."""
+    reads = np.asarray(reads)
+    n, L = reads.shape
+    full = np.concatenate([np.full((n, 1), primer, np.int8), reads], axis=1)
+    a, b = full[:, :-1], full[:, 1:]
+    colors = np.where((a < 4) & (b < 4), a ^ b, 4)
+    mat = np.empty((n, L + 2), np.uint8)
+    mat[:, 0] = ord("ACGT"[primer])
+    mat[:, 1:L + 1] = np.frombuffer(b"0123.", np.uint8)[colors]
+    mat[:, -1] = ord("\n")
+    w = mat.shape[1]
+    with open(path, "wb") as f:
+        for s in range(0, n, 65_536):
+            blob = mat[s:s + 65_536].tobytes()
+            f.write(b"".join(b">" + names[s + i].encode() + b"\n"
+                             + blob[i * w:(i + 1) * w]
+                             for i in range(len(blob) // w)))
+
+
+def colorspace_cell(seqs, dev, smi) -> dict:
+    """Phase 22: a SOLiD resequencing run on the 4.6 Mbp genome.  `index
+    -C`, then CS_READS reads of 75 bp at 1% substitutions as .csfasta
+    colours (primer T, as `simreads -C` writes them) through `align
+    --device cuda`; the share placed uniquely at origin, the CLI wall and
+    ColorspaceAligner's reads/s.  The first N_PARITY reads go through a
+    --device cpu child."""
+    from biokanga_tpu_torch import cli
+    from biokanga_tpu_torch.align.colorspace import ColorspaceAligner
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.align.pipeline import AlignEngine, pad_rows
+    from biokanga_tpu_torch.index.build import load_index
+    from biokanga_tpu_torch.index.device import to_device
+    from biokanga_tpu_torch.seq.fasta import read_csfasta_blocks, write_csfasta
+    from biokanga_tpu_torch.sim.simreads import simulate_reads
+
+    t0 = time.monotonic()
+    if cli.main(["index", "-C", "-i", str(WORK / "ref.fa"), "-o",
+                 str(WORK / "cs.npz"), "--lut-bases", "10"]) != 0:
+        raise AssertionError("index -C failed")
+    index_s = time.monotonic() - t0
+    names, reads, _ = simulate_reads(seqs, CS_READS, read_len=CS_READ_LEN,
+                                     sub_rate=0.01, seed=22)
+    _write_csfasta(WORK / "cs.csfasta", names, reads)
+    write_csfasta(str(WORK / "cs_check.csfasta"),
+                  zip(names[:1_000], reads[:1_000]))
+    head = (WORK / "cs.csfasta").read_bytes().split(b"\n")
+    if b"\n".join(head[:2_000]) + b"\n" != \
+            (WORK / "cs_check.csfasta").read_bytes():
+        raise AssertionError("phase 22: the block writer's .csfasta differs "
+                             "from write_csfasta")
+    (WORK / "cs_head.csfasta").write_bytes(b"\n".join(
+        head[:2 * N_PARITY]) + b"\n")
+    child = _cpu_child(["align", "-i", str(WORK / "cs_head.csfasta"), "-I",
+                        str(WORK / "cs.npz"), "-o",
+                        str(WORK / "cs_head_cpu.sam")], "cs_head_cpu")
+    _reset_kernel_launches()
+    cli_s = _timed_cli(["align", "-i", str(WORK / "cs.csfasta"), "-I",
+                        str(WORK / "cs.npz"), "-o", str(WORK / "cs.sam"),
+                        "--device", "cuda", "--batch-size", str(BATCH)])
+    launches = _kernel_launches()
+    if min(launches[k] for k in ALIGN_KERNELS) < 1:
+        raise AssertionError(f"phase 22: kernels not launched: {launches}")
+    share = _true_unique_fraction(WORK / "cs.sam", CS_READS)
+    if cli.main(["align", "-i", str(WORK / "cs_head.csfasta"), "-I",
+                 str(WORK / "cs.npz"), "-o", str(WORK / "cs_head_cuda.sam"),
+                 "--device", "cuda", "--batch-size", str(BATCH)]) != 0:
+        raise AssertionError("phase 22: head align failed")
+    idx = load_index(str(WORK / "cs.npz"))
+    cs = ColorspaceAligner(AlignEngine(to_device(idx, dev), AlignParams(
+        strand="sense", batch_size=BATCH)))
+    blk = next(read_csfasta_blocks(str(WORK / "cs.csfasta"), CS_READS))
+    colours, lens = pad_rows(blk.codes, blk.lengths)
+    rate = _two_pass_rate(cs, colours, lens)
+    print(f"colorspace cell: index -C of {GENOME_BP} bp in {index_s:.2f} s; "
+          f"align --device cuda of {CS_READS} x {CS_READ_LEN} bp reads "
+          f"({CS_READ_LEN - 1} colours) in {cli_s:.2f} s (CLI wall); unique "
+          f"at origin {share:.6f}; ColorspaceAligner.align_batch "
+          f"{rate:.1f} reads/s; launches {launches} ({smi})")
+    if share < MIN_CS_SHARE:
+        raise AssertionError(f"phase 22: {share:.4f} < {MIN_CS_SHARE}")
+    del cs
+    return {"launches": launches, "child": child, "tag": "cs_head"}
+
+
+def two_pass_finish(run, what: str) -> None:
+    """Phases 21-22, end: the --device cpu child's SAM of the first
+    N_PARITY reads against the card's, byte for byte."""
+    tag = run["tag"]
+    _wait_child(run["child"], f"{tag}_cpu")
+    want = (WORK / f"{tag}_cpu.sam").read_bytes()
+    if (WORK / f"{tag}_cuda.sam").read_bytes() != want:
+        raise AssertionError(f"{what}: SAM differs between --device cpu "
+                             f"and cuda")
+    print(f"{what}, first {N_PARITY} reads: --device cpu == --device cuda "
+          f"byte for byte ({len(want)} bytes)")
+
+
+# ------------------------------------------ PacBio, assembly (23, 24) ----
+
+def _n50(lengths) -> int:
+    ls = sorted(lengths, reverse=True)
+    acc, half = 0, sum(ls) / 2
+    for x in ls:
+        acc += x
+        if acc >= half:
+            return x
+    return 0
+
+
+def _fasta_lengths(path: Path) -> list[int]:
+    from biokanga_tpu_torch.seq.fasta import read_seqs
+
+    return [len(r.codes) for r in read_seqs(str(path))]
+
+
+def pacbio_cell(smi) -> dict:
+    """Phase 23: phase 9's EC read set through `ecreads --checkpoint-dir`
+    on the card, once unbroken and once after half its group files were
+    deleted (the resumed run recomputes them), both FASTAs byte for byte
+    equal to each other and to an unbroken `--rounds 1` run (the
+    checkpointed EC is one round); then `contigs` on phase 9's corrected
+    reads with --device cuda against a --device cpu child."""
+    import shutil
+
+    from biokanga_tpu_torch import cli
+
+    fasta, ck = WORK / "ec_h2h.fa", WORK / "ec_ck"
+    child = _cpu_child(["contigs", "-i", str(WORK / "ec_h2h_out.fa"), "-o",
+                        str(WORK / "ctg_cpu.fa")], "ctg_cpu")
+    shutil.rmtree(ck, ignore_errors=True)
+    _reset_kernel_launches()
+    t0 = time.monotonic()
+    st = _ecreads(fasta, WORK / "ec_ck1.fa", "cuda",
+                  ("--checkpoint-dir", str(ck)))
+    ck_s = time.monotonic() - t0
+    ec_launches = _kernel_launches()
+    groups = sorted(ck.glob("c*.npz"))
+    for g in groups[::2]:
+        g.unlink()
+    t0 = time.monotonic()
+    _ecreads(fasta, WORK / "ec_ck2.fa", "cuda", ("--checkpoint-dir", str(ck)))
+    resume_s = time.monotonic() - t0
+    _ecreads(fasta, WORK / "ec_r1.fa", "cuda", ("--rounds", "1"))
+    want = (WORK / "ec_r1.fa").read_bytes()
+    if (WORK / "ec_ck1.fa").read_bytes() != want or \
+            (WORK / "ec_ck2.fa").read_bytes() != want:
+        raise AssertionError("phase 23: checkpointed EC FASTA differs")
+    if min(ec_launches["banded_sw_moves"], ec_launches["sw_trace"]) < 1:
+        raise AssertionError(f"phase 23: EC launches {ec_launches}")
+    print(f"ecreads --checkpoint-dir on the EC cell: {len(groups)} groups, "
+          f"{ck_s:.2f} s unbroken, {resume_s:.2f} s resumed after deleting "
+          f"{len(groups[::2])}; both FASTAs equal the unbroken --rounds 1 "
+          f"run byte for byte ({len(want)} bytes, {st['overlaps']} overlaps; "
+          f"SW/decode launches {ec_launches['banded_sw_moves']}/"
+          f"{ec_launches['sw_trace']})")
+    _reset_kernel_launches()
+    ctg_s = _timed_cli(["contigs", "-i", str(WORK / "ec_h2h_out.fa"), "-o",
+                        str(WORK / "ctg_cuda.fa"), "--device", "cuda"])
+    ctg_launches = _kernel_launches()
+    lens = _fasta_lengths(WORK / "ctg_cuda.fa")
+    print(f"contigs --device cuda on phase 9's {EC_READS} corrected reads: "
+          f"{ctg_s:.2f} s, {len(lens)} contigs, N50 {_n50(lens)}, max "
+          f"{max(lens)}, {sum(lens)} bp; launches {ctg_launches} ({smi})")
+    return {"child": child, "ec_launches": ec_launches,
+            "ctg_launches": ctg_launches}
+
+
+def pacbio_finish(run) -> None:
+    _wait_child(run["child"], "ctg_cpu")
+    want = (WORK / "ctg_cpu.fa").read_bytes()
+    if (WORK / "ctg_cuda.fa").read_bytes() != want:
+        raise AssertionError("phase 23: contigs FASTA differs cpu vs cuda")
+    print(f"contigs on the corrected EC cell: --device cpu == --device cuda "
+          f"byte for byte ({len(want)} bytes)")
+
+
+def _assembly_parity_start() -> dict:
+    """Phase 24's card-against-CPU cases: `assemb` on the 20 kb, 2,400-read
+    case of tests/test_assembly_scaled.py, and `scaffold` and
+    `pescaffold` on two contigs of a 6 kb genome with PE reads across
+    their gap (the second contig reverse-complemented); the --device cpu
+    runs are child processes, the card's run here."""
+    from biokanga_tpu_torch import cli
+    from biokanga_tpu_torch.seq.encode import revcomp
+    from biokanga_tpu_torch.seq.fasta import write_fasta
+    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
+
+    g = random_genome([("chr1", 20_000)], seed=21)
+    _, reads, _ = simulate_reads(g, 2_400, read_len=100, sub_rate=0.0,
+                                 seed=9)
+    write_fasta(str(WORK / "asm20k.fa"), ((f"r{i}", r)
+                                          for i, r in enumerate(reads)))
+    g6 = random_genome([("s", 6_000)], seed=33)[0][1]
+    write_fasta(str(WORK / "ctg2.fa"), [("ctg1", g6[:2_500]),
+                                        ("ctg2", revcomp(g6[2_700:5_500]))])
+    rng = np.random.default_rng(6)
+    r1, r2 = [], []
+    for p in list(rng.integers(2_050, 2_350, 24)) + list(
+            rng.integers(0, 5_400, 40)):
+        frag = g6[p:p + 500]
+        if len(frag) == 500:
+            r1.append(frag[:100].copy())
+            r2.append(revcomp(frag[-100:]))
+    for m, rs in ((1, r1), (2, r2)):
+        write_fasta(str(WORK / f"sc{m}.fa"), ((f"p{i}/{m}", r)
+                                              for i, r in enumerate(rs)))
+    if cli.main(["index", "-i", str(WORK / "ctg2.fa"), "-o",
+                 str(WORK / "ctg2.npz"), "--lut-bases", "8"]) != 0:
+        raise AssertionError("phase 24: index of the two contigs failed")
+    runs = {}
+    for d in ("cpu", "cuda"):
+        argv = {
+            "asm20k": ["assemb", "-i", str(WORK / "asm20k.fa"), "-o",
+                       str(WORK / f"asm20k_{d}.fa")],
+            "scaffold": ["scaffold", "-c", str(WORK / "ctg2.fa"), "-i",
+                         str(WORK / "sc1.fa"), "-u", str(WORK / "sc2.fa"),
+                         "-o", str(WORK / f"scaffold_{d}.fa"),
+                         "--insert-size", "500"],
+            "sam1": ["align", "-i", str(WORK / "sc1.fa"), "-I",
+                     str(WORK / "ctg2.npz"), "-o", str(WORK / f"pe1_{d}.sam")],
+            "sam2": ["align", "-i", str(WORK / "sc2.fa"), "-I",
+                     str(WORK / "ctg2.npz"), "-o", str(WORK / f"pe2_{d}.sam")],
+        }
+        for name, a in argv.items():
+            if d == "cpu":
+                runs[name] = _cpu_child(a, f"{name}_cpu")
+            elif cli.main(a + ["--device", "cuda"]) != 0:
+                raise AssertionError(f"phase 24: {name} --device cuda failed")
+    return runs
+
+
+def _assembly_parity_finish(runs) -> None:
+    from biokanga_tpu_torch import cli
+
+    for name, proc in runs.items():
+        _wait_child(proc, f"{name}_cpu")
+    for d in ("cpu", "cuda"):
+        if cli.main(["pescaffold", "-i", str(WORK / f"pe1_{d}.sam"), "-u",
+                     str(WORK / f"pe2_{d}.sam"), "-o",
+                     str(WORK / f"pesc_{d}.csv")]) != 0:
+            raise AssertionError("phase 24: pescaffold failed")
+    for stem, ext in (("asm20k", "fa"), ("scaffold", "fa"), ("pe1", "sam"),
+                      ("pe2", "sam"), ("pesc", "csv")):
+        want = (WORK / f"{stem}_cpu.{ext}").read_bytes()
+        if (WORK / f"{stem}_cuda.{ext}").read_bytes() != want:
+            raise AssertionError(f"phase 24: {stem}.{ext} differs cpu vs "
+                                 f"cuda")
+    lens = _fasta_lengths(WORK / "asm20k_cuda.fa")
+    sc = _fasta_lengths(WORK / "scaffold_cuda.fa")
+    print(f"assemb on the 20 kb, 2,400-read case ({len(lens)} contigs, max "
+          f"{max(lens)}), scaffold of two contigs ({len(sc)} scaffold(s), "
+          f"{sc}) and pescaffold's CSV: --device cpu == --device cuda byte "
+          f"for byte")
+
+
+def assembly_cell(dev, smi) -> dict:
+    """Phase 24: de novo assembly of a bacterial Illumina PE readset,
+    BENCH_ASM.json's row 0.5mbp_30x_r4 (scripts/bench_assembly.py's
+    genome and reads: seed 33, 2 x 150 bp error-free pairs, inserts
+    250-500, both mate files as -i), through `assemb` with its defaults
+    on the card: wall, passes, contigs, N50, max contig, total bp, the
+    launches of #1-#3 and #3w and the peak device memory; every contig
+    must be an exact substring of the genome on one strand or the
+    other.  Then the card-against-CPU cases of _assembly_parity_start."""
+    import torch
+
+    from biokanga_tpu_torch.seq.encode import revcomp
+    from biokanga_tpu_torch.seq.fasta import read_seqs, write_fasta
+    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
+
+    parity = _assembly_parity_start()
+    seqs = random_genome([("chr1", ASM_GENOME_BP)], seed=33)
+    names, reads, _ = simulate_reads(
+        seqs, ASM_PAIRS, read_len=150, sub_rate=0.0, seed=44, pe=True,
+        insert_min=250, insert_max=500)
+    for m in (0, 1):
+        write_fasta(str(WORK / f"asm_pe{m + 1}.fa"),
+                    ((names[i], reads[i]) for i in range(m, 2 * ASM_PAIRS, 2)))
+    log = WORK / "asm.log"
+    log.unlink(missing_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_launches()
+    wall = _timed_cli(["assemb", "-i", str(WORK / "asm_pe1.fa"), "-i",
+                       str(WORK / "asm_pe2.fa"), "-o", str(WORK / "asm.fa"),
+                       "-F", str(log), "--device", "cuda"])
+    launches = _kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    m = re.search(r"assembled (\d+) seqs -> (\d+) contigs \((\d+) bp, max "
+                  r"(\d+)\) in (\d+) passes", log.read_text())
+    if m is None:
+        raise AssertionError("phase 24: assemb wrote no summary line")
+    contigs = [r.codes for r in read_seqs(str(WORK / "asm.fa"))]
+    g = seqs[0][1].tobytes()
+    bad = sum(c.tobytes() not in g and revcomp(c).tobytes() not in g
+              for c in contigs)
+    lens = [len(c) for c in contigs]
+    print(f"assembly cell ({ASM_GENOME_BP} bp, {ASM_PAIRS} pairs of 2 x 150 "
+          f"bp): assemb --device cuda wall {wall:.2f} s, {m[5]} passes, "
+          f"{len(contigs)} contigs, N50 {_n50(lens)}, max {max(lens)}, total "
+          f"{sum(lens)} bp ({sum(lens) / ASM_GENOME_BP:.4f} of the genome), "
+          f"{bad} not exact genome substrings; launches {launches}; peak "
+          f"device memory {peak / 2**30:.2f} GiB ({smi})")
+    if bad or not contigs:
+        raise AssertionError(f"phase 24: {bad} of {len(contigs)} contigs are "
+                             f"not exact substrings of the genome")
+    if min(launches[k] for k in ALIGN_KERNELS
+           + ("hamming_extend_packed_win",)) < 1:
+        raise AssertionError(f"phase 24: kernels not launched: {launches}")
+    return {"launches": launches, "parity": parity}
+
+
 def main() -> int:
     import torch
 
@@ -3051,6 +3684,11 @@ def main() -> int:
     print("align kernel checks passed: exact equality at every shape")
     lap("3")
 
+    # 20. the windowed extension (#3w) against its plain version
+    (errs["hamming_extend_packed_win"],
+     timing["hamming_extend_packed_win"]) = check_extend_win(dev)
+    lap("20")
+
     # 4. align end to end through the CLI
     WORK.mkdir(parents=True, exist_ok=True)
     seqs = random_genome([("chr", GENOME_BP)], seed=42)
@@ -3071,7 +3709,7 @@ def main() -> int:
                                      sub_rate=0.01, seed=9)
     _write_fastq(WORK / "reads.fq", names, reads)
     _write_fastq(WORK / "head.fq", names[:N_PARITY], reads[:N_PARITY])
-    _reset_align_launches()
+    _reset_kernel_launches()
     t0 = time.monotonic()
     rc = cli.main(["align", "-i", str(WORK / "reads.fq"),
                    "-I", str(WORK / "ref.npz"), "-o", str(WORK / "out.sam"),
@@ -3165,6 +3803,13 @@ def main() -> int:
     long_run = long_reads_start(seqs)
     lap("17")
 
+    # 21-22. bisulfite and colorspace cells; their --device cpu runs are
+    # child processes compared at the end
+    bs_run = bisulfite_cell(seqs, dev, smi)
+    lap("21")
+    cs_run = colorspace_cell(seqs, dev, smi)
+    lap("22")
+
     # 7. SW kernels at EC shapes, and #6 on a long pair
     sw_err, sw_timing = check_sw(dev, rng)
     errs.update(sw_err)
@@ -3206,6 +3851,10 @@ def main() -> int:
     ec_parity_finish(ec_runs)
     lap("8, end")
 
+    # 23. resumable EC on phase 9's cell, and contigs on its output
+    pb_run = pacbio_cell(smi)
+    lap("23")
+
     # 14. the SE options cell: SNP calling, indels, junctions, chimeric
     # trims; kernels #1-#3 are counted again on this path
     opt_launches = se_options_cell(seqs, dev, smi)
@@ -3219,6 +3868,10 @@ def main() -> int:
     big_launches = big_genome_cell(dev, smi)
     lap("18")
 
+    # 24. de novo assembly; #1-#3 and #3w are counted on this path
+    asm_run = assembly_cell(dev, smi)
+    lap("24")
+
     # 16-17, end: the CPU runs against the card's; LongReadAligner
     chunked_cli_finish(ck_runs)
     lap("16, end")
@@ -3229,6 +3882,20 @@ def main() -> int:
     rank_launches = several_ranks(seqs, dev, smi, max(rates))
     del seqs
     lap("19")
+
+    # 21-24, end: the CPU runs against the card's
+    two_pass_finish(bs_run, "bisulfite")
+    two_pass_finish(cs_run, "colorspace")
+    pacbio_finish(pb_run)
+    _assembly_parity_finish(asm_run["parity"])
+    lap("21-24, end")
+    new_paths = {"launches_bisulfite": bs_run["launches"],
+                 "launches_colorspace": cs_run["launches"],
+                 "launches_contigs": pb_run["ctg_launches"],
+                 "launches_assembly": asm_run["launches"],
+                 "launches_ec_checkpoint": pb_run["ec_launches"]}
+    launches["hamming_extend_packed_win"] = \
+        asm_run["launches"]["hamming_extend_packed_win"]
 
     src = "biokanga_tpu_torch/csrc/"
     rows = [
@@ -3249,6 +3916,9 @@ def main() -> int:
         ("stream_gather_consume", "stream_gather.cu",
          "biokanga_tpu/ops/stream_gather.py:58",
          f"{GATHER_N} random rows of a {GATHER_LINE_MB:.0f} MB table"),
+        ("hamming_extend_packed_win", "hamming_extend.cu",
+         "biokanga_tpu/ops/extend_packed.py:217",
+         f"({WIN_B}, {WIN_C}) windows, W {WIN_WORDS[0]}"),
     ]
     kernels_line = []
     for name, path, rep, shape in rows:
@@ -3262,8 +3932,12 @@ def main() -> int:
         extra = {k: t[k] for k in ("ms_ec_chunk", "ec_chunk_pairs",
                                    "chain_ms", "ms_fused_pe", "ms_contigs",
                                    "wrapper_ms", "wide", "path",
-                                   "direct_floor_ms")
+                                   "direct_floor_ms", "by_words")
                  if k in t}
+        # launches on the paths this slice added, where the kernel ran
+        extra.update({path: counts[name]
+                      for path, counts in new_paths.items()
+                      if counts.get(name)})
         kernels_line.append({
             "name": name, "route": "cuda", "source": src + path,
             "replaces": rep, "launches": launches[name],
@@ -3274,7 +3948,7 @@ def main() -> int:
                 "launches_long_reads": long_launches[name],
                 "launches_big_genome": big_launches[name]}
                if name in se_launches else {}),
-            **rank_launches[name],
+            **rank_launches.get(name, {}),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms, **extra})

@@ -2,6 +2,7 @@
 
     python3 profile_torch.py            # all cells
     python3 profile_torch.py ec         # or some: ec | align | pe | pe_repeat
+                                        #   | asm
 
 ec: the error-correction head-to-head read set of chip_smoke.py phase 9
 (500 x 10 kb CLR reads of a 200 kb genome, seed 3) through `ec_reads`
@@ -13,7 +14,13 @@ pe: the paired-end cell of chip_smoke.py phase 13 (262,144 pairs of 2 x
 in flight as the CLI drives it (`launch_pairs` of batch k+1 before
 `finish_pairs` of batch k).  pe_repeat: the 2,048 repeat-genome pairs of
 2 x 150 bp of chip_smoke.py phase 12, the only pairs here that reach the
-orphan rescue, as one batch.
+orphan rescue, as one batch.  asm: the assembly cell of chip_smoke.py
+phase 24 (50,000 error-free pairs of 2 x 150 bp from a 0.5 Mbp genome,
+BENCH_ASM.json's 0.5mbp_30x_r4) through `assemble` with its defaults;
+its `asm.pass` ranges hold the scaled passes' `asm.index` (the device
+index build) and `asm.sweep` (candidates, #3w, the winner scatters)
+ranges, the rest of a pass is the host's chain merge, and `asm.contain`
+is the containment sweep.
 
 Each cell runs once unprofiled (the wall time users see) and once under
 `torch.profiler` with CPU and CUDA activities.  It prints one JSON line
@@ -34,7 +41,7 @@ import time
 import numpy as np
 
 
-STAGE_PREFIXES = ("ec.", "pe.")       # record_function ranges of the port
+STAGE_PREFIXES = ("ec.", "pe.", "asm.")  # record_function ranges of the port
 
 
 def _on_device(evt) -> bool:
@@ -223,6 +230,31 @@ def profile_pe_repeat() -> dict:
                           BATCH)
 
 
+def profile_asm() -> dict:
+    import torch
+
+    from biokanga_tpu_torch.assembly.assemble import assemble
+    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
+    from chip_smoke import ASM_GENOME_BP, ASM_PAIRS
+
+    seqs = random_genome([("chr1", ASM_GENOME_BP)], seed=33)
+    _, reads, _ = simulate_reads(seqs, ASM_PAIRS, read_len=150,
+                                 sub_rate=0.0, seed=44, pe=True,
+                                 insert_min=250, insert_max=500)
+    reads = [np.asarray(r, np.int8) for r in reads]
+    dev = torch.device("cuda")
+    assemble(reads[:6_000], device=dev, max_passes=2)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    contigs, st = assemble(reads, device=dev)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    wall_prof, events = _profiled(lambda: assemble(reads, device=dev))
+    return _summary("asm", wall, wall_prof, events,
+                    {"reads": len(reads), "passes": st.passes,
+                     "contigs": st.n_contigs, "max_contig": st.max_contig})
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -238,7 +270,8 @@ def main(argv: list[str]) -> int:
     print(smi)
     for cell in cells:
         fn = {"ec": profile_ec, "align": profile_align,
-              "pe": profile_pe, "pe_repeat": profile_pe_repeat}[cell]
+              "pe": profile_pe, "pe_repeat": profile_pe_repeat,
+              "asm": profile_asm}[cell]
         print(json.dumps({**fn(), "card": smi}))
     return 0
 

@@ -17,6 +17,7 @@ multi-host scripts, imports jax or the JAX package.
 """
 import ast
 import functools
+import json
 import os
 import pathlib
 import subprocess
@@ -187,7 +188,7 @@ def test_pe_sam_is_byte_identical_to_jax_cli(pairs, case, opts):
 @pytest.fixture(scope="module")
 def other_indexes(inputs):
     """A bisulfite and a colorspace index of the same genome, built by the
-    JAX CLI: the kinds of index the port refuses."""
+    JAX CLI."""
     d = inputs
     for name, opts in (("bs", ["-m", "1"]), ("cs", ["-C"])):
         assert jax_main(["index", "-i", str(d / "ref.fa"), "-o",
@@ -198,27 +199,41 @@ def other_indexes(inputs):
 
 @pytest.mark.parametrize("case", ["bisulfite", "colorspace",
                                   "index -m 1", "index -C"])
-def test_what_stays_outside_the_slice_is_refused(other_indexes, case,
-                                                 capsys):
-    """Bisulfite and colorspace indexes (ROADMAP.md queue 1, item 5):
-    `align` refuses such an index file and `index` the options that would
-    build one, with exit code 2 and the ROADMAP item.  (Chunked indexes
-    are ported: tests/test_torch_chunked.py.)"""
+def test_what_stays_outside_the_slice_is_refused(other_indexes, case):
+    """Bisulfite and colorspace indexes, once refused with exit code 2, are
+    ported: `align` against such an index file, with SE options its
+    branch ignores, and `index -m 1` / `-C` give the JAX CLI's files
+    (the SAM byte for byte; the index arrays and meta but created_unix).
+    The colorspace branch reads `-i` as .csfasta, so this FASTQ gives
+    both CLIs a SAM of no records.  tests/test_torch_bisulfite.py and
+    tests/test_torch_colorspace.py hold both modes on their own reads."""
     d = other_indexes
     idx = {"bisulfite": "bs", "colorspace": "cs"}
     if case in idx:
         argv = ["align", "-i", str(d / "reads.fq"), "-I",
-                str(d / f"{idx[case]}.npz"), "-o", str(d / "x.sam"),
-                "--device", "cpu", "-O", str(d / "x.csv"), "-a", "5"]
-    else:
-        flag = {"index -m 1": ["-m", "1"], "index -C": ["-C"]}[case]
-        argv = ["index", "-i", str(d / "ref.fa"), "-o", str(d / "x.npz")] \
-            + flag
-    with pytest.raises(SystemExit) as e:
-        torch_main(argv)
-    assert e.value.code == 2
-    assert "queue 1, item 5" in capsys.readouterr().err
-    assert not (d / "x.npz").exists() and not (d / "x.sam").exists()
+                str(d / f"{idx[case]}.npz"), "-O", str(d / "x.csv"), "-a",
+                "5"]
+        assert jax_main(argv + ["-o", str(d / "x_jax.sam")]) == 0
+        assert torch_main(argv + ["-o", str(d / "x_torch.sam"), "--device",
+                                  "cpu"]) == 0
+        want = (d / "x_jax.sam").read_bytes()
+        assert (d / "x_torch.sam").read_bytes() == want
+        assert (case == "colorspace") == (want == b"")
+        return
+    flag = {"index -m 1": ["-m", "1"], "index -C": ["-C"]}[case]
+    for main, tag in ((jax_main, "jax"), (torch_main, "torch")):
+        assert main(["index", "-i", str(d / "ref.fa"), "-o",
+                     str(d / f"x_{tag}.npz"), "--lut-bases", "9"] + flag) == 0
+    with np.load(d / "x_jax.npz") as za, np.load(d / "x_torch.npz") as zb:
+        assert sorted(za.files) == sorted(zb.files)
+        for k in za.files:
+            if k == "meta":
+                ma, mb = (json.loads(z[k].tobytes().decode())
+                          for z in (za, zb))
+                assert ma.pop("created_unix") and mb.pop("created_unix")
+                assert ma == mb
+            else:
+                np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
 
 
 def test_cuda_is_never_replaced_by_the_cpu_with_the_se_options(inputs,
@@ -339,11 +354,17 @@ def test_align_500bp_reads_past_the_block_sort(tmp_path, monkeypatch):
 
 
 def test_ecreads_refuses_checkpoints(long_reads):
-    with pytest.raises(SystemExit) as e:
-        torch_main(["ecreads", "-i", str(long_reads / "pb.fa"), "-o",
-                    str(long_reads / "x.fa"), "--checkpoint-dir",
-                    str(long_reads / "ck"), "--device", "cpu"])
-    assert e.value.code == 2
+    """`ecreads --checkpoint-dir` is no longer refused: it runs one round
+    in resumable groups and writes the FASTA of `--rounds 1`, also when
+    it resumes from its checkpoints (tests/test_torch_pbfilter.py holds
+    it against the JAX package)."""
+    d = long_reads
+    argv = ["ecreads", "-i", str(d / "pb.fa"), "--device", "cpu"]
+    assert torch_main(argv + ["-o", str(d / "r1.fa"), "--rounds", "1"]) == 0
+    for out in ("ck1.fa", "ck2.fa"):
+        assert torch_main(argv + ["-o", str(d / out), "--checkpoint-dir",
+                                  str(d / "ck")]) == 0
+        assert (d / out).read_bytes() == (d / "r1.fa").read_bytes()
 
 
 def _imported_modules(path: pathlib.Path):
@@ -363,7 +384,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
               root / "scripts" / "bench_sw_torch.py",
               root / "scripts" / "bench_sort_torch.py",
               root / "scripts" / "bench_extend_torch.py",
-              root / "scripts" / "multihost_dryrun_torch.py"]
+              root / "scripts" / "multihost_dryrun_torch.py",
+              root / "tests" / "bs_reads.py",
+              root / "tests" / "win_edge_cases.py"]
     assert len(files) > 30
     bad = [(str(f.relative_to(root)), m) for f in files
            for m in _imported_modules(f)

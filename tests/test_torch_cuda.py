@@ -15,7 +15,11 @@ on pairs that need the orphan rescue, and the SAM and side files of
 and 6 kb reads); the consensus call breaks ties towards the first maximum
 on the card as on the CPU; the indel and splice scans, the SNP pileup,
 the dense extension, the device index build of a padded chunk and the
-long-read aligner on CUDA tensors equal them on CPU tensors.
+long-read aligner on CUDA tensors equal them on CPU tensors; the
+windowed extension (#3w) equals its plain version on
+tests/win_edge_cases.py, the pair sort its plain version past 16,384
+pairs, and the bisulfite and colorspace CLI and the scaled assembly on
+the card equal the CPU's.
 """
 import numpy as np
 import pytest
@@ -127,7 +131,7 @@ def test_sort_rows_kernel_edge_rows(cuda_device, kind, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [1, 192, 513, 4096])
+@pytest.mark.parametrize("C", [1, 192, 513, 4096, 16_385, 40_000, 65_536])
 @pytest.mark.parametrize("kind", ["all_max", "one_value", "min_and_max",
                                   "equal_keys"])
 def test_sort2_rows_kernel_edge_rows(cuda_device, kind, C):
@@ -157,7 +161,8 @@ def test_sort_limits_hold_on_the_card(cuda_device, B, C, kind):
     """Rows past the block path (the rescue ladder's dedup rows of reads
     past 400 bp, up to 369 cores x 1,024 positions) take the scratch-row
     path at any width, also past 64 chunks of 32,768 (merges in more than
-    one pass); the pair sort keeps its limit."""
+    one pass); a pair row past 16,384 pairs takes the pair sort's wide
+    path."""
     rng = np.random.default_rng(C)
     if kind == "random":
         x = _values(rng, B, C)
@@ -174,8 +179,9 @@ def test_sort_limits_hold_on_the_card(cuda_device, B, C, kind):
         assert torch.equal(sort.sort_rows(y), sort.sort_rows_plain(y))
     big = torch.zeros((1, sort.MAX_SORT2_C + 1), dtype=torch.int32,
                       device=cuda_device)
-    with pytest.raises(ValueError, match="limit"):
-        sort.sort2_rows(big, big)
+    got = sort.sort2_rows(big, big)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, sort.sort2_rows_plain(big, big)))
 
 
 @pytest.mark.cuda
@@ -973,3 +979,80 @@ def test_sharded_aligner_two_ranks_on_the_card_equal_the_engine(
     for k in RESULT_KEYS:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert (got["inst"][:16] >= 2).all() and got["unique"].sum() > 7_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [None, (11, 4_096, 192, 10, True),
+                                   (12, 512, 192, 256, False)])
+def test_windowed_extension_kernel_matches_plain(cuda_device, extra):
+    """#3w on every case of tests/win_edge_cases.py (entry cuts, win <= 0
+    and past 16 W, windows past the genome's end, Ns), or at the
+    assembler's sweep shapes: exact, and one launch a call."""
+    import win_edge_cases
+
+    for case in win_edge_cases.cases() if extra is None else [extra]:
+        g, starts, reads, lens, loci, valid, win = win_edge_cases.win_case(
+            *case)
+        pg = ep.pack_genome(g, cuda_device)
+        rc, rn = ep.pack_reads(torch.from_numpy(reads).to(cuda_device),
+                               torch.from_numpy(lens).to(cuda_device))
+        args = (pg, torch.from_numpy(starts.astype(np.int32)).to(cuda_device),
+                torch.from_numpy(loci).to(cuda_device),
+                torch.from_numpy(valid).to(cuda_device), rc, rn,
+                torch.from_numpy(win).to(cuda_device))
+        before = ep.hamming_extend_packed_win.launches
+        got = ep.hamming_extend_packed_win(*args)
+        assert ep.hamming_extend_packed_win.launches == before + 1
+        assert torch.equal(got, ep.hamming_extend_packed_win_plain(*args))
+
+
+@pytest.mark.cuda
+def test_bisulfite_and_colorspace_cli_on_the_card_equal_cpu(cuda_device,
+                                                            tmp_path):
+    """`index -m 1` / `index -C`, then `align` on either index: the SAM of
+    --device cuda equals --device cpu's byte for byte."""
+    from bs_reads import bs_reads
+
+    from biokanga_tpu_torch.cli import main
+    from biokanga_tpu_torch.seq.fasta import write_csfasta, write_fasta
+    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
+
+    seqs = random_genome([("c1", 80_000), ("c2", 30_000)], seed=5)
+    write_fasta(str(tmp_path / "g.fa"), seqs)
+    names, reads, _, _ = bs_reads(seqs[0][1], 2_000, 100,
+                                  np.random.default_rng(1))
+    write_fasta(str(tmp_path / "bs.fa"), zip(names, reads))
+    names, reads, _ = simulate_reads(seqs, 2_000, read_len=75,
+                                     sub_rate=0.01, seed=2)
+    write_csfasta(str(tmp_path / "cs.csfasta"), zip(names, reads))
+    for mode, reads_path in ((["-m", "1"], "bs.fa"), (["-C"], "cs.csfasta")):
+        assert main(["index", *mode, "-i", str(tmp_path / "g.fa"), "-o",
+                     str(tmp_path / "i.npz"), "--lut-bases", "9"]) == 0
+        for d in ("cpu", "cuda"):
+            assert main(["align", "-i", str(tmp_path / reads_path), "-I",
+                         str(tmp_path / "i.npz"), "-o",
+                         str(tmp_path / f"{d}.sam"), "--device", d,
+                         "--batch-size", "512"]) == 0
+        want = (tmp_path / "cpu.sam").read_bytes()
+        assert (tmp_path / "cuda.sam").read_bytes() == want, mode
+
+
+@pytest.mark.cuda
+def test_scaled_assembly_on_the_card_equals_cpu(cuda_device):
+    """assemble(scaled=True) on 600 reads of an 8 kb genome: the card's
+    contigs and stats equal the CPU's, and the windowed kernel ran."""
+    from biokanga_tpu_torch.assembly.assemble import assemble
+    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
+
+    g = random_genome([("chr1", 8_000)], seed=3)
+    _, reads, _ = simulate_reads(g, 600, read_len=100, sub_rate=0.002,
+                                 seed=5)
+    reads = [np.asarray(r, np.int8) for r in reads]
+    before = ep.hamming_extend_packed_win.launches
+    got, gs = assemble(reads, scaled=True, max_passes=8, device=cuda_device)
+    assert ep.hamming_extend_packed_win.launches > before
+    want, ws = assemble(reads, scaled=True, max_passes=8, device="cpu")
+    assert vars(gs) == vars(ws)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import extend_edge_cases as edges
+import win_edge_cases as win_edges
 
 from biokanga_tpu.ops import extend_packed as jep
 from biokanga_tpu_torch.device import i32_bits, popcount32, u32
@@ -157,3 +158,29 @@ def test_wrapper_checks_arguments():
             pg, torch.from_numpy(STARTS.astype(np.int32)),
             torch.from_numpy(loci.astype(np.int64)), torch.from_numpy(valid),
             rc, rn, torch.from_numpy(lens))
+
+
+@pytest.mark.parametrize("case", win_edges.cases(),
+                         ids=lambda c: f"B{c[1]}-C{c[2]}-W{c[3]}-N{int(c[4])}")
+def test_windowed_extension_matches_jax(case):
+    """hamming_extend_packed_win (the assembler's overlap verify) on
+    tests/win_edge_cases.py: windows across entry cuts, win <= 0 and past
+    16 W, windows past the genome's end, loci < 0 and INT32_MAX, Ns in
+    the reads and the genome."""
+    genome, starts, reads, lens, loci, valid, win = win_edges.win_case(*case)
+    pg = jep.pack_genome(genome)
+    rc, rn = jep.pack_reads(jnp.asarray(reads), jnp.asarray(lens))
+    want = np.asarray(jep.hamming_extend_packed_win(
+        pg, jnp.asarray(starts.astype(np.int32)), jnp.asarray(loci),
+        jnp.asarray(valid), rc, rn, jnp.asarray(win)))
+    tpg = tep.pack_genome(genome, torch.device("cpu"))
+    trc, trn = tep.pack_reads(torch.from_numpy(reads), torch.from_numpy(lens))
+    got = tep.hamming_extend_packed_win(
+        tpg, torch.from_numpy(starts.astype(np.int32)),
+        torch.from_numpy(loci), torch.from_numpy(valid), trc, trn,
+        torch.from_numpy(win)).numpy()
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    ok = want != tep.MM_WIN_INVALID
+    # true overlaps (about 1% mismatches) beside random windows (75%)
+    assert ok.any() and (~ok).any() and (want[ok] * 20 < win[ok]).any()

@@ -80,15 +80,20 @@ def test_sort2_rows_negative_keys_and_extremes():
 
 
 def test_limits_are_refused_on_every_device():
-    # the dedup sort takes any width (rows past the block path's 32,768
-    # values take the scratch-row path on the card); the accept sort keeps
-    # its 16,384-pair limit
+    # both sorts take any width (rows past the block path's 32,768 values
+    # or 16,384 pairs take the scratch-row path on the card); only a wrong
+    # type or rank is refused
     x = _values(np.random.default_rng(3), 2, sort.MAX_SORT_C + 1).reshape(
         1, -1)[:, :sort.MAX_SORT_C + 1]
     x = torch.from_numpy(np.ascontiguousarray(x))
     assert torch.equal(sort.sort_rows(x), torch.sort(x, dim=1).values)
-    big = torch.zeros((1, sort.MAX_SORT2_C + 1), dtype=torch.int32)
-    with pytest.raises(ValueError, match="16384"):
-        sort.sort2_rows(big, big)
+    rng = np.random.default_rng(4)
+    k = rng.integers(-3, 4, size=(2, sort.MAX_SORT2_C + 1)).astype(np.int32)
+    v = _values(rng, 2, sort.MAX_SORT2_C + 1)
+    gk, gv = sort.sort2_rows(torch.from_numpy(k), torch.from_numpy(v))
+    for r in range(2):
+        order = np.lexsort((v[r], k[r]))
+        assert np.array_equal(gk[r].numpy(), k[r][order])
+        assert np.array_equal(gv[r].numpy(), v[r][order])
     with pytest.raises(ValueError, match="int32"):
         sort.sort_rows(torch.zeros((2, 4), dtype=torch.int64))
