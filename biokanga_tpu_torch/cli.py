@@ -1,6 +1,9 @@
 """CLI of the PyTorch port: `index`, `align` (single and paired ends,
 bisulfite and colorspace), PacBio `ecreads`, `pbfilter`, `contigs` and
-`swservice`, and de novo assembly (`assemb`, `scaffold`, `pescaffold`).
+`swservice`, and de novo assembly (`assemb`, `scaffold`, `pescaffold`);
+the tools and simulators of cli_tools.py (`simreads`, `uhamming`,
+`blitz`, `mergeoverlaps`, `findapproxmatches`, the marker tools,
+`rnafragsim`, `usimdiffexpr`, `kangarg`) join them in SUBCOMMANDS.
 
 Usage:  python -m biokanga_tpu_torch index -i ref.fa -o ref.npz \
             [-m 0|1|2 -C -s <Mbp> --lut-bases 0 --chunks 0
@@ -53,6 +56,8 @@ import sys
 
 import numpy as np
 
+from .cli_tools import TOOL_SUBCOMMANDS
+from .cli_tools import add_device as _add_device
 from .device import resolve_device
 from .utils.diagnostics import StopWatch, open_diagnostics
 
@@ -68,13 +73,6 @@ def _expand_response_files(argv: list[str]) -> list[str]:
         else:
             out.append(a)
     return out
-
-
-def _add_device(p: argparse.ArgumentParser) -> None:
-    """The --device argument of the commands that run on a device."""
-    p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default; raises without CUDA) "
-                        "or cpu (the kernels' plain versions)")
 
 
 def cmd_index(argv: list[str]) -> int:
@@ -1233,7 +1231,7 @@ SUBCOMMANDS = {"index": cmd_index, "align": cmd_align,
                "ecreads": cmd_ecreads, "swservice": cmd_swservice,
                "pbfilter": cmd_pbfilter, "assemb": cmd_assemb,
                "scaffold": cmd_scaffold, "contigs": cmd_contigs,
-               "pescaffold": cmd_pescaffold}
+               "pescaffold": cmd_pescaffold, **TOOL_SUBCOMMANDS}
 
 
 def main(argv: list[str] | None = None) -> int:

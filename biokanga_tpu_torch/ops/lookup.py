@@ -87,3 +87,43 @@ def pack_read_kmers(codes: torch.Tensor, offsets, k: int):
     zero = torch.zeros_like(hi)
     ones = torch.full_like(hi, U32_MASK)
     return hi, zero, hi | pad_hi, ones, has_n
+
+
+def rolling_seed_lookup(key_hi, key_lo, lut, pos_flat, seqs: torch.Tensor,
+                        k: int, stride: int, S: int, H: int, lut_bases: int,
+                        max_steps: int):
+    """Seed lookup with rolling k-mer keys (biokanga_tpu/ops/lookup.py:87):
+    k shifted adds over the whole (B, L) code matrix, the cores taken at
+    every `stride`-th offset, then `seed_range_lookup`.  k <= 16 (one key
+    word).  `pos_flat` is the index's sorted positions (the port's
+    `DeviceIndex.pos_sorted`, tail-padded).
+
+    Returns (pos (B, S, H) int32 candidate positions, valid (B, S, H)
+    bool, size (B, S) int64 range sizes, 0 for a core with an N).  Only
+    the valid slots of `pos` are defined as in the JAX package."""
+    if not 1 <= k <= 16:
+        raise ValueError(f"core length {k} outside 1..16")
+    B, L = seqs.shape
+    dev = seqs.device
+    isn = seqs >= 4
+    b = torch.where(isn, 0, seqs).to(torch.int64)
+    bp = torch.nn.functional.pad(b, (0, k))
+    isn_p = torch.nn.functional.pad(isn, (0, k))
+    key = torch.zeros((B, L), dtype=torch.int64, device=dev)
+    nwin = torch.zeros((B, L), dtype=torch.bool, device=dev)
+    for j in range(k):
+        key += bp[:, j:j + L] << (2 * (15 - j))
+        nwin |= isn_p[:, j:j + L]
+    q_hi = key[:, ::stride][:, :S]
+    has_n = nwin[:, ::stride][:, :S]
+    pad_hi = (1 << (2 * (16 - k))) - 1
+    start, end = seed_range_lookup(
+        key_hi, key_lo, lut, lut_bases, q_hi, torch.zeros_like(q_hi),
+        q_hi | pad_hi, torch.full_like(q_hi, U32_MASK), core_len=k,
+        max_steps=max_steps)
+    size = torch.where(has_n, 0, end - start)
+    j = torch.arange(H, device=dev)
+    idx = (start[..., None] + j).clamp_(0, pos_flat.shape[0] - 1)
+    pos = pos_flat[idx].to(torch.int32)
+    valid = j < torch.clamp(size, max=H)[..., None]
+    return pos, valid, size

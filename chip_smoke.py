@@ -161,14 +161,48 @@ Phases, each of which raises on failure:
      `assemb` on the 20 kb, 2,400-read case of
      tests/test_assembly_scaled.py, `scaffold` and `pescaffold` on two
      contigs, each card against a --device cpu child byte for byte.
+ 25. uhamming: kernel #7 (uhamming_sweep) against its plain version,
+     exact, on a 6 kb genome of three entries (one of 80 bp, short of K
+     100) with N runs and exact, near and reverse-complement repeats, K 24
+     and 100, both sweeps and a mode-2 range, and at 65,536 bp, timed
+     with its bound; `uhamming -m 0` on a 20 kb genome, card against a
+     --device cpu child (.hmg arrays and CSV); `-m 3` of two `-m 2`
+     partials equal to one `-m 2` run over their union; `-m 0 -K 100` on
+     a 1 Mbp genome with planted repeats (each reads at most its
+     substitutions), timed through the CLI (its sweep between CUDA
+     events) against its bound; `-m 2 -n 64 -N 1` on the 4.6 Mbp genome;
+ 26. blitz: 2,000 transcripts of 1-4 kb at 3% substitutions from both
+     strands (a third spliced, 1-20 kb introns) and the bar queries of
+     tests/test_blitz.py against phase 4's index through the CLI on the
+     card: the bars (exact and reverse queries at their origin on their
+     strand, spliced ones in one path across the intron, unrelated ones
+     without a path), queries/s, the share whose best path is at its
+     origin; kernel #8 (blitz_chain) exact against its plain version on
+     the chains of the CLI's first batch, timed with its bound; PSL of
+     256 queries and PSLX, BED and MAF of 16 against --device cpu
+     children; the 1 Mbp rearranged query of tests/test_blitz_scale.py
+     with its bars;
+ 27. `mergeoverlaps -m 0` and `-m 2` on 1,048,576 amplicon pairs of 2 x
+     150 bp (plate barcodes, inserts 180-280, 1% substitutions): pairs/s,
+     merged and welled shares, the first 65,536 pairs against --device
+     cpu children; `findapproxmatches` of 256 guides of 23 bp (-s 2) on
+     the 4.6 Mbp genome, every origin found, and on its first 256 kb
+     against a --device cpu child; nw_score_batch of 4,096 pairs of 150 x
+     150, card against CPU;
+ 28. the flagship flow in the port alone: `simreads -H <phase 25's .hmg>
+     -N 1000 -X 0.05 -g dyn --pe` (65,536 pairs) on the 1 Mbp genome,
+     `index`, `align -u` on the card: proper-pair and at-origin shares,
+     split by the source window's min-Hamming (0 against > 0).
 Phases 16 and 17 run on the card right after phase 6, and 21-22 after
 them; their --device cpu child processes go on beside the phases that
-follow and are compared after phase 18 (16-17) and at the end (21-24).
-Phase 20 runs right after phase 3, 23 after phase 13 and 24 after 18.
+follow and are compared after phase 18 (16-17) and at the end (21-28).
+Phase 20 runs right after phase 3, 23 after phase 13, 24 after 18 and
+25-28 after 24.
 Phase 3 also holds the extension kernel at the orphan rescue's shape
 (2,048 windows of 500 consecutive loci, some off the genome's ends).
 The kernels line gives #1-#3 their launches on every path above, #3w
-its launches on the assembly cell, every kernel its launches on phase
+its launches on the assembly cell, #7 on phase 25's 1 Mbp and node
+sweeps, #8 on phase 26's CLI run, every kernel its launches on phase
 19's sharded, EC-mesh and swservice paths (summed over the ranks), and
 on the paths of phases 21-24 where it ran.
 The last two lines are a JSON object per kernel and the result line.
@@ -310,6 +344,38 @@ BS_SMALL_BP, BS_SMALL_READS = 500_000, 65_536
 CS_READS, CS_READ_LEN, MIN_CS_SHARE = 262_144, 75, 0.9667
 # the assembly cell (phase 24): BENCH_ASM.json's row 0.5mbp_30x_r4
 ASM_GENOME_BP, ASM_PAIRS = 500_000, 50_000
+# uhamming (phase 25): the check genome's entries (two of 3 kb and one of
+# 80 bp, short of K 100), the kernels line's genome, the CLI parity genome,
+# the timed 1 Mbp genome with its planted repeats (source, copy,
+# substitutions), the node partition of the SE genome; integer operations
+# a pair of windows: the mismatch test of 2-bit packed words (3 a 32
+# bases), the window's slide (2), the pair's mask (1) and the two minima
+# (both windows' loci; the cross sweep's distances are symmetric,
+# Ham(g_i, rc g_k) = Ham(g_k, rc g_i), so it needs each unordered pair once)
+UH_KS, UH_K = (24, 100), 100
+UH_CHECK = [("e1", 3_000), ("e2", 80), ("e3", 3_000)]
+UH_LINE_BP, UH_CLI_BP, UH_BP, UH_NODES = 65_536, 20_000, 1_000_000, 64
+UH_REPEAT_LEN = 600
+UH_REPEATS = ((100_000, 700_000, 0), (200_000, 800_000, 1),
+              (300_000, 900_000, 3))
+UH_OPS_PAIR = 3 / 32 + 2 + 1 + 2
+# blitz (phase 26): transcripts and ESTs mapped to a bacterial genome; the
+# bars of tests/test_blitz.py and the 1 Mbp query of
+# tests/test_blitz_scale.py; integer operations of the chain DP: a valid
+# block's ends (2), once; an (i, j < i) pair's overlap and gap tests (4),
+# gap (2), gap cost (5), candidate (1) and argmax (2)
+BZ_QUERIES, BZ_LEN, BZ_SUB, BZ_INTRON = 2_000, (1_000, 4_000), 0.03, (
+    1_000, 20_000)
+BZ_BARS, BZ_PARITY_Q, BZ_FMT_Q = 16, 256, 16
+BZ_BIG = ((100_000, 600_000), (1_200_000, 1_700_000))
+BZ_OPS_PER_BLOCK, BZ_OPS_PER_PAIR = 2, 14
+# the other device tools (phase 27): amplicon pairs, guides, NW pairs
+MO_PAIRS, MO_LEN, MO_INSERT, MO_SUB = 1_048_576, 150, (180, 280), 0.01
+MO_PARITY = 65_536
+FA_QUERIES, FA_LEN, FA_MM, FA_PARITY_BP = 256, 23, 2, 262_144
+NW_PAIRS, NW_LEN = 4_096, 150
+# the flagship flow in the port alone (phase 28)
+FL_PAIRS = 65_536
 
 # least-time bounds (NVIDIA H100 SXM data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
@@ -3171,9 +3237,18 @@ def check_extend_win(dev):
 
 def _kernel_launches() -> dict:
     """Launch counts of every kernel wrapper in this process."""
-    from biokanga_tpu_torch.ops import banded_sw, extend_packed, sort, sw_trace
+    from biokanga_tpu_torch.ops import (
+        banded_sw,
+        blitz_chain,
+        extend_packed,
+        sort,
+        sw_trace,
+        uhamming_sweep,
+    )
 
-    return {"sort_rows": sort.sort_rows.launches,
+    return {"uhamming_sweep": uhamming_sweep.uhamming_sweep.launches,
+            "blitz_chain": blitz_chain.chain_scan.launches,
+            "sort_rows": sort.sort_rows.launches,
             "sort2_rows": sort.sort2_rows.launches,
             "hamming_extend_packed":
                 extend_packed.hamming_extend_packed.launches,
@@ -3185,9 +3260,17 @@ def _kernel_launches() -> dict:
 
 
 def _reset_kernel_launches() -> None:
-    from biokanga_tpu_torch.ops import banded_sw, extend_packed, sort, sw_trace
+    from biokanga_tpu_torch.ops import (
+        banded_sw,
+        blitz_chain,
+        extend_packed,
+        sort,
+        sw_trace,
+        uhamming_sweep,
+    )
 
-    for fn in (sort.sort_rows, sort.sort2_rows,
+    for fn in (uhamming_sweep.uhamming_sweep, blitz_chain.chain_scan,
+               sort.sort_rows, sort.sort2_rows,
                extend_packed.hamming_extend_packed,
                extend_packed.hamming_extend_packed_win,
                banded_sw.banded_sw_moves, banded_sw.banded_sw_score,
@@ -3629,6 +3712,677 @@ def assembly_cell(dev, smi) -> dict:
     return {"launches": launches, "parity": parity}
 
 
+# ---------------------------------------------- the device tools (25-28) ----
+
+def _uh_pairs(starts, n: int, K: int, lo: int, hi: int,
+              rc: bool) -> tuple[int, int]:
+    """(watson, cross) pairs of windows a sweep must evaluate: both
+    windows inside an entry, watson shifts in [lo, hi), and with rc each
+    unordered pair of a window and a reverse-complement window once (its
+    own reverse complement included)."""
+    ivs = [(int(a), int(b) - K + 1) for a, b in zip(starts[:-1], starts[1:])
+           if b - a >= K]
+    watson = 0
+    for x0, x1 in ivs:
+        x = np.arange(x0, x1, dtype=np.int64)
+        for y0, y1 in ivs:
+            watson += int(np.clip(np.minimum(y1, x + hi)
+                                  - np.maximum(y0, x + lo), 0, None).sum())
+    n_valid = sum(b - a for a, b in ivs)
+    return watson, n_valid * (n_valid + 1) // 2 if rc else 0
+
+
+def _uh_bound(starts, n: int, K: int, lo: int, hi: int, rc: bool):
+    """The sweep's least time: its integer operations over the pairs it
+    needs, against n codes, n flags and n results in and out."""
+    watson, cross = _uh_pairs(starts, n, K, lo, hi, rc)
+    return _bound(4 * n, UH_OPS_PAIR * (watson + cross))
+
+
+def _uh_check_genome():
+    """Phase 25's check genome: two 3 kb entries and an 80 bp one (past
+    K 24, short of K 100), N runs (one in the short entry), an exact, a
+    near (3 substitutions) and a reverse-complement repeat."""
+    from biokanga_tpu_torch.seq.encode import revcomp
+    from biokanga_tpu_torch.sim.simreads import random_genome
+
+    seqs = random_genome(UH_CHECK, seed=25)
+    g = np.concatenate([s for _, s in seqs])
+    starts = np.concatenate([[0], np.cumsum([len(s) for _, s in seqs])])
+    g[500:540] = 4
+    g[3_010:3_013] = 4
+    g[4_000:4_300] = g[200:500]
+    near = g[1_000:1_300].copy()
+    near[[50, 150, 250]] = (near[[50, 150, 250]] + 1) % 4
+    g[5_000:5_300] = near
+    g[5_500:5_700] = revcomp(g[2_000:2_200])
+    return g, starts
+
+
+def _uh_big_genome():
+    """The 1 Mbp genome of phases 25 and 28, with its planted repeats."""
+    from biokanga_tpu_torch.sim.simreads import random_genome
+
+    seqs = random_genome([("chr", UH_BP)], seed=251)
+    g = seqs[0][1]
+    for src, dst, subs in UH_REPEATS:
+        c = g[src:src + UH_REPEAT_LEN].copy()
+        at = np.linspace(50, UH_REPEAT_LEN - 50, subs).astype(int)
+        c[at] = (c[at] + 1) % 4
+        g[dst:dst + UH_REPEAT_LEN] = c
+    return seqs
+
+
+def check_uhamming(dev):
+    """Phase 25.1: #7 against its plain version on the check genome, K 24
+    and 100, both sweeps over every shift and the watson sweep over a
+    mode-2 range; the planted repeats must read 0 and <= 3.  Then both at
+    UH_LINE_BP, timed with the bound.  Returns (max_abs_err, timing)."""
+    import torch
+
+    from biokanga_tpu_torch.ops import uhamming_sweep as us
+    from biokanga_tpu_torch.sim.simreads import random_genome
+    from biokanga_tpu_torch.tools.uhamming import window_validity
+
+    def args(g, starts, K):
+        return (torch.from_numpy(g).to(dev),
+                torch.from_numpy(window_validity(starts, len(g), K)).to(dev),
+                torch.full((len(g),), us.H_INVALID, dtype=torch.uint8,
+                           device=dev))
+
+    g, starts = _uh_check_genome()
+    err = 0
+    for K in UH_KS:
+        a = args(g, starts, K)
+        top = len(g) - K + 1
+        for lo, hi, rc in ((1, top, True), (1 + (top - 1) // 3,
+                                             1 + 2 * (top - 1) // 3, False)):
+            got = us.uhamming_sweep(*a, K, lo, hi, rc)
+            want = us.uhamming_sweep_plain(*a, K, lo, hi, rc)
+            err = max(err, _max_abs_err(got, want))
+            if lo == 1 and K == 100:
+                h = want.cpu().numpy()
+                if h[200:401].max() or h[2_000:2_101].max() or \
+                        h[1_000:1_201].max() > 3:
+                    raise AssertionError("phase 25: planted repeats missed")
+    line = random_genome([("chr", UH_LINE_BP)], seed=252)[0][1]
+    ls = np.array([0, UH_LINE_BP])
+    a = args(line, ls, UH_K)
+    top = UH_LINE_BP - UH_K + 1
+    got = us.uhamming_sweep(*a, UH_K, 1, top, True)
+    want = us.uhamming_sweep_plain(*a, UH_K, 1, top, True)
+    err = max(err, _max_abs_err(got, want))
+    if err:
+        raise AssertionError(f"uhamming_sweep disagrees: {err}")
+    bound_ms, by = _uh_bound(ls, UH_LINE_BP, UH_K, 1, top, True)
+    t = dict(ms=_timed_ms(lambda: us.uhamming_sweep(*a, UH_K, 1, top, True),
+                          3),
+             plain_ms=_timed_ms(
+                 lambda: us.uhamming_sweep_plain(*a, UH_K, 1, top, True), 1),
+             library_ms=None, bound=(bound_ms, by))
+    print(f"uhamming_sweep exact against its plain version (K {UH_KS}, both "
+          f"sweeps and a mode-2 range on {len(g)} bases in "
+          f"{len(starts) - 1} entries with Ns and repeats; -m 0 at "
+          f"{UH_LINE_BP} bases); at {UH_LINE_BP}: kernel {t['ms']:.4f} ms, "
+          f"plain torch {t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({by})")
+    torch.cuda.empty_cache()
+    return err, t
+
+
+def _uh_cli(argv, device="cuda") -> float:
+    return _timed_cli(["uhamming", *map(str, argv), "--device", device])
+
+
+def uhamming_cell(dev, smi):
+    """Phase 25: #7 checked (check_uhamming); `uhamming -m 0` on a 20 kb
+    genome on the card against a --device cpu child (.hmg arrays and CSV
+    compared at the end); the 1 Mbp -m 0 sweep with the reverse
+    complement, K 100, timed through the CLI (its wall, and its sweep
+    between CUDA events), its planted
+    repeats read back; `-m 2 -n 64 -N 1` on the 4.6 Mbp SE genome; a
+    `-m 3` merge of two partials against one -m 2 run over their union.
+    Returns the phase's record."""
+    import torch
+
+    from biokanga_tpu_torch.ops import uhamming_sweep as us
+    from biokanga_tpu_torch.seq.fasta import write_fasta
+    from biokanga_tpu_torch.sim.simreads import random_genome
+    from biokanga_tpu_torch.tools import uhamming as uh
+
+    err, timing = check_uhamming(dev)
+    write_fasta(str(WORK / "uh20k.fa"),
+                random_genome([("u1", UH_CLI_BP // 2), ("u2", UH_CLI_BP // 2)],
+                              seed=253))
+    child = _cpu_child(["uhamming", "-i", str(WORK / "uh20k.fa"), "-o",
+                        str(WORK / "uh20k_cpu.hmg.npz"), "-O",
+                        str(WORK / "uh20k_cpu.csv")], "uh20k_cpu")
+    _uh_cli(["-i", WORK / "uh20k.fa", "-o", WORK / "uh20k_cuda.hmg.npz",
+             "-O", WORK / "uh20k_cuda.csv"])
+    # -m 3 of two node partials against one -m 2 run over their union
+    for node, nodes in ((1, 2), (2, 2), (1, 1)):
+        _uh_cli(["-m", 2, "-n", nodes, "-N", node, "-i", WORK / "uh20k.fa",
+                 "-o", WORK / f"uh20k_m2_{node}of{nodes}.hmg.npz"])
+    _uh_cli(["-m", 3, "-I", WORK / "uh20k_m2_1of2.hmg.npz", "-I",
+             WORK / "uh20k_m2_2of2.hmg.npz", "-o", WORK / "uh20k_m3.hmg.npz"])
+    merged = uh.load_hmg(str(WORK / "uh20k_m3.hmg.npz"))[0]
+    if not np.array_equal(merged, uh.load_hmg(str(WORK /
+                                                  "uh20k_m2_1of1.hmg.npz"))[0]):
+        raise AssertionError("phase 25: -m 3 merge != one -m 2 run")
+
+    seqs = _uh_big_genome()
+    write_fasta(str(WORK / "uh1m.fa"), seqs)
+    us.uhamming_sweep.launches = 0
+    sweep_ms = []
+    real = uh.uhamming_sweep
+
+    def timed(*a):
+        """The CLI's sweep between two CUDA events."""
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        out = real(*a)
+        t1.record()
+        torch.cuda.synchronize()
+        sweep_ms.append(t0.elapsed_time(t1))
+        return out
+
+    uh.uhamming_sweep = timed
+    try:
+        wall = _uh_cli(["-i", WORK / "uh1m.fa", "-o",
+                        WORK / "uh1m.hmg.npz", "-K", UH_K])
+    finally:
+        uh.uhamming_sweep = real
+    launches = us.uhamming_sweep.launches
+    h = uh.load_hmg(str(WORK / "uh1m.hmg.npz"))[0]
+    for src, dst, subs in UH_REPEATS:
+        for at in (src, dst):
+            got = int(h[at:at + UH_REPEAT_LEN - UH_K + 1].max())
+            if got > subs:
+                raise AssertionError(f"phase 25: repeat at {at} ({subs} "
+                                     f"substitutions) reads {got}")
+    alone_s = sweep_ms[0] / 1e3
+    big_bound, big_by = _uh_bound(np.array([0, UH_BP]), UH_BP, UH_K, 1,
+                                  UH_BP - UH_K + 1, True)
+    # the node partition on the SE genome
+    us.uhamming_sweep.launches = 0
+    m2_wall = _uh_cli(["-m", 2, "-n", UH_NODES, "-N", 1, "-i",
+                       WORK / "ref.fa", "-o", WORK / "se_m2.hmg.npz", "-K",
+                       UH_K])
+    launches += us.uhamming_sweep.launches
+    if launches != 3:
+        raise AssertionError(f"phase 25: #7 launched {launches} times, not "
+                             f"3 (two sweeps of -m 0, one of -m 2)")
+    top = GENOME_BP - UH_K + 1
+    m2_bound, m2_by = _uh_bound(np.array([0, GENOME_BP]), GENOME_BP, UH_K, 1,
+                                1 + (top - 1) // UH_NODES, False)
+    share = (h < us.H_INVALID).mean()
+    print(f"uhamming -m 0 -K {UH_K} on {UH_BP} bp: CLI wall {wall:.2f} s, "
+          f"its sweep {alone_s:.2f} s (bound {big_bound / 1e3:.4f} s "
+          f"({big_by}), {big_bound / 1e3 / alone_s:.4f} of it); planted "
+          f"repeats read <= their substitutions; {share:.4f} of loci "
+          f"counted, {int((h == 0).sum())} at 0; -m 2 -n {UH_NODES} -N 1 on "
+          f"{GENOME_BP} bp: wall {m2_wall:.2f} s (bound {m2_bound:.4f} ms, "
+          f"{m2_by}); #7 launches {launches} ({smi})")
+    timing.update(ms_1mbp=alone_s * 1e3, bound_ms_1mbp=big_bound,
+                  wall_s_1mbp=wall, wall_s_m2_se=m2_wall,
+                  bound_ms_m2_se=m2_bound)
+    return {"err": err, "timing": timing, "launches": launches,
+            "child": child}
+
+
+def _uh_finish(run) -> None:
+    from biokanga_tpu_torch.tools.uhamming import load_hmg
+
+    _wait_child(run["child"], "uh20k_cpu")
+    a = load_hmg(str(WORK / "uh20k_cpu.hmg.npz"))
+    b = load_hmg(str(WORK / "uh20k_cuda.hmg.npz"))
+    if not (np.array_equal(a[0], b[0]) and a[1] == b[1]
+            and np.array_equal(a[2], b[2]) and a[3] == b[3]):
+        raise AssertionError("phase 25: .hmg differs cpu vs cuda")
+    if (WORK / "uh20k_cpu.csv").read_bytes() != \
+            (WORK / "uh20k_cuda.csv").read_bytes():
+        raise AssertionError("phase 25: CSV differs cpu vs cuda")
+    print(f"uhamming -m 0 on {UH_CLI_BP} bp: --device cpu == --device cuda "
+          f"(.hmg arrays and CSV byte for byte)")
+
+
+def _bz_queries(g: np.ndarray):
+    """Phase 26's queries: BZ_QUERIES transcripts of 1-4 kb at 3%
+    substitutions from both strands, a third spliced (two segments 1-20
+    kb apart), then the JAX tests' bars, BZ_BARS each: exact 600 bp
+    queries on each strand, exact spliced ones (two 300 bp exons 10 kb
+    apart) and unrelated 500 bp ones.  Returns (records, truths) with a
+    truth (kind, start, end, strand) in genome coordinates."""
+    from biokanga_tpu_torch.seq.encode import revcomp
+
+    rng = np.random.default_rng(26)
+    n = len(g)
+    recs, truth = [], []
+    for i in range(BZ_QUERIES):
+        L = int(rng.integers(BZ_LEN[0], BZ_LEN[1] + 1))
+        if i % 3 == 0:
+            a = int(rng.integers(L // 4, 3 * L // 4))
+            intron = int(rng.integers(BZ_INTRON[0], BZ_INTRON[1] + 1))
+            s = int(rng.integers(0, n - L - intron))
+            q = np.concatenate([g[s:s + a], g[s + a + intron:s + L + intron]])
+            t = ("spliced", s, s + L + intron)
+        else:
+            s = int(rng.integers(0, n - L))
+            q, t = g[s:s + L].copy(), ("mutated", s, s + L)
+        m = rng.random(len(q)) < BZ_SUB
+        q[m] = (q[m] + rng.integers(1, 4, int(m.sum()))) % 4
+        minus = bool(rng.random() < 0.5)
+        recs.append((f"q{i}", revcomp(q) if minus else q))
+        truth.append((*t, "-" if minus else "+"))
+    for i in range(BZ_BARS):
+        s = int(rng.integers(0, n - 20_000))
+        recs.append((f"exact{i}", g[s:s + 600].copy()))
+        truth.append(("exact", s, s + 600, "+"))
+        recs.append((f"reverse{i}", revcomp(g[s + 5_000:s + 5_500])))
+        truth.append(("exact", s + 5_000, s + 5_500, "-"))
+        recs.append((f"splice{i}", np.concatenate(
+            [g[s + 8_000:s + 8_300], g[s + 18_300:s + 18_600]])))
+        truth.append(("splice", s + 8_000, s + 18_600, "+"))
+        recs.append((f"junk{i}", rng.integers(0, 4, 500).astype(np.int8)))
+        truth.append(("junk", 0, 0, "+"))
+    return recs, truth
+
+
+def _psl_best(path: Path) -> dict:
+    """Query name -> the fields of its first (best) PSL row."""
+    best = {}
+    for ln in path.read_text().splitlines()[5:]:
+        f = ln.split("\t")
+        best.setdefault(f[9], f)
+    return best
+
+
+def _bz_gates(best: dict, recs, truth) -> float:
+    """The JAX tests' bars (tests/test_blitz.py:22-67) on the bar
+    queries; returns the share of the transcripts whose best path lies
+    at their origin on their strand."""
+    at_origin = n_tx = 0
+    for (name, q), (kind, s, e, strand) in zip(recs, truth):
+        f = best.get(name)
+        if kind == "junk":
+            if f is not None:
+                raise AssertionError(f"phase 26: unrelated {name} has a path")
+            continue
+        if kind in ("mutated", "spliced"):
+            n_tx += 1
+            at_origin += (f is not None and f[8] == strand
+                          and int(f[15]) >= s - 100 and int(f[16]) <= e + 100)
+            continue
+        if f is None or f[8] != strand or int(f[15]) > s + 5 or \
+                int(f[16]) < e - 10:
+            raise AssertionError(f"phase 26: {name} not found at its origin: "
+                                 f"{f}")
+        if kind == "exact" and int(f[0]) < 0.9 * len(q):
+            raise AssertionError(f"phase 26: {name} matches {f[0]}")
+        if kind == "splice" and (int(f[6]) < 1 or int(f[7]) < 9_000):
+            raise AssertionError(f"phase 26: {name} did not chain across "
+                                 f"its intron: {f}")
+    return at_origin / n_tx
+
+
+def _chain_bound(q0, valid) -> tuple[float, str, int]:
+    """The chain DP's least time on these inputs: its integer operations
+    over the valid blocks and their (i, j < i) pairs of every chain,
+    against five int32 inputs read and two outputs written."""
+    m = valid.to(dtype=q0.dtype).sum(dim=1).double()
+    pairs = int((m * (m - 1) / 2).sum().item())
+    ms, by = _bound(7 * q0.numel() * 4, BZ_OPS_PER_BLOCK * int(m.sum().item())
+                    + BZ_OPS_PER_PAIR * pairs)
+    return ms, by, pairs
+
+
+def blitz_cell(dev, smi):
+    """Phase 26: `blitz` of transcripts and ESTs against the 4.6 Mbp SE
+    genome (phase 4's index): the queries of _bz_queries through the CLI
+    on the card, their PSL gated on the JAX tests' bars, queries/s and
+    the share at origin; the PSL of the first BZ_PARITY_Q queries, and
+    PSLX, BED and MAF of the first BZ_FMT_Q, against --device cpu
+    children; the 1 Mbp rearranged query of tests/test_blitz_scale.py on
+    the card with its bars; #8 against its plain version on every chain
+    batch of the CLI run and of the 1 Mbp query, timed with its bound on
+    the CLI's first batch."""
+    from biokanga_tpu_torch.index.build import load_index
+    from biokanga_tpu_torch.index.device import to_device
+    from biokanga_tpu_torch.ops import blitz_chain as bc
+    from biokanga_tpu_torch.seq.fasta import write_fasta
+    from biokanga_tpu_torch.tools import blitz
+
+    idx = load_index(str(WORK / "ref.npz"))
+    recs, truth = _bz_queries(idx.codes)
+    write_fasta(str(WORK / "bz_q.fa"), recs)
+    write_fasta(str(WORK / "bz_head.fa"), recs[:BZ_PARITY_Q])
+    write_fasta(str(WORK / "bz_fmt.fa"), recs[:BZ_FMT_Q])
+    children = {"psl": _cpu_child(
+        ["blitz", "-i", str(WORK / "bz_head.fa"), "-I", str(WORK / "ref.npz"),
+         "-o", str(WORK / "bz_head_cpu.psl")], "bz_head_cpu")}
+    for fmt in ("pslx", "bed", "maf"):
+        children[fmt] = _cpu_child(
+            ["blitz", "-i", str(WORK / "bz_fmt.fa"), "-I",
+             str(WORK / "ref.npz"), "-o", str(WORK / f"bz_fmt_cpu.{fmt}"),
+             "-M", fmt], f"bz_{fmt}_cpu")
+    captured = []
+    real = blitz.chain_scan
+
+    def record(*a):
+        captured.append(a)
+        return real(*a)
+
+    blitz.chain_scan = record
+    bc.chain_scan.launches = 0
+    try:
+        wall = _timed_cli(["blitz", "-i", str(WORK / "bz_q.fa"), "-I",
+                           str(WORK / "ref.npz"), "-o",
+                           str(WORK / "bz_cuda.psl"), "--device", "cuda"])
+    finally:
+        blitz.chain_scan = real
+    launches, n_cli = bc.chain_scan.launches, len(captured)
+    if launches < 1 or not captured:
+        raise AssertionError(f"phase 26: #8 launched {launches} times")
+    best = _psl_best(WORK / "bz_cuda.psl")
+    share = _bz_gates(best, recs, truth)
+    _timed_cli(["blitz", "-i", str(WORK / "bz_head.fa"), "-I",
+                str(WORK / "ref.npz"), "-o", str(WORK / "bz_head_cuda.psl"),
+                "--device", "cuda"])
+    for fmt in ("pslx", "bed", "maf"):
+        _timed_cli(["blitz", "-i", str(WORK / "bz_fmt.fa"), "-I",
+                    str(WORK / "ref.npz"), "-o",
+                    str(WORK / f"bz_fmt_cuda.{fmt}"), "-M", fmt, "--device",
+                    "cuda"])
+
+    # the 1 Mbp query of tests/test_blitz_scale.py, on this genome
+    (a0, a1), (b0, b1) = BZ_BIG
+    q = np.concatenate([idx.codes[a0:a1], idx.codes[b0:b1]])
+    didx = to_device(idx, dev, pack=False)
+    blitz.chain_scan = record
+    try:
+        t0 = time.monotonic()
+        paths = blitz.blitz_query(didx, "big", q, blitz.BlitzParams(
+            max_nodes=2048, max_paths=4))
+        big_s = time.monotonic() - t0
+    finally:
+        blitz.chain_scan = real
+    if len(captured) == n_cli:
+        raise AssertionError("phase 26: the 1 Mbp query ran no chain DP")
+    spans = sorted((p.tstart, p.tend) for p in paths[:2])
+    seg = a1 - a0                       # the bars: 400,000 and 490,000
+    if len(spans) < 2 or spans[0][0] > a0 + 2_000 or \
+            abs(spans[0][1] - a1) >= 2_000 or spans[1][0] > b0 + 2_000 or \
+            abs(spans[1][1] - b1) >= 2_000 or \
+            not all(p.score > 0.8 * seg and p.matches > 0.98 * seg
+                    for p in paths[:2]):
+        raise AssertionError(f"phase 26: the 1 Mbp query's paths {spans}")
+
+    err = 0
+    for a in captured:
+        got = bc.chain_scan(*a)
+        want = bc.chain_scan_plain(*a)
+        err = max(err, _max_abs_err(got[0], want[0]),
+                  _max_abs_err(got[1], want[1]))
+    if err:
+        raise AssertionError(f"blitz_chain disagrees: {err}")
+    a = captured[0]
+    bound_ms, by, pairs = _chain_bound(a[0], a[4])
+    t = dict(ms=_timed_ms(lambda: bc.chain_scan(*a)),
+             plain_ms=_timed_ms(lambda: bc.chain_scan_plain(*a), 1),
+             library_ms=None, bound=(bound_ms, by),
+             chains=int(a[0].shape[0]), width=int(a[0].shape[1]),
+             pairs=pairs)
+    n_q = len(recs)
+    print(f"blitz of {n_q} queries ({BZ_QUERIES} transcripts of "
+          f"{BZ_LEN[0]}-{BZ_LEN[1]} bp at {BZ_SUB} substitutions, a third "
+          f"spliced, and {4 * BZ_BARS} bar queries) on {GENOME_BP} bp: CLI "
+          f"wall {wall:.2f} s, {n_q / wall:.1f} queries/s; the JAX tests' bars "
+          f"hold; best path at origin for {share:.4f} of the transcripts; "
+          f"#8 launches {launches}; blitz_chain exact on all {n_cli} "
+          f"batches of the CLI run and the 1 Mbp query's "
+          f"{len(captured) - n_cli} ("
+          + ", ".join(f"{x[0].shape[0]} x {x[0].shape[1]}" for x in captured)
+          + f" chains x width); on the first batch's {t['chains']} chains "
+          f"of width {t['width']} ({pairs} pairs): kernel {t['ms']:.4f} ms, "
+          f"plain torch {t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({by}) ({smi})")
+    print(f"blitz of a 1 Mbp query (two 500 kb segments, rearranged): "
+          f"{big_s:.2f} s, both segments recovered, scores "
+          f"{[p.score for p in paths[:2]]}")
+    t.update(queries_per_s=n_q / wall, at_origin=share, big_query_s=big_s)
+    return {"err": err, "timing": t, "launches": launches,
+            "children": children}
+
+
+def _bz_finish(run) -> None:
+    for fmt, proc in run["children"].items():
+        _wait_child(proc, "bz_head_cpu" if fmt == "psl" else f"bz_{fmt}_cpu")
+    pairs = [("bz_head_cpu.psl", "bz_head_cuda.psl")] + [
+        (f"bz_fmt_cpu.{f}", f"bz_fmt_cuda.{f}") for f in ("pslx", "bed",
+                                                          "maf")]
+    for a, b in pairs:
+        if (WORK / a).read_bytes() != (WORK / b).read_bytes():
+            raise AssertionError(f"phase 26: {b} differs from {a}")
+    n_rows = len((WORK / "bz_head_cuda.psl").read_text().splitlines()) - 5
+    print(f"blitz PSL of the first {BZ_PARITY_Q} queries ({n_rows} rows), "
+          f"and PSLX, BED and MAF of the first {BZ_FMT_Q}: --device cpu == "
+          f"--device cuda byte for byte")
+
+
+def _mo_pairs(g: np.ndarray, n: int, seed: int):
+    """n amplicon pairs of 2 x MO_LEN bp: a plate column barcode, an
+    insert of the genome and a reverse-complemented row barcode, 180-280
+    bp in all, read from both ends at MO_SUB substitutions."""
+    from biokanga_tpu_torch.seq.encode import revcomp
+    from biokanga_tpu_torch.tools import mergeoverlaps as mo
+
+    rng = np.random.default_rng(seed)
+    ins = rng.integers(MO_INSERT[0], MO_INSERT[1] + 1, n)
+    s = rng.integers(0, len(g) - MO_INSERT[1], n)
+    body = MO_LEN - 6
+    cols = np.stack([mo._codes(x) for x in mo._COL_BARCODES])
+    rows = np.stack([mo._codes(x) for x in mo._ROW_BARCODES])
+    r1 = np.concatenate([cols[rng.integers(0, 12, n)],
+                         g[s[:, None] + np.arange(body)]], axis=1)
+    tail = g[(s + ins - 12 - body)[:, None] + np.arange(body)]
+    r2 = np.concatenate([rows[rng.integers(0, 8, n)], revcomp(tail)], axis=1)
+    for r in (r1, r2):
+        m = rng.random(r.shape) < MO_SUB
+        r[m] = (r[m] + rng.integers(1, 4, int(m.sum()))) % 4
+    names = [f"p{i}" for i in range(n)]
+    return names, r1.astype(np.int8), r2.astype(np.int8)
+
+
+def _fastq_count(path: Path) -> int:
+    with open(path, "rb") as f:
+        return sum(1 for _ in f) // 4
+
+
+def other_tools_cell(dev, smi):
+    """Phase 27: `mergeoverlaps` modes 0 and 2 on MO_PAIRS amplicon pairs
+    (pairs/s, merged and welled shares), the first MO_PARITY against
+    --device cpu children; `findapproxmatches` of FA_QUERIES guides of 23
+    bp, -s 2, on the 4.6 Mbp genome (every origin found) and its CSV on a
+    256 kb genome against a --device cpu child; nw_score_batch on
+    NW_PAIRS pairs of 150 x 150, card against CPU."""
+    import torch
+
+    from biokanga_tpu_torch.index.build import load_index
+    from biokanga_tpu_torch.ops.nw import nw_score_batch
+    from biokanga_tpu_torch.seq.encode import revcomp
+    from biokanga_tpu_torch.seq.fasta import write_fasta
+
+    g = load_index(str(WORK / "ref.npz")).codes
+    names, r1, r2 = _mo_pairs(g, MO_PAIRS, seed=27)
+    _write_fastq(WORK / "mo1.fq", names, r1)
+    _write_fastq(WORK / "mo2.fq", names, r2)
+    _write_fastq(WORK / "mo_head1.fq", names[:MO_PARITY], r1[:MO_PARITY])
+    _write_fastq(WORK / "mo_head2.fq", names[:MO_PARITY], r2[:MO_PARITY])
+    del r1, r2
+    head = ["-i", str(WORK / "mo_head1.fq"), "-u", str(WORK / "mo_head2.fq")]
+    children = {
+        "mo0": _cpu_child(["mergeoverlaps", *head, "-o",
+                           str(WORK / "mo_head_cpu.fq"), "--unmerged1",
+                           str(WORK / "mo_head_cpu_u1.fq"), "--unmerged2",
+                           str(WORK / "mo_head_cpu_u2.fq")], "mo0_cpu"),
+        "mo2": _cpu_child(["mergeoverlaps", *head, "-m", "2", "-o",
+                           str(WORK / "mo_head_cpu_amp")], "mo2_cpu")}
+    walls = {}
+    for mode, out in ((0, "mo_merged.fq"), (2, "mo_amp")):
+        walls[mode] = _timed_cli(["mergeoverlaps", "-i", str(WORK / "mo1.fq"),
+                                  "-u", str(WORK / "mo2.fq"), "-m", str(mode),
+                                  "-o", str(WORK / out), "--device", "cuda"])
+    merged = _fastq_count(WORK / "mo_merged.fq")
+    welled = sum(_fastq_count(p) for p in WORK.glob("mo_amp.Well*.SE.fastq"))
+    _timed_cli(["mergeoverlaps", *head, "-o", str(WORK / "mo_head_cuda.fq"),
+                "--unmerged1", str(WORK / "mo_head_cuda_u1.fq"),
+                "--unmerged2", str(WORK / "mo_head_cuda_u2.fq"), "--device",
+                "cuda"])
+    _timed_cli(["mergeoverlaps", *head, "-m", "2", "-o",
+                str(WORK / "mo_head_cuda_amp"), "--device", "cuda"])
+    print(f"mergeoverlaps on {MO_PAIRS} pairs of 2 x {MO_LEN} bp (inserts "
+          f"{MO_INSERT[0]}-{MO_INSERT[1]}, {MO_SUB} substitutions): -m 0 "
+          f"{MO_PAIRS / walls[0]:.1f} pairs/s, merged {merged / MO_PAIRS:.4f}; "
+          f"-m 2 {MO_PAIRS / walls[2]:.1f} pairs/s, merged into a well "
+          f"{welled / MO_PAIRS:.4f} ({smi})")
+    if merged < 0.9 * MO_PAIRS or welled < 0.5 * MO_PAIRS:
+        raise AssertionError(f"phase 27: merged {merged}, welled {welled}")
+
+    # findapproxmatches: guides from the first FA_PARITY_BP bases
+    rng = np.random.default_rng(271)
+    fa_q, fa_truth = [], []
+    for i in range(FA_QUERIES):
+        s = int(rng.integers(0, FA_PARITY_BP - FA_LEN))
+        q = g[s:s + FA_LEN].copy()
+        subs = rng.choice(FA_LEN, int(rng.integers(0, FA_MM + 1)),
+                          replace=False)
+        q[subs] = (q[subs] + 1) % 4
+        minus = i % 2 == 1
+        fa_q.append((f"guide{i}", revcomp(q) if minus else q))
+        fa_truth.append((f"guide{i}", s, "-" if minus else "+"))
+    write_fasta(str(WORK / "fa_q.fa"), fa_q)
+    write_fasta(str(WORK / "fa_256k.fa"), [("chr", g[:FA_PARITY_BP])])
+    fa_args = ["-i", str(WORK / "fa_q.fa"), "-s", str(FA_MM)]
+    children["fa"] = _cpu_child(["findapproxmatches", *fa_args, "-I",
+                                 str(WORK / "fa_256k.fa"), "-o",
+                                 str(WORK / "fa_256k_cpu.csv")], "fa_cpu")
+    fa_wall = _timed_cli(["findapproxmatches", *fa_args, "-I",
+                          str(WORK / "ref.fa"), "-o", str(WORK / "fa.csv"),
+                          "--device", "cuda"])
+    _timed_cli(["findapproxmatches", *fa_args, "-I",
+                str(WORK / "fa_256k.fa"), "-o",
+                str(WORK / "fa_256k_cuda.csv"), "--device", "cuda"])
+    hits = set()
+    rows = (WORK / "fa.csv").read_text().splitlines()[1:]
+    for ln in rows:
+        f = ln.split(",")
+        hits.add((f[0].strip('"'), int(f[2]), f[3].strip('"')))
+    missed = [t for t in fa_truth if t not in hits]
+    print(f"findapproxmatches of {FA_QUERIES} guides of {FA_LEN} bp, -s "
+          f"{FA_MM}, on {GENOME_BP} bp: {fa_wall:.2f} s, {len(rows)} hits, "
+          f"{FA_QUERIES - len(missed)} of {FA_QUERIES} origins found")
+    if missed:
+        raise AssertionError(f"phase 27: origins missed: {missed[:5]}")
+
+    # NW scores, card against CPU
+    a = rng.integers(0, 4, (NW_PAIRS, NW_LEN)).astype(np.int8)
+    b = a.copy()
+    m = rng.random(b.shape) < 0.05
+    b[m] = (b[m] + 1) % 4
+    b = np.roll(b, rng.integers(-3, 4), axis=1)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    on_card = nw_score_batch(a, b, device=dev)
+    nw_s = time.monotonic() - t0
+    if not np.array_equal(on_card, nw_score_batch(a, b, device="cpu")):
+        raise AssertionError("phase 27: NW scores differ cpu vs cuda")
+    print(f"nw_score_batch of {NW_PAIRS} pairs of {NW_LEN} x {NW_LEN}: "
+          f"{nw_s * 1e3:.1f} ms on the card, equal to the CPU's")
+    return {"children": children}
+
+
+def _other_tools_finish(run) -> None:
+    import filecmp
+
+    tags = {"mo0": "mo0_cpu", "mo2": "mo2_cpu", "fa": "fa_cpu"}
+    for name, proc in run["children"].items():
+        _wait_child(proc, tags[name])
+    pairs = [(f"mo_head_cpu{s}.fq", f"mo_head_cuda{s}.fq")
+             for s in ("", "_u1", "_u2")]
+    pairs += [(p.name, p.name.replace("_cpu_", "_cuda_"))
+              for p in WORK.glob("mo_head_cpu_amp.Well*")]
+    pairs.append(("fa_256k_cpu.csv", "fa_256k_cuda.csv"))
+    if len(list(WORK.glob("mo_head_cuda_amp.Well*"))) != \
+            len(list(WORK.glob("mo_head_cpu_amp.Well*"))):
+        raise AssertionError("phase 27: amplicon wells differ cpu vs cuda")
+    for a, b in pairs:
+        if not filecmp.cmp(WORK / a, WORK / b, shallow=False):
+            raise AssertionError(f"phase 27: {b} differs from {a}")
+    print(f"mergeoverlaps -m 0 (with unmerged mates) and -m 2 on "
+          f"{MO_PARITY} pairs, and findapproxmatches on {FA_PARITY_BP} bp: "
+          f"--device cpu == --device cuda byte for byte ({len(pairs)} files)")
+
+
+def flagship_cell(dev, smi):
+    """Phase 28: simreads -> index -> align in the port alone, on phase
+    25's 1 Mbp genome: `simreads -H <its .hmg> -N 1000 -X 0.05 -g dyn
+    --pe`, `index`, then `align` of the pairs on the card; the shares of
+    proper pairs and of proper pairs at origin, split by the min-Hamming
+    of each pair's first-mate source window (0 against > 0; the JAX
+    simulator writes the .hmg's value into single-end names only, so it
+    is read from the .hmg here)."""
+    from biokanga_tpu_torch.sim.simreads import SimReadTruth
+    from biokanga_tpu_torch.tools.uhamming import load_hmg
+
+    fa = str(WORK / "uh1m.fa")
+    wall = {"simreads": _timed_cli(
+        ["simreads", "-i", fa, "-o", str(WORK / "fl1.fq"), "-O",
+         str(WORK / "fl2.fq"), "-n", str(FL_PAIRS), "--pe", "-H",
+         str(WORK / "uh1m.hmg.npz"), "-N", "1000", "-X", "0.05", "-g",
+         "dyn"])}
+    wall["index"] = _timed_cli(["index", "-i", fa, "-o",
+                                str(WORK / "uh1m.npz"), "--lut-bases", "10"])
+    _reset_kernel_launches()
+    wall["align"] = _timed_cli(
+        ["align", "-i", str(WORK / "fl1.fq"), "-u", str(WORK / "fl2.fq"),
+         "-I", str(WORK / "uh1m.npz"), "-o", str(WORK / "fl.sam"),
+         *PE_FLAGS, "--device", "cuda", "--batch-size", str(BATCH)])
+    launches = _align_launches()
+    if min(launches.values()) < 1:
+        raise AssertionError(f"phase 28: kernels not launched: {launches}")
+    h = load_hmg(str(WORK / "uh1m.hmg.npz"))[0]
+    recs = _records(WORK / "fl.sam")
+    counts = {k: [0, 0, 0] for k in ("0", ">0")}     # pairs, proper, origin
+    for i in range(0, len(recs), 2):
+        mates = [r.split("\t") for r in recs[i:i + 2]]
+        truths = [SimReadTruth.parse(f[0]) for f in mates]
+        key = "0" if h[truths[0].start - 1] == 0 else ">0"
+        c = counts[key]
+        c[0] += 1
+        if all(int(f[1]) & 2 for f in mates):
+            c[1] += 1
+            c[2] += all(f[2] == t.chrom and abs(int(f[3]) - t.start) <= 10
+                        and bool(int(f[1]) & 16) == (t.strand == "-")
+                        for f, t in zip(mates, truths))
+    shares = {k: {"pairs": c[0], "proper": c[1] / max(c[0], 1),
+                  "at_origin": c[2] / max(c[1], 1)}
+              for k, c in counts.items()}
+    total = sum(c[0] for c in counts.values())
+    if total != FL_PAIRS:
+        raise AssertionError(f"phase 28: {total} pairs in the SAM")
+    print(f"flagship in the port: simreads -H -N 1000 -X 0.05 -g dyn --pe "
+          f"({FL_PAIRS} pairs, {wall['simreads']:.2f} s) -> index "
+          f"({wall['index']:.2f} s) -> align PE ({wall['align']:.2f} s, "
+          f"launches {launches}) on {UH_BP} bp; by the source window's "
+          f"min-Hamming: {json.dumps(shares)} ({smi})")
+    at_origin = (sum(c[2] for c in counts.values())
+                 / max(sum(c[1] for c in counts.values()), 1))
+    if at_origin < 0.95:
+        raise AssertionError(f"phase 28: {at_origin:.4f} of the proper pairs "
+                             f"at their origin")
+    return {"launches": launches, "shares": shares}
+
+
 def main() -> int:
     import torch
 
@@ -3872,6 +4626,24 @@ def main() -> int:
     asm_run = assembly_cell(dev, smi)
     lap("24")
 
+    # 25-28. the device tools: #7 is counted on uhamming's sweeps, #8 on
+    # blitz's CLI run, #1-#3 on the flagship's align; their --device cpu
+    # runs are child processes compared at the end
+    uh_run = uhamming_cell(dev, smi)
+    (errs["uhamming_sweep"], timing["uhamming_sweep"],
+     launches["uhamming_sweep"]) = (uh_run["err"], uh_run["timing"],
+                                     uh_run["launches"])
+    lap("25")
+    bz_run = blitz_cell(dev, smi)
+    (errs["blitz_chain"], timing["blitz_chain"],
+     launches["blitz_chain"]) = (bz_run["err"], bz_run["timing"],
+                                 bz_run["launches"])
+    lap("26")
+    tools_run = other_tools_cell(dev, smi)
+    lap("27")
+    flagship = flagship_cell(dev, smi)
+    lap("28")
+
     # 16-17, end: the CPU runs against the card's; LongReadAligner
     chunked_cli_finish(ck_runs)
     lap("16, end")
@@ -3888,8 +4660,12 @@ def main() -> int:
     two_pass_finish(cs_run, "colorspace")
     pacbio_finish(pb_run)
     _assembly_parity_finish(asm_run["parity"])
-    lap("21-24, end")
-    new_paths = {"launches_bisulfite": bs_run["launches"],
+    _uh_finish(uh_run)
+    _bz_finish(bz_run)
+    _other_tools_finish(tools_run)
+    lap("21-28, end")
+    new_paths = {"launches_flagship": flagship["launches"],
+                 "launches_bisulfite": bs_run["launches"],
                  "launches_colorspace": cs_run["launches"],
                  "launches_contigs": pb_run["ctg_launches"],
                  "launches_assembly": asm_run["launches"],
@@ -3919,6 +4695,12 @@ def main() -> int:
         ("hamming_extend_packed_win", "hamming_extend.cu",
          "biokanga_tpu/ops/extend_packed.py:217",
          f"({WIN_B}, {WIN_C}) windows, W {WIN_WORDS[0]}"),
+        ("uhamming_sweep", "uhamming_sweep.cu",
+         "biokanga_tpu/tools/uhamming.py:33",
+         f"-m 0 with the reverse complement, K {UH_K}, {UH_LINE_BP} bp"),
+        ("blitz_chain", "blitz_chain.cu", "biokanga_tpu/tools/blitz.py:158",
+         f"{timing['blitz_chain']['chains']} chains of width "
+         f"{timing['blitz_chain']['width']}"),
     ]
     kernels_line = []
     for name, path, rep, shape in rows:
@@ -3932,7 +4714,12 @@ def main() -> int:
         extra = {k: t[k] for k in ("ms_ec_chunk", "ec_chunk_pairs",
                                    "chain_ms", "ms_fused_pe", "ms_contigs",
                                    "wrapper_ms", "wide", "path",
-                                   "direct_floor_ms", "by_words")
+                                   "direct_floor_ms", "by_words",
+                                   "ms_1mbp", "bound_ms_1mbp", "wall_s_1mbp",
+                                   "wall_s_m2_se", "bound_ms_m2_se",
+                                   "chains", "width", "pairs",
+                                   "queries_per_s", "at_origin",
+                                   "big_query_s")
                  if k in t}
         # launches on the paths this slice added, where the kernel ran
         extra.update({path: counts[name]

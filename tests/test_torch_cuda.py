@@ -19,7 +19,9 @@ long-read aligner on CUDA tensors equal them on CPU tensors; the
 windowed extension (#3w) equals its plain version on
 tests/win_edge_cases.py, the pair sort its plain version past 16,384
 pairs, and the bisulfite and colorspace CLI and the scaled assembly on
-the card equal the CPU's.
+the card equal the CPU's; the uhamming sweep (#7) and the blitz chain DP
+(#8) equal their plain versions, and `uhamming`, `blitz`,
+`mergeoverlaps` and `findapproxmatches` on the card equal the CPU's.
 """
 import numpy as np
 import pytest
@@ -1056,3 +1058,126 @@ def test_scaled_assembly_on_the_card_equals_cpu(cuda_device):
     assert len(got) == len(want)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+def _uh_genome(rng, n, entries):
+    """Codes of n bases in `entries` entries (the second short), with an
+    N run, an exact and a near repeat."""
+    g = rng.integers(0, 4, n).astype(np.int8)
+    g[n // 7:n // 7 + 9] = 4
+    r = n // 6
+    g[3 * r:4 * r] = g[:r]
+    near = g[r:2 * r].copy()
+    near[::40] = (near[::40] + 1) % 4
+    g[4 * r:5 * r] = near
+    cut = np.linspace(0, n, entries + 1).astype(int)
+    if entries > 1:
+        cut[2] = cut[1] + 40
+    return g, cut
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,entries", [(300, 24, 1), (2_500, 24, 3),
+                                         (2_500, 100, 3), (5_000, 100, 2),
+                                         (90, 100, 1)])
+def test_uhamming_sweep_kernel_matches_plain(cuda_device, n, K, entries):
+    """#7 on the card against its plain version: the full watson and
+    reverse-complement sweeps, a mode-2 shift range, and a genome shorter
+    than K."""
+    from biokanga_tpu_torch.ops import uhamming_sweep as us
+    from biokanga_tpu_torch.tools.uhamming import window_validity
+
+    g, starts = _uh_genome(np.random.default_rng(n + K), n, entries)
+    args = (torch.from_numpy(g).to(cuda_device),
+            torch.from_numpy(window_validity(starts, n, K)).to(cuda_device),
+            torch.full((n,), us.H_INVALID, dtype=torch.uint8,
+                       device=cuda_device))
+    top = n - K + 1
+    for lo, hi, rc in ((1, top, True), (1, top, False),
+                       (1 + top // 3, 1 + 2 * top // 3, False)):
+        before = us.uhamming_sweep.launches
+        got = us.uhamming_sweep(*args, K, lo, hi, rc)
+        torch.cuda.synchronize()
+        want = us.uhamming_sweep_plain(*args, K, lo, hi, rc)
+        assert torch.equal(got, want)
+        if top > 0 and hi > lo:
+            assert us.uhamming_sweep.launches == before + 1 + rc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,M,kind", [(1, 1, "random"), (40, 64, "ties"),
+                                      (300, 512, "random"),
+                                      (5, 4_096, "random"),
+                                      (20, 200, "gaps")])
+def test_blitz_chain_kernel_matches_plain(cuda_device, C, M, kind):
+    """#8 on the card against its plain version, with ties, invalid
+    blocks, gaps past 100,000 and overlaps around -8."""
+    from biokanga_tpu_torch.ops import blitz_chain as bc
+
+    rng = np.random.default_rng(C * M)
+    q0 = rng.integers(0, 4_000, (C, M))
+    t0 = np.sort(rng.integers(0, 8_000, (C, M)), axis=1)
+    ln = rng.integers(16, 60, (C, M))
+    if kind == "ties":
+        q0 = np.broadcast_to(np.arange(M) * 30, (C, M)).copy()
+        t0, ln = q0.copy(), np.full((C, M), 20)
+    elif kind == "gaps":
+        t0 = np.cumsum(rng.choice([-9, -8, -7, 0, 50, 99_990, 100_001],
+                                  (C, M)) + 30, axis=1)
+    valid = rng.random((C, M)) < 0.9
+    a = [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(cuda_device)
+         for x in (q0, t0, ln, ln)] + [torch.from_numpy(valid).to(cuda_device)]
+    before = bc.chain_scan.launches
+    f, pred = bc.chain_scan(*a, 5)
+    torch.cuda.synchronize()
+    wf, wp = bc.chain_scan_plain(*a, 5)
+    assert torch.equal(f, wf) and torch.equal(pred, wp)
+    assert bc.chain_scan.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_tools_cli_on_the_card_equal_cpu(cuda_device, tmp_path):
+    """`uhamming`, `blitz`, `mergeoverlaps` and `findapproxmatches` with
+    --device cuda against --device cpu, byte for byte."""
+    from biokanga_tpu_torch.cli import main
+    from biokanga_tpu_torch.seq.encode import revcomp
+    from biokanga_tpu_torch.seq.fasta import write_fasta, write_fastq
+    from biokanga_tpu_torch.sim.simreads import random_genome
+
+    seqs = random_genome([("c1", 30_000), ("c2", 9_000)], seed=3)
+    g = seqs[0][1]
+    write_fasta(str(tmp_path / "g.fa"), seqs)
+    assert main(["index", "-i", str(tmp_path / "g.fa"), "-o",
+                 str(tmp_path / "g.npz"), "--lut-bases", "8"]) == 0
+    write_fasta(str(tmp_path / "q.fa"), [
+        ("a", g[1000:2500]), ("b", revcomp(g[5000:5600])),
+        ("s", np.concatenate([g[8000:8300], g[18000:18400]]))])
+    rng = np.random.default_rng(1)
+    r1, r2 = [], []
+    for s in rng.integers(0, 29_000, 200):
+        frag = g[s:s + int(rng.integers(120, 190))]
+        r1.append(frag[:100].copy())
+        r2.append(revcomp(frag[-100:]))
+    for m, rs in ((1, r1), (2, r2)):
+        write_fastq(str(tmp_path / f"r{m}.fq"),
+                    ((f"p{i}", r, None) for i, r in enumerate(rs)))
+    write_fasta(str(tmp_path / "guides.fa"),
+                [(f"g{i}", g[i * 997:i * 997 + 23]) for i in range(20)])
+    write_fasta(str(tmp_path / "small.fa"), [("s1", g[:4_000]),
+                                             ("s2", g[9_000:11_000])])
+    runs = {
+        "u.csv": ["uhamming", "-i", str(tmp_path / "small.fa"), "-K", "50",
+                  "-o", str(tmp_path / "u{d}.hmg.npz"), "-O"],
+        "b.psl": ["blitz", "-i", str(tmp_path / "q.fa"), "-I",
+                  str(tmp_path / "g.npz"), "-o"],
+        "m.fq": ["mergeoverlaps", "-i", str(tmp_path / "r1.fq"), "-u",
+                 str(tmp_path / "r2.fq"), "-o"],
+        "f.csv": ["findapproxmatches", "-i", str(tmp_path / "guides.fa"),
+                  "-I", str(tmp_path / "g.fa"), "-o"],
+    }
+    for out, argv in runs.items():
+        for d in ("cpu", "cuda"):
+            assert main([a.format(d=d) for a in argv]
+                        + [str(tmp_path / f"{d}_{out}"), "--device", d]) == 0
+        assert (tmp_path / f"cpu_{out}").read_bytes() == \
+            (tmp_path / f"cuda_{out}").read_bytes()
