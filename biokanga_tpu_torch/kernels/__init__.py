@@ -66,10 +66,15 @@ _SIGNATURES = {
     "stream_gather_consume": (_P, _P, _I, _I, _I, _P, _P),
     # (*bytes): the current device's L2 size
     "stream_gather_l2_bytes": (ctypes.POINTER(_I),),
-    # (a, b, hmin, n, K, d_lo, d_hi, sym, stream)
-    "uhamming_sweep": (_P, _P, _P, _L, _I, _L, _L, _I, _P),
-    # (q0, t0, ln, score, valid, f, pred, C, M, gap_open, stream)
-    "blitz_chain": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # (a, b, words, pad, hmin, n, K, d_lo, d_hi, cross, stream)
+    "uhamming_sweep": (_P, _P, _L, _L, _P, _L, _I, _L, _L, _I, _P),
+    # (q0, t0, ln, score, valid, f, pred, scratch or NULL, C, M, gap_open,
+    #  stream)
+    "blitz_chain": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # (): the widest chain whose rows stay in shared memory
+    "blitz_chain_shared_max_m": (),
+    # (steps, out, stream): one warp of the chain DP's dependent steps
+    "blitz_chain_step_probe": (_I, _P, _P),
 }
 
 _lock = threading.Lock()

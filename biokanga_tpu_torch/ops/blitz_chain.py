@@ -14,9 +14,10 @@ tests on both axes,
 Results are per chain, so chains of any queries, strands and entries
 share one call; padding a chain to a wider M changes none of its values.
 
-On a CUDA tensor `chain_scan` launches csrc/blitz_chain.cu (one block a
-chain; see the source note there) or raises; on a CPU tensor it runs
-`chain_scan_plain`, a loop over i with vector ops over (C, M).
+On a CUDA tensor `chain_scan` launches csrc/blitz_chain.cu (a warp a
+narrow chain, a block a wide one, at any M; see the source note there)
+or raises; on a CPU tensor it runs `chain_scan_plain`, a loop over i
+with vector ops over (C, M).
 """
 from __future__ import annotations
 
@@ -29,8 +30,6 @@ C_GAP_EXTEND_COST = 1       # per 10 bp
 C_GAP_EXTEND_LIMIT = 10
 C_GAP_MAX_LEN = 100_000
 C_MAX_OVERLAP_FLOAT = 8
-# widest chain: four int32 rows of M in the kernel's shared memory
-MAX_CHAIN_M = 12_288
 
 
 def _check(*xs: torch.Tensor) -> None:
@@ -85,18 +84,21 @@ def chain_scan(q0: torch.Tensor, t0: torch.Tensor, ln: torch.Tensor,
     if q0.device.type == "cpu":
         return chain_scan_plain(q0, t0, ln, score, valid, gap_open)
     C, M = q0.shape
-    if M > MAX_CHAIN_M:
-        raise ValueError(f"chain_scan: M = {M} past {MAX_CHAIN_M}")
     ins = [x.contiguous() for x in (q0, t0, ln, score)]
-    ins.append(valid.to(torch.int32).contiguous())
+    ins.append(valid.to(torch.bool).contiguous())
     f = torch.empty((C, M), dtype=torch.int32, device=q0.device)
     pred = torch.empty_like(f)
     if C and M:
         lib = kernels.library()
+        # a wide chain's rows past the shared memory: (C, M) int4 rows
+        scratch = (torch.empty((C, M, 4), dtype=torch.int32,
+                               device=q0.device)
+                   if M > lib.blitz_chain_shared_max_m() else None)
         with torch.cuda.device(q0.device):
-            err = lib.blitz_chain(*(x.data_ptr() for x in ins), f.data_ptr(),
-                                  pred.data_ptr(), C, M, gap_open,
-                                  kernels.stream_ptr(q0.device))
+            err = lib.blitz_chain(
+                *(x.data_ptr() for x in ins), f.data_ptr(), pred.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), C, M,
+                gap_open, kernels.stream_ptr(q0.device))
         kernels.check(err, "blitz_chain")
         chain_scan.launches += 1
     return f, pred

@@ -163,8 +163,9 @@ Phases, each of which raises on failure:
      contigs, each card against a --device cpu child byte for byte.
  25. uhamming: kernel #7 (uhamming_sweep) against its plain version,
      exact, on a 6 kb genome of three entries (one of 80 bp, short of K
-     100) with N runs and exact, near and reverse-complement repeats, K 24
-     and 100, both sweeps and a mode-2 range, and at 65,536 bp, timed
+     100) with N runs, exact, near and reverse-complement repeats and a
+     300 bp palindrome (its centred window reads 0 at every K), K 24, 32,
+     100 and 300, both sweeps and a mode-2 range, and at 65,536 bp, timed
      with its bound; `uhamming -m 0` on a 20 kb genome, card against a
      --device cpu child (.hmg arrays and CSV); `-m 3` of two `-m 2`
      partials equal to one `-m 2` run over their union; `-m 0 -K 100` on
@@ -178,10 +179,13 @@ Phases, each of which raises on failure:
      strand, spliced ones in one path across the intron, unrelated ones
      without a path), queries/s, the share whose best path is at its
      origin; kernel #8 (blitz_chain) exact against its plain version on
-     the chains of the CLI's first batch, timed with its bound; PSL of
-     256 queries and PSLX, BED and MAF of 16 against --device cpu
-     children; the 1 Mbp rearranged query of tests/test_blitz_scale.py
-     with its bars;
+     every chain batch of the CLI run and of the 1 Mbp query and on 4
+     wide chains of 16,384 blocks (past the shared memory), timed with
+     its bound and its dependent-chain floor (one step's latency measured
+     by a one-warp probe kernel) on the CLI's first batch and on the wide
+     set; PSL of 256 queries and PSLX, BED and MAF of 16
+     against --device cpu children; the 1 Mbp rearranged query of
+     tests/test_blitz_scale.py with its bars;
  27. `mergeoverlaps -m 0` and `-m 2` on 1,048,576 amplicon pairs of 2 x
      150 bp (plate barcodes, inserts 180-280, 1% substitutions): pairs/s,
      merged and welled shares, the first 65,536 pairs against --device
@@ -344,16 +348,20 @@ BS_SMALL_BP, BS_SMALL_READS = 500_000, 65_536
 CS_READS, CS_READ_LEN, MIN_CS_SHARE = 262_144, 75, 0.9667
 # the assembly cell (phase 24): BENCH_ASM.json's row 0.5mbp_30x_r4
 ASM_GENOME_BP, ASM_PAIRS = 500_000, 50_000
-# uhamming (phase 25): the check genome's entries (two of 3 kb and one of
-# 80 bp, short of K 100), the kernels line's genome, the CLI parity genome,
+# uhamming (phase 25): the window lengths checked (a multiple of the word,
+# and past 255 where the counts saturate), the check genome's entries (two
+# of 3 kb and one of 80 bp, short of K 100) and its palindrome (a window of
+# every even K up to 300 that is its own reverse complement: the cross
+# sweep's self-pair), the kernels line's genome, the CLI parity genome,
 # the timed 1 Mbp genome with its planted repeats (source, copy,
 # substitutions), the node partition of the SE genome; integer operations
 # a pair of windows: the mismatch test of 2-bit packed words (3 a 32
 # bases), the window's slide (2), the pair's mask (1) and the two minima
 # (both windows' loci; the cross sweep's distances are symmetric,
 # Ham(g_i, rc g_k) = Ham(g_k, rc g_i), so it needs each unordered pair once)
-UH_KS, UH_K = (24, 100), 100
+UH_KS, UH_K = (24, 32, 100, 300), 100
 UH_CHECK = [("e1", 3_000), ("e2", 80), ("e3", 3_000)]
+UH_PALINDROME = (2_400, 300)
 UH_LINE_BP, UH_CLI_BP, UH_BP, UH_NODES = 65_536, 20_000, 1_000_000, 64
 UH_REPEAT_LEN = 600
 UH_REPEATS = ((100_000, 700_000, 0), (200_000, 800_000, 1),
@@ -363,12 +371,14 @@ UH_OPS_PAIR = 3 / 32 + 2 + 1 + 2
 # bars of tests/test_blitz.py and the 1 Mbp query of
 # tests/test_blitz_scale.py; integer operations of the chain DP: a valid
 # block's ends (2), once; an (i, j < i) pair's overlap and gap tests (4),
-# gap (2), gap cost (5), candidate (1) and argmax (2)
+# gap (2), gap cost (5), candidate (1) and argmax (2); a wide set of long
+# collinear chains (a long or repetitive query's) past the shared memory
 BZ_QUERIES, BZ_LEN, BZ_SUB, BZ_INTRON = 2_000, (1_000, 4_000), 0.03, (
     1_000, 20_000)
 BZ_BARS, BZ_PARITY_Q, BZ_FMT_Q = 16, 256, 16
 BZ_BIG = ((100_000, 600_000), (1_200_000, 1_700_000))
 BZ_OPS_PER_BLOCK, BZ_OPS_PER_PAIR = 2, 14
+BZ_WIDE = (4, 16_384)
 # the other device tools (phase 27): amplicon pairs, guides, NW pairs
 MO_PAIRS, MO_LEN, MO_INSERT, MO_SUB = 1_048_576, 150, (180, 280), 0.01
 MO_PARITY = 65_536
@@ -392,6 +402,11 @@ SW_MOVES_OPS_PER_CELL = 26
 # compare, select) of ~4 cycles
 TRACE_STEP_CYCLES = 48
 SM_CLOCK_HZ = 1.98e9
+# #8's dependent chain: step i waits for f[i-1], so a step is at least
+# one 32-lane max and the register update around it; the kernel
+# blitz_chain_step_probe runs that many dependent steps in one warp, and
+# its time at the two counts gives one step's latency on this card
+BZ_PROBE_STEPS = (1 << 16, 1 << 20)
 
 
 def _timed_ms(fn, iters: int = 10) -> float:
@@ -408,6 +423,20 @@ def _timed_ms(fn, iters: int = 10) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def _once_ms(fn):
+    """(fn(), its device time in ms) of one call."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def _max_abs_err(got, want) -> int:
@@ -3741,8 +3770,9 @@ def _uh_bound(starts, n: int, K: int, lo: int, hi: int, rc: bool):
 
 def _uh_check_genome():
     """Phase 25's check genome: two 3 kb entries and an 80 bp one (past
-    K 24, short of K 100), N runs (one in the short entry), an exact, a
-    near (3 substitutions) and a reverse-complement repeat."""
+    K 24 and 32, short of K 100), N runs (one in the short entry), an
+    exact, a near (3 substitutions) and a reverse-complement repeat, and a
+    300 bp palindrome (its own reverse complement)."""
     from biokanga_tpu_torch.seq.encode import revcomp
     from biokanga_tpu_torch.sim.simreads import random_genome
 
@@ -3756,6 +3786,8 @@ def _uh_check_genome():
     near[[50, 150, 250]] = (near[[50, 150, 250]] + 1) % 4
     g[5_000:5_300] = near
     g[5_500:5_700] = revcomp(g[2_000:2_200])
+    at, ln = UH_PALINDROME
+    g[at + ln // 2:at + ln] = revcomp(g[at:at + ln // 2])
     return g, starts
 
 
@@ -3774,9 +3806,10 @@ def _uh_big_genome():
 
 
 def check_uhamming(dev):
-    """Phase 25.1: #7 against its plain version on the check genome, K 24
-    and 100, both sweeps over every shift and the watson sweep over a
-    mode-2 range; the planted repeats must read 0 and <= 3.  Then both at
+    """Phase 25.1: #7 against its plain version on the check genome, K 24,
+    32, 100 and 300, both sweeps over every shift and the watson sweep
+    over a mode-2 range; the planted repeats must read 0 and <= 3 at K
+    100, and the palindrome's centred window 0 at every K.  Then both at
     UH_LINE_BP, timed with the bound.  Returns (max_abs_err, timing)."""
     import torch
 
@@ -3805,6 +3838,11 @@ def check_uhamming(dev):
                 if h[200:401].max() or h[2_000:2_101].max() or \
                         h[1_000:1_201].max() > 3:
                     raise AssertionError("phase 25: planted repeats missed")
+            at, ln = UH_PALINDROME
+            if rc and int(want[at + (ln - K) // 2]):
+                raise AssertionError(f"phase 25: the palindrome's window "
+                                     f"reads {int(want[at + (ln - K) // 2])} "
+                                     f"at K {K}")
     line = random_genome([("chr", UH_LINE_BP)], seed=252)[0][1]
     ls = np.array([0, UH_LINE_BP])
     a = args(line, ls, UH_K)
@@ -3822,7 +3860,8 @@ def check_uhamming(dev):
              library_ms=None, bound=(bound_ms, by))
     print(f"uhamming_sweep exact against its plain version (K {UH_KS}, both "
           f"sweeps and a mode-2 range on {len(g)} bases in "
-          f"{len(starts) - 1} entries with Ns and repeats; -m 0 at "
+          f"{len(starts) - 1} entries with Ns, repeats and a palindrome; "
+          f"-m 0 at "
           f"{UH_LINE_BP} bases); at {UH_LINE_BP}: kernel {t['ms']:.4f} ms, "
           f"plain torch {t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
           f"({by})")
@@ -4036,6 +4075,62 @@ def _chain_bound(q0, valid) -> tuple[float, str, int]:
     return ms, by, pairs
 
 
+def _chain_step_ms(dev) -> float:
+    """One step of #8's dependent chain on this card, in ms: the
+    blitz_chain_step_probe warp's time at BZ_PROBE_STEPS[1] steps less
+    its time at BZ_PROBE_STEPS[0], over the difference (CUDA events, the
+    mean of 5 launches each)."""
+    import torch
+
+    from biokanga_tpu_torch import kernels
+
+    lib = kernels.library()
+    out = torch.empty(32, dtype=torch.int32, device=dev)
+    stream = kernels.stream_ptr(dev)
+
+    def run(steps):
+        kernels.check(lib.blitz_chain_step_probe(steps, out.data_ptr(),
+                                                 stream),
+                      "blitz_chain_step_probe")
+
+    lo, hi = BZ_PROBE_STEPS
+    with torch.cuda.device(dev):
+        t_lo, t_hi = (_timed_ms(lambda: run(s), 5) for s in (lo, hi))
+    return (t_hi - t_lo) / (hi - lo)
+
+
+def _chain_floor(valid, step_ms: float) -> float:
+    """#8's dependent-chain floor in ms on these chains: the valid steps
+    of the longest chain of each wave, times one step's measured latency
+    (_chain_step_ms).  A wave is the most chains the card can walk at
+    once: a warp a chain, 64 warps an SM."""
+    import torch
+
+    wave = 132 * 64
+    steps = valid.to(dtype=torch.int64).sum(dim=1).cpu().numpy()
+    return sum(int(steps[k:k + wave].max())
+               for k in range(0, len(steps), wave)) * step_ms
+
+
+def _bz_wide_chains(rng, C: int, M: int, dev):
+    """chain_scan's arguments for C chains of M blocks, long collinear
+    chains sorted by t: steps of 0-60 bp with small indels, 10% of the
+    blocks off the diagonal, blocks of 16-40 bp, the last chain a quarter
+    padding; gap_open 5."""
+    import torch
+
+    t0 = np.cumsum(rng.integers(0, 61, (C, M)), axis=1)
+    q0 = t0 + rng.integers(-5, 6, (C, M)).cumsum(axis=1) // 4
+    off = rng.random((C, M)) < 0.1
+    q0[off] = rng.integers(0, int(t0.max()) + 1, int(off.sum()))
+    ln = rng.integers(16, 41, (C, M))
+    valid = np.ones((C, M), bool)
+    valid[-1, 3 * M // 4:] = False
+    t = [torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(dev)
+         for v in (q0, t0, ln, ln)]
+    return (*t, torch.from_numpy(valid).to(dev), 5)
+
+
 def blitz_cell(dev, smi):
     """Phase 26: `blitz` of transcripts and ESTs against the 4.6 Mbp SE
     genome (phase 4's index): the queries of _bz_queries through the CLI
@@ -4044,8 +4139,10 @@ def blitz_cell(dev, smi):
     PSLX, BED and MAF of the first BZ_FMT_Q, against --device cpu
     children; the 1 Mbp rearranged query of tests/test_blitz_scale.py on
     the card with its bars; #8 against its plain version on every chain
-    batch of the CLI run and of the 1 Mbp query, timed with its bound on
-    the CLI's first batch."""
+    batch of the CLI run and of the 1 Mbp query, timed with its bound and
+    its dependent-chain floor on the CLI's first batch; #8 on a wide set
+    of BZ_WIDE chains past the shared memory against its plain version,
+    timed with its bound and floor."""
     from biokanga_tpu_torch.index.build import load_index
     from biokanga_tpu_torch.index.device import to_device
     from biokanga_tpu_torch.ops import blitz_chain as bc
@@ -4123,15 +4220,26 @@ def blitz_cell(dev, smi):
         want = bc.chain_scan_plain(*a)
         err = max(err, _max_abs_err(got[0], want[0]),
                   _max_abs_err(got[1], want[1]))
+    wide = _bz_wide_chains(np.random.default_rng(26), *BZ_WIDE, dev)
+    want, wide_plain_ms = _once_ms(lambda: bc.chain_scan_plain(*wide))
+    got = bc.chain_scan(*wide)
+    err = max(err, _max_abs_err(got[0], want[0]),
+              _max_abs_err(got[1], want[1]))
     if err:
         raise AssertionError(f"blitz_chain disagrees: {err}")
     a = captured[0]
     bound_ms, by, pairs = _chain_bound(a[0], a[4])
+    wide_bound, wide_by, _ = _chain_bound(wide[0], wide[4])
+    step_ms = _chain_step_ms(dev)
     t = dict(ms=_timed_ms(lambda: bc.chain_scan(*a)),
              plain_ms=_timed_ms(lambda: bc.chain_scan_plain(*a), 1),
              library_ms=None, bound=(bound_ms, by),
+             step_ms=step_ms, floor_ms=_chain_floor(a[4], step_ms),
              chains=int(a[0].shape[0]), width=int(a[0].shape[1]),
-             pairs=pairs)
+             pairs=pairs, wide_ms=_timed_ms(lambda: bc.chain_scan(*wide), 3),
+             wide_plain_ms=wide_plain_ms, wide_bound_ms=wide_bound,
+             wide_floor_ms=_chain_floor(wide[4], step_ms),
+             wide_shape=list(BZ_WIDE))
     n_q = len(recs)
     print(f"blitz of {n_q} queries ({BZ_QUERIES} transcripts of "
           f"{BZ_LEN[0]}-{BZ_LEN[1]} bp at {BZ_SUB} substitutions, a third "
@@ -4142,10 +4250,15 @@ def blitz_cell(dev, smi):
           f"batches of the CLI run and the 1 Mbp query's "
           f"{len(captured) - n_cli} ("
           + ", ".join(f"{x[0].shape[0]} x {x[0].shape[1]}" for x in captured)
-          + f" chains x width); on the first batch's {t['chains']} chains "
+          + f" chains x width) and on {BZ_WIDE[0]} wide chains of "
+          f"{BZ_WIDE[1]}; on the first batch's {t['chains']} chains "
           f"of width {t['width']} ({pairs} pairs): kernel {t['ms']:.4f} ms, "
           f"plain torch {t['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({by}) ({smi})")
+          f"({by}), dependent-chain floor {t['floor_ms']:.4f} ms "
+          f"(a step {step_ms * 1e6:.2f} ns, measured); on the "
+          f"wide set: kernel {t['wide_ms']:.4f} ms, plain torch "
+          f"{t['wide_plain_ms']:.1f} ms, bound {wide_bound:.4f} ms "
+          f"({wide_by}), floor {t['wide_floor_ms']:.4f} ms ({smi})")
     print(f"blitz of a 1 Mbp query (two 500 kb segments, rearranged): "
           f"{big_s:.2f} s, both segments recovered, scores "
           f"{[p.score for p in paths[:2]]}")
@@ -4717,7 +4830,11 @@ def main() -> int:
                                    "direct_floor_ms", "by_words",
                                    "ms_1mbp", "bound_ms_1mbp", "wall_s_1mbp",
                                    "wall_s_m2_se", "bound_ms_m2_se",
-                                   "chains", "width", "pairs",
+                                   "chains", "width", "pairs", "step_ms",
+                                   "floor_ms",
+                                   "wide_ms", "wide_plain_ms",
+                                   "wide_bound_ms", "wide_floor_ms",
+                                   "wide_shape",
                                    "queries_per_s", "at_origin",
                                    "big_query_s")
                  if k in t}

@@ -11,9 +11,13 @@ row loop: the largest span closed by a backward branch that holds a warp
 shuffle, vote or reduction (and the size of every such span, for the
 decode's inner loops).  The loop span includes its rare paths (a new
 best cell, the word stores every 16 rows), so its count is an upper
-bound of what one row issues.  The last line is one JSON object with the
-counts.  Needs nvcc and cuobjdump (the CUDA toolkit), no
-card.
+bound of what one row issues.  For kernels whose steps are unrolled
+32 at a time around one warp reduction each (the uhamming sweep's locus
+steps), it also counts the instructions of each basic block that holds
+32 REDUX instructions, over 32 (`step_bodies`): a step's instructions,
+also where the compiler interleaves the steps.  The last line
+is one JSON object with the counts.  Needs nvcc and cuobjdump (the CUDA
+toolkit), no card.
 """
 from __future__ import annotations
 
@@ -84,6 +88,29 @@ def loops(insns) -> list[tuple[int, int, list[str]]]:
     return out
 
 
+def step_bodies(insns, steps: int = 32) -> list[float]:
+    """For kernels whose locus steps are unrolled `steps` at a time, one
+    warp reduction a step (the uhamming sweep): for each run of `steps`
+    REDUX instructions, the instructions (NOPs left out) of the basic
+    block that holds the run, over `steps`: a step's instructions, the
+    refill code around the block not counted."""
+    insns = [x for x in insns if x[1] != "NOP"]
+    targets = {int(m[1], 16) for _, o, rest in insns
+               if o.startswith("BRA") for m in [_BRA.search(rest)] if m}
+    at = [k for k, (_, o, _) in enumerate(insns) if o.startswith("REDUX")]
+    out = []
+    for b in range(0, len(at) - steps + 1, steps):
+        lo, hi = at[b], at[b + steps - 1]
+        while lo > 0 and insns[lo][0] not in targets and \
+                not insns[lo - 1][1].startswith(("BRA", "BSYNC", "EXIT")):
+            lo -= 1
+        while hi + 1 < len(insns) and insns[hi + 1][0] not in targets and \
+                not insns[hi][1].startswith(("BRA", "EXIT")):
+            hi += 1
+        out.append(round((hi - lo + 1) / steps, 2))
+    return out
+
+
 def _hist(body: list[str]) -> dict[str, int]:
     hist: dict[str, int] = {}
     for o in body:
@@ -135,12 +162,15 @@ def main(argv: list[str]) -> int:
                 "spill_bytes": int(spills.get(mangled, 0)),
                 "instructions": sum(o != "NOP" for _, o, _ in funcs[mangled]),
                 "row_loop": len(outer[2]), "row_loop_ops": _hist(outer[2]),
+                "step_bodies": step_bodies(funcs[mangled]),
                 "loops": [[hex(lo), hex(hi), len(b)] for lo, hi, b in spans]}
             print(f"{key}: {result[key]['registers']} registers, "
                   f"{result[key]['spill_bytes']} B spills, "
                   f"{result[key]['instructions']} instructions, largest "
                   f"loop {len(outer[2])}: {result[key]['row_loop_ops']}; "
-                  f"warp-collective loops {result[key]['loops']}")
+                  f"warp-collective loops {result[key]['loops']}; "
+                  f"instructions a step of each 32-step body "
+                  f"{result[key]['step_bodies']}")
     print(json.dumps({"sass": result}))
     return 0
 

@@ -384,6 +384,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
               root / "scripts" / "bench_sw_torch.py",
               root / "scripts" / "bench_sort_torch.py",
               root / "scripts" / "bench_extend_torch.py",
+              root / "scripts" / "bench_tools_torch.py",
               root / "scripts" / "multihost_dryrun_torch.py",
               root / "tests" / "bs_reads.py",
               root / "tests" / "win_edge_cases.py"]

@@ -1060,9 +1060,11 @@ def test_scaled_assembly_on_the_card_equals_cpu(cuda_device):
         np.testing.assert_array_equal(a, b)
 
 
-def _uh_genome(rng, n, entries):
+def _uh_genome(rng, n, entries, palindrome=False):
     """Codes of n bases in `entries` entries (the second short), with an
-    N run, an exact and a near repeat."""
+    N run, an exact and a near repeat; with `palindrome`, a window of the
+    last entry (its last K // 2 * 2 bases) that is its own reverse
+    complement."""
     g = rng.integers(0, 4, n).astype(np.int8)
     g[n // 7:n // 7 + 9] = 4
     r = n // 6
@@ -1073,21 +1075,33 @@ def _uh_genome(rng, n, entries):
     cut = np.linspace(0, n, entries + 1).astype(int)
     if entries > 1:
         cut[2] = cut[1] + 40
+    if palindrome:
+        half = rng.integers(0, 4, palindrome // 2).astype(np.int8)
+        pal = np.concatenate([half, 3 - half[::-1]])
+        if cut[-2] + len(pal) <= n:
+            g[n - len(pal):] = pal
     return g, cut
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,K,entries", [(300, 24, 1), (2_500, 24, 3),
-                                         (2_500, 100, 3), (5_000, 100, 2),
-                                         (90, 100, 1)])
-def test_uhamming_sweep_kernel_matches_plain(cuda_device, n, K, entries):
+@pytest.mark.parametrize("n,K,entries,palindrome",
+                         [(300, 24, 1, 0), (2_500, 24, 3, 0),
+                          (2_500, 100, 3, 0), (5_000, 100, 2, 0),
+                          (90, 100, 1, 0), (31, 32, 1, 32), (33, 32, 1, 32),
+                          (4_127, 32, 3, 32), (31, 300, 1, 300),
+                          (33, 300, 1, 300), (4_127, 300, 3, 300)])
+def test_uhamming_sweep_kernel_matches_plain(cuda_device, n, K, entries,
+                                             palindrome):
     """#7 on the card against its plain version: the full watson and
-    reverse-complement sweeps, a mode-2 shift range, and a genome shorter
-    than K."""
+    reverse-complement sweeps, a mode-2 shift range, a genome shorter
+    than K, K a multiple of the word and K past 255 (the counts
+    saturate), and a window that is its own reverse complement (the
+    cross sweep's self-pair)."""
     from biokanga_tpu_torch.ops import uhamming_sweep as us
     from biokanga_tpu_torch.tools.uhamming import window_validity
 
-    g, starts = _uh_genome(np.random.default_rng(n + K), n, entries)
+    g, starts = _uh_genome(np.random.default_rng(n + K), n, entries,
+                           palindrome)
     args = (torch.from_numpy(g).to(cuda_device),
             torch.from_numpy(window_validity(starts, n, K)).to(cuda_device),
             torch.full((n,), us.H_INVALID, dtype=torch.uint8,
@@ -1102,18 +1116,37 @@ def test_uhamming_sweep_kernel_matches_plain(cuda_device, n, K, entries):
         assert torch.equal(got, want)
         if top > 0 and hi > lo:
             assert us.uhamming_sweep.launches == before + 1 + rc
+        if palindrome and rc and n >= K:
+            assert int(got[n - K]) == 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,M,kind", [(1, 1, "random"), (40, 64, "ties"),
                                       (300, 512, "random"),
                                       (5, 4_096, "random"),
-                                      (20, 200, "gaps")])
+                                      (20, 200, "gaps"), (12, 128, "ties"),
+                                      (9, 31, "ties"),
+                                      (9, 32, "ties"), (9, 33, "random"),
+                                      ("wave", 129, "gaps"),
+                                      ("wave", 200, "ties"),
+                                      ("wave", 1_024, "random"),
+                                      (3, 1_025, "ties"),
+                                      (2, 12_289, "random"),
+                                      (2, 20_000, "ties")])
 def test_blitz_chain_kernel_matches_plain(cuda_device, C, M, kind):
     """#8 on the card against its plain version, with ties, invalid
-    blocks, gaps past 100,000 and overlaps around -8."""
+    blocks, gaps past 100,000 and overlaps around -8, in every layout the
+    kernel picks by shape: a warp a chain with rows in registers (1, 2
+    and 4 a lane, M <= 128), a warp a chain with rows in shared memory
+    (M 129-1,024 where the chains pass one wave of 256-thread blocks, 8
+    an SM: C "wave"), a block a chain with rows in shared memory (fewer
+    chains, or M past 1,024) and, past 14,336 blocks, a block a chain
+    with rows in device memory."""
     from biokanga_tpu_torch.ops import blitz_chain as bc
 
+    if C == "wave":
+        props = torch.cuda.get_device_properties(cuda_device)
+        C = 8 * props.multi_processor_count + 3
     rng = np.random.default_rng(C * M)
     q0 = rng.integers(0, 4_000, (C, M))
     t0 = np.sort(rng.integers(0, 8_000, (C, M)), axis=1)

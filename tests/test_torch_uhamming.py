@@ -130,3 +130,92 @@ def test_uhamming_cli_matches_jax(uh_fasta, mode):
     _same_hmg(str(d / f"m{mode}_jax.hmg.npz"), str(d / f"m{mode}_torch.hmg.npz"))
     assert (d / f"m{mode}_jax.csv").read_bytes() == \
         (d / f"m{mode}_torch.csv").read_bytes()
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1_000])
+def test_pack_planes_round_trip(n):
+    """The kernel's bit planes hold each code's two bits, its N bit and
+    its valid bit at pad + p (top bit first); the padding reads N."""
+    import torch
+
+    from biokanga_tpu_torch.ops import uhamming_sweep as us
+
+    rng = np.random.default_rng(n)
+    codes = rng.integers(-1, 6, n).astype(np.int8)
+    valid = rng.random(n) < 0.7
+    pad = us.plane_pad(24)
+    planes = us.pack_planes(torch.from_numpy(codes), torch.from_numpy(valid),
+                            pad).numpy()
+    assert planes.shape == (4, (2 * pad + n + 31) // 32)
+    bits = np.unpackbits(planes.astype(">u4").view(np.uint8),
+                         axis=1).astype(bool)
+    body = slice(pad, pad + n)
+    is_n = (codes < 0) | (codes >= 4)
+    np.testing.assert_array_equal(bits[2, body], is_n)
+    np.testing.assert_array_equal(bits[3, body], valid)
+    c = np.where(is_n, 0, codes)
+    np.testing.assert_array_equal(bits[0, body], (c & 1).astype(bool))
+    np.testing.assert_array_equal(bits[1, body], (c >> 1).astype(bool))
+    outside = np.ones(bits.shape[1], bool)
+    outside[body] = False
+    assert bits[2, outside].all()
+    assert not bits[[0, 1, 3]][:, outside].any()
+
+
+def _palindrome_genome(K):
+    """Three entries, the second shorter than K, with N runs, an exact
+    repeat of the first window in the last entry and, at its end, a
+    K-window that is its own reverse complement (the cross sweep's
+    self-pair)."""
+    rng = np.random.default_rng(K)
+    n = 3 * K + 200
+    g = rng.integers(0, 4, n).astype(np.int8)
+    g[K + 60:K + 65] = 4
+    g[2 * K + 150:2 * K + 160] = 4
+    g[K + 140:2 * K + 140] = g[:K]
+    half = rng.integers(0, 4, K // 2).astype(np.int8)
+    g[n - K:] = np.concatenate([half, 3 - half[::-1]])
+    return g, np.array([0, K + 100, K + 130, n])
+
+
+@pytest.mark.parametrize("K", [32, 300])
+@pytest.mark.parametrize("include_rc", [False, True])
+def test_word_multiple_and_saturating_k_match_jax(K, include_rc):
+    """K a multiple of the 32-position word, and K past 255, where the
+    counts saturate; the cross sweep counts each unordered pair once
+    (the palindrome's self-pair too), as the JAX sweep's every shift
+    does."""
+    g, starts = _palindrome_genome(K)
+    want = juh.hamming_sweep(g, starts, K=K, include_rc=include_rc,
+                             block=256)
+    got = tuh.hamming_sweep(g, starts, K=K, include_rc=include_rc,
+                            device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert (got[starts[1]:starts[2]] == tuh.H_INVALID).all()
+    assert got[0] == 0
+    assert (got[len(g) - K] == 0) == include_rc
+
+
+def test_check_genome_of_the_card_check_matches_jax():
+    """The pair-once cross sweep against the JAX sweep's every shift at
+    the size the card check runs: chip_smoke.py phase 25's check genome
+    (6,080 bases in three entries, one shorter than K, Ns, exact, near
+    and reverse-complement repeats, a 300 bp palindrome), K 100, with the
+    reverse complement."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location("_chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    g, starts = cs._uh_check_genome()
+    want = juh.hamming_sweep(g, starts, K=cs.UH_K, include_rc=True,
+                             block=1024)
+    got = tuh.hamming_sweep(g, starts, K=cs.UH_K, include_rc=True,
+                            device="cpu")
+    np.testing.assert_array_equal(got, want)
+    at, ln = cs.UH_PALINDROME
+    assert got[at + (ln - cs.UH_K) // 2] == 0
+    assert got[200:401].max() == 0 and got[1_000:1_201].max() <= 3
