@@ -15,8 +15,15 @@ with every option: SNP calls, micro-indels, splice junctions, chimeric
 trims, the post-passes, BAM; bisulfite and colorspace reads), PacBio
 long-read error correction (`ecreads`, resumable too), `pbfilter` and
 `contigs`, de novo assembly (`assemb`, `scaffold`, `pescaffold`), the SW
-service (`swservice`), and the multi-device layer on torch.distributed
-(parallel/: the sharded aligner, multi-host input, `ec_reads(mesh=...)`).
+service (`swservice`), the multi-device layer on torch.distributed
+(parallel/: the sharded aligner, multi-host input, `ec_reads(mesh=...)`),
+the device tools (`uhamming`, `blitz`, `mergeoverlaps`,
+`findapproxmatches`, the marker tools, the simulators), and read
+preparation with the host tools: `filter` and `ngsqc` (whose contaminant
+vector screen runs the aligner on `--device`), `kangar`, `kangapr`,
+`filterreads`, `kmerdist`, the converters, the expression, zygosity and
+misc tools, and the SQLite loaders (80 of the JAX CLI's 109
+subcommands).
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,12 @@ bisulfite and colorspace), PacBio `ecreads`, `pbfilter`, `contigs` and
 `swservice`, and de novo assembly (`assemb`, `scaffold`, `pescaffold`);
 the tools and simulators of cli_tools.py (`simreads`, `uhamming`,
 `blitz`, `mergeoverlaps`, `findapproxmatches`, the marker tools,
-`rnafragsim`, `usimdiffexpr`, `kangarg`) join them in SUBCOMMANDS.
+`rnafragsim`, `usimdiffexpr`, `kangarg`) and the read preparation and
+host tools of cli_host.py (`filter`, `ngsqc`, `kangar`, the converters,
+the expression, zygosity and misc tools, the SQLite loaders) join them
+in SUBCOMMANDS.  `-v` prints the version; every subcommand but `index`
+and `align` (which log richer rows of their own) takes `-q DB`, which
+logs the run to SQLite as the JAX CLI's dispatch does.
 
 Usage:  python -m biokanga_tpu_torch index -i ref.fa -o ref.npz \
             [-m 0|1|2 -C -s <Mbp> --lut-bases 0 --chunks 0
@@ -56,6 +61,8 @@ import sys
 
 import numpy as np
 
+from . import __version__
+from .cli_host import HOST_SUBCOMMANDS
 from .cli_tools import TOOL_SUBCOMMANDS
 from .cli_tools import add_device as _add_device
 from .device import resolve_device
@@ -1231,15 +1238,69 @@ SUBCOMMANDS = {"index": cmd_index, "align": cmd_align,
                "ecreads": cmd_ecreads, "swservice": cmd_swservice,
                "pbfilter": cmd_pbfilter, "assemb": cmd_assemb,
                "scaffold": cmd_scaffold, "contigs": cmd_contigs,
-               "pescaffold": cmd_pescaffold, **TOOL_SUBCOMMANDS}
+               "pescaffold": cmd_pescaffold, **TOOL_SUBCOMMANDS,
+               **HOST_SUBCOMMANDS}
+
+# subcommands whose own parser defines -q/--sumrslts and logs a richer
+# row than the generic dispatch wrapper would
+_OWN_SUMRSLTS = {"index", "align"}
+
+
+def _extract_sumrslts(argv: list[str]):
+    """Pop a -q/--sumrslts DB path from a subcommand's argv (copy of
+    biokanga_tpu/cli.py:2904-2923; the reference's gExperimentID rows,
+    biokanga/biokanga.cpp:134-137)."""
+    out, db = [], None
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a in ("-q", "--sumrslts") and i + 1 < len(argv):
+            db = argv[i + 1]
+            i += 2
+            continue
+        if a.startswith("--sumrslts="):
+            db = a.split("=", 1)[1]
+            i += 1
+            continue
+        out.append(a)
+        i += 1
+    return out, db
 
 
 def main(argv: list[str] | None = None) -> int:
+    """Dispatch to a subcommand, after biokanga_tpu/cli.py:2926-2966:
+    `-v` prints the version, and every subcommand but `index` and `align`
+    takes `-q DB`, which logs the run (argv, result code, seconds)."""
     argv = _expand_response_files(list(sys.argv[1:] if argv is None else argv))
     if not argv or argv[0] in ("-h", "--help"):
-        print("biokanga-tpu-torch\nsubcommands: " + ", ".join(SUBCOMMANDS))
+        print(f"biokanga-tpu-torch {__version__}\nsubcommands: "
+              + ", ".join(SUBCOMMANDS))
         return 0
-    if argv[0] not in SUBCOMMANDS:
-        print(f"unknown subcommand '{argv[0]}'", file=sys.stderr)
+    if argv[0] in ("-v", "--version"):
+        print(__version__)
+        return 0
+    cmd = argv[0]
+    if cmd not in SUBCOMMANDS:
+        print(f"unknown subcommand '{cmd}'", file=sys.stderr)
         return 2
-    return SUBCOMMANDS[argv[0]](argv[1:])
+    sub_argv = argv[1:]
+    db_path = None
+    if cmd not in _OWN_SUMRSLTS:
+        sub_argv, db_path = _extract_sumrslts(sub_argv)
+    if db_path is None:
+        return SUBCOMMANDS[cmd](sub_argv)
+    import time
+
+    t0 = time.monotonic()
+    rc = 1
+    try:
+        rc = SUBCOMMANDS[cmd](sub_argv)
+        return rc
+    finally:
+        from .utils.sqlite_summaries import SQLiteSummaries
+
+        db = SQLiteSummaries(db_path)
+        db.log_run(cmd, {"argv": " ".join(sub_argv)},
+                   {"result_code": int(rc) if rc is not None else 0,
+                    "seconds": round(time.monotonic() - t0, 2)})
+        db.close()

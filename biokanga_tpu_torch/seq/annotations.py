@@ -1,13 +1,14 @@
-"""Copy of biokanga_tpu/seq/annotations.py: BED features and interval
-queries.
+"""Copy of biokanga_tpu/seq/annotations.py: BED (incl. BED12 exons),
+GFF3 and GTF parsers and interval queries.
 
 Parity role: CBEDfile (libbiokanga/BEDfile.cpp — feature/exon queries,
-BED12 exon blocks).  Only what `align -Y` uses is copied: `Feature`,
-`read_bed` and `FeatureIndex` (the GTF and GFF3 readers are not).
+spliced transcript support), CGFFFile, CGTFFile.  Host-side, returning
+numpy-backed feature tables ready for vectorised interval queries.
 """
 from __future__ import annotations
 
 import gzip
+import re
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -72,6 +73,64 @@ def read_bed(path: str) -> list[Feature]:
                 feat.attrs["thick_start"] = int(fl[6])
                 feat.attrs["thick_end"] = int(fl[7])
             out.append(feat)
+    return out
+
+
+_GTF_ATTR = re.compile(r'(\w+)\s+"([^"]*)"')
+_GFF_ATTR = re.compile(r"(\w+)=([^;]*)")
+
+
+def read_gtf(path: str, feature_types=("exon",)) -> list[Feature]:
+    """GTF exons grouped into transcripts (spliced features)."""
+    groups: dict[str, Feature] = {}
+    with _open(path) as f:
+        for line in f:
+            if not line.strip() or line.startswith("#"):
+                continue
+            fl = line.rstrip("\n").split("\t")
+            if len(fl) < 9 or fl[2] not in feature_types:
+                continue
+            attrs = dict(_GTF_ATTR.findall(fl[8]))
+            tid = attrs.get("transcript_id", attrs.get("gene_id", fl[8]))
+            s, e = int(fl[3]) - 1, int(fl[4])
+            g = groups.get(tid)
+            if g is None:
+                g = Feature(chrom=fl[0], start=s, end=e, name=tid,
+                            strand=fl[6], attrs=attrs)
+                g.exon_starts, g.exon_sizes = [], []
+                groups[tid] = g
+            g.start = min(g.start, s)
+            g.end = max(g.end, e)
+            g.exon_starts.append(s)
+            g.exon_sizes.append(e - s)
+    out = []
+    for g in groups.values():
+        order = np.argsort(g.exon_starts)
+        abs_starts = [g.exon_starts[i] for i in order]
+        g.exon_sizes = [g.exon_sizes[i] for i in order]
+        g.exon_starts = [s - g.start for s in abs_starts]
+        out.append(g)
+    out.sort(key=lambda x: (x.chrom, x.start))
+    return out
+
+
+def read_gff3(path: str, feature_types=("gene", "mRNA", "exon")) -> list[Feature]:
+    out = []
+    with _open(path) as f:
+        for line in f:
+            if not line.strip() or line.startswith("#"):
+                continue
+            fl = line.rstrip("\n").split("\t")
+            if len(fl) < 9 or fl[2] not in feature_types:
+                continue
+            attrs = dict(_GFF_ATTR.findall(fl[8]))
+            out.append(
+                Feature(
+                    chrom=fl[0], start=int(fl[3]) - 1, end=int(fl[4]),
+                    name=attrs.get("ID", attrs.get("Name", fl[8])),
+                    strand=fl[6], attrs=attrs,
+                )
+            )
     return out
 
 

@@ -1,4 +1,4 @@
-"""Copy of biokanga_tpu/seq/rds.py: reading the packed `.rds` container.
+"""Copy of biokanga_tpu/seq/rds.py: the packed `.rds` read container.
 
 Parity role: the reference's CProcRawReads `.rds` preprocessed-read files
 (libbiokanga/ProcRawReads.h:53,75 — V5/V6 records), produced by `kangar`
@@ -22,15 +22,31 @@ device layout.  Stored as a single .npz (zip) file:
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Iterator
 
 import numpy as np
 
 RDS_VERSION = 1
 FLAG_PE2 = 0x01
+FLAG_DUP = 0x02
+
+_WEIGHTS = np.array([1, 4, 16, 64], np.uint8)
+
+
+def pack_2bit(codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """codes int8 (0..3, 4=N) -> (packed uint8 4/byte, nmask packbits)."""
+    n = len(codes)
+    nmask = np.packbits(codes == 4)
+    c = np.where(codes == 4, 0, codes).astype(np.uint8)
+    pad = (-n) % 4
+    if pad:
+        c = np.concatenate([c, np.zeros(pad, np.uint8)])
+    packed = (c.reshape(-1, 4) * _WEIGHTS).sum(axis=1, dtype=np.uint8)
+    return packed, nmask
 
 
 def unpack_2bit(packed: np.ndarray, nmask: np.ndarray, n: int) -> np.ndarray:
-    """4 bases a byte (2 bits each) + packbits N mask -> int8 codes."""
+    """Inverse of pack_2bit -> int8 codes of length n."""
     c = ((packed[:, None] >> np.array([0, 2, 4, 6], np.uint8)) & 3)
     c = c.reshape(-1).astype(np.int8)[:n]
     isn = np.unpackbits(nmask)[:n].astype(bool)
@@ -44,6 +60,42 @@ class RDSInfo:
     n_reads: int
     total_bases: int
     is_pe: bool
+
+
+def write_rds(path: str, records, pe_interleaved: bool = False) -> int:
+    """records: iterable of (name, codes[, flags]).  Returns n written.
+
+    pe_interleaved: mark every odd record as the PE second mate
+    (the kangar PE layout — mates interleaved 5',3',5',3'...).
+    """
+    names: list[str] = []
+    chunks: list[np.ndarray] = []
+    lengths: list[int] = []
+    flags: list[int] = []
+    for i, rec in enumerate(records):
+        name, codes = rec[0], np.asarray(rec[1], np.int8)
+        fl = rec[2] if len(rec) > 2 else 0
+        if pe_interleaved and i % 2 == 1:
+            fl |= FLAG_PE2
+        names.append(name)
+        chunks.append(codes)
+        lengths.append(len(codes))
+        flags.append(fl)
+    allc = (np.concatenate(chunks) if chunks
+            else np.empty(0, np.int8))
+    packed, nmask = pack_2bit(allc)
+    offsets = np.zeros(len(lengths) + 1, np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    np.savez_compressed(
+        path,
+        meta=np.array([RDS_VERSION, len(names), len(allc)], np.int64),
+        packed=packed,
+        nmask=nmask,
+        offsets=offsets,
+        flags=np.array(flags, np.uint8),
+        names=np.frombuffer("\n".join(names).encode(), np.uint8),
+    )
+    return len(names)
 
 
 def is_rds(path: str) -> bool:
@@ -82,6 +134,13 @@ class RDSFile:
 
     def lengths(self) -> np.ndarray:
         return np.diff(self.offsets).astype(np.int32)
+
+    def read(self, i: int) -> np.ndarray:
+        return self.codes[self.offsets[i]: self.offsets[i + 1]]
+
+    def records(self) -> Iterator[tuple[str, np.ndarray, int]]:
+        for i in range(self.n_reads):
+            yield self.names[i], self.read(i), int(self.flags[i])
 
 
 def read_rds_blocks(path: str, block_size: int = 4096,

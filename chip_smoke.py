@@ -196,19 +196,30 @@ Phases, each of which raises on failure:
  28. the flagship flow in the port alone: `simreads -H <phase 25's .hmg>
      -N 1000 -X 0.05 -g dyn --pe` (65,536 pairs) on the 1 Mbp genome,
      `index`, `align -u` on the card: proper-pair and at-origin shares,
-     split by the source window's min-Hamming (0 against > 0).
+     split by the source window's min-Hamming (0 against > 0);
+ 29. read preparation: 262,144 pairs of 2 x 100 bp from the 4.6 Mbp
+     genome (tests/readprep_reads.py: 3% adapter read-through, 1% pairs
+     from a 6 kb cloning vector, 5% exact and 1% near duplicates) through
+     `filter -c --near-dedupe` and `ngsqc -c` on the card, whose vector
+     screen aligns every block against the vectors (#1-#3): the walls,
+     the screen's share, the card's idle share of the filter wall,
+     launches, >= 0.99 of the vector pairs rejected and >= 0.95 of the
+     adapter reads trimmed; the screen's engine result on one block
+     equal on the card and the CPU; the first 16,384 pairs (two full
+     blocks) and 8,292 pairs (a partial block) byte for byte against
+     --device cpu children.
 Phases 16 and 17 run on the card right after phase 6, and 21-22 after
 them; their --device cpu child processes go on beside the phases that
-follow and are compared after phase 18 (16-17) and at the end (21-28).
+follow and are compared after phase 18 (16-17) and at the end (21-29).
 Phase 20 runs right after phase 3, 23 after phase 13, 24 after 18 and
-25-28 after 24.
+25-29 after 24.
 Phase 3 also holds the extension kernel at the orphan rescue's shape
 (2,048 windows of 500 consecutive loci, some off the genome's ends).
 The kernels line gives #1-#3 their launches on every path above, #3w
 its launches on the assembly cell, #7 on phase 25's 1 Mbp and node
 sweeps, #8 on phase 26's CLI run, every kernel its launches on phase
 19's sharded, EC-mesh and swservice paths (summed over the ranks), and
-on the paths of phases 21-24 where it ran.
+on the paths of phases 21-24, 28 and 29 where it ran.
 The last two lines are a JSON object per kernel and the result line.
 Exits non-zero without CUDA or outside the repository.  Needs one card.
 
@@ -386,6 +397,11 @@ FA_QUERIES, FA_LEN, FA_MM, FA_PARITY_BP = 256, 23, 2, 262_144
 NW_PAIRS, NW_LEN = 4_096, 150
 # the flagship flow in the port alone (phase 28)
 FL_PAIRS = 65_536
+# read preparation (phase 29): tests/readprep_reads.py's TruSeq-style PE
+# library from the 4.6 Mbp genome; the first two blocks of `filter`, and
+# a block and 100 pairs, against --device cpu children
+RP_PAIRS, RP_SEED = N_READS, 29
+RP_PARITY = (16_384, 8_292)
 
 # least-time bounds (NVIDIA H100 SXM data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
@@ -4496,6 +4512,153 @@ def flagship_cell(dev, smi):
     return {"launches": launches, "shares": shares}
 
 
+def _rp_argv(stem: str, tag: str) -> dict:
+    """Phase 29's `filter` and `ngsqc` argv on WORK/<stem>_{1,2}.fq, their
+    outputs named <stem>_<tag>."""
+    w = str(WORK)
+    contam = f"{w}/rp_contam.fa"
+    return {"filter": ["filter", "-i", f"{w}/{stem}_1.fq", "-u",
+                       f"{w}/{stem}_2.fq", "-o", f"{w}/{stem}_{tag}_1.fq",
+                       "-U", f"{w}/{stem}_{tag}_2.fq", "-c", contam,
+                       "--near-dedupe"],
+            "ngsqc": ["ngsqc", "-i", f"{w}/{stem}_1.fq", "-o",
+                      f"{w}/{stem}_{tag}.html", "-c", contam]}
+
+
+def readprep_cell(seqs, dev, smi):
+    """Phase 29: read preparation on the card.  RP_PAIRS pairs of 2 x 100
+    bp of tests/readprep_reads.py (3% adapter read-through of 20-60 bases,
+    1% cloning-vector pairs, 5% exact and 1% near duplicates, 1%
+    substitutions) from the 4.6 Mbp genome through `filter -c
+    --near-dedupe` and `ngsqc -c` with --device cuda: their walls, the
+    vector screen's time (Contaminants.match_vectors between
+    synchronisations), the card's idle share of the filter wall (device
+    time under torch.profiler), the launches of #1-#3 in each run, and
+    the planted vector pairs rejected and adapter reads trimmed against
+    the bars the JAX package reaches (tests/test_torch_readprep.py); the
+    vector screen's engine result on one block equal on the card and the
+    CPU; the first RP_PARITY pairs against --device cpu children."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from biokanga_tpu_torch.align.pipeline import pad_rows
+    from biokanga_tpu_torch.seq import contaminants
+    from biokanga_tpu_torch.seq.fasta import write_fasta
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import readprep_reads as rp
+
+    t0 = time.monotonic()
+    names, r1, r2, lengths = rp.library(seqs[0][1], RP_PAIRS, seed=RP_SEED)
+    for m, r in ((1, r1), (2, r2)):
+        _write_fastq(WORK / f"rp_{m}.fq", names, r)
+        for n in RP_PARITY:
+            _write_fastq(WORK / f"rp{n}_{m}.fq", names[:n], r[:n])
+    write_fasta(str(WORK / "rp_contam.fa"), rp.contaminant_entries(RP_SEED))
+    make_s = time.monotonic() - t0
+    children = {}
+    for n in RP_PARITY:
+        for cmd, argv in _rp_argv(f"rp{n}", "cpu").items():
+            children[f"rp{n}_{cmd}_cpu"] = _cpu_child(argv,
+                                                      f"rp{n}_{cmd}_cpu")
+
+    screen = {"s": 0.0, "calls": 0}
+    plain_match = contaminants.Contaminants.match_vectors
+
+    def timed_match(self, *a, **k):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = plain_match(self, *a, **k)
+        torch.cuda.synchronize()
+        screen["s"] += time.monotonic() - t
+        screen["calls"] += 1
+        return out
+
+    cuda = ["--device", "cuda"]
+    contaminants.Contaminants.match_vectors = timed_match
+    try:
+        _reset_kernel_launches()
+        t0 = time.monotonic()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall_f = _timed_cli(_rp_argv("rp", "cuda")["filter"] + cuda)
+        launches_f = _align_launches()
+        busy_ms = sum(e.device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        prof_s = time.monotonic() - t0 - wall_f
+        screen_f = dict(screen)
+        screen.update(s=0.0, calls=0)
+        _reset_kernel_launches()
+        wall_q = _timed_cli(_rp_argv("rp", "cuda")["ngsqc"] + cuda)
+        launches_q = _align_launches()
+        screen_q = dict(screen)
+        t0 = time.monotonic()
+        for n in RP_PARITY:
+            for argv in _rp_argv(f"rp{n}", "cuda").values():
+                _timed_cli(argv + cuda)
+        heads_s = time.monotonic() - t0
+    finally:
+        contaminants.Contaminants.match_vectors = plain_match
+    if min(launches_f.values()) < 1 or min(launches_q.values()) < 1:
+        raise AssertionError(f"phase 29: kernels not launched: {launches_f}"
+                             f", {launches_q}")
+    idle = 1.0 - busy_ms / 1e3 / wall_f if busy_ms > 0 else None
+    shares = rp.planted_shares(names,
+                               rp.fastq_name_lengths(WORK / "rp_cuda_1.fq"))
+    print(f"read preparation, {RP_PAIRS} pairs of 2 x {rp.READ_LEN} bp "
+          f"(library made and written in {make_s:.2f} s): filter -c "
+          f"--near-dedupe --device cuda {wall_f:.2f} s (under the profiler, "
+          f"whose own {prof_s:.2f} s follow), "
+          f"vector screen {screen_f['s']:.3f} s in {screen_f['calls']} calls, "
+          f"the rest {wall_f - screen_f['s']:.2f} s; device busy "
+          f"{busy_ms:.1f} ms, idle share "
+          f"{'not measured' if idle is None else f'{idle:.4f}'}; launches "
+          f"{launches_f}; ngsqc -c {wall_q:.2f} s, vector screen "
+          f"{screen_q['s']:.3f} s in {screen_q['calls']} calls, launches "
+          f"{launches_q}; the parity heads on the card {heads_s:.2f} s; "
+          f"vector pairs rejected "
+          f"{shares['vector_rejected']:.4f} of {shares['n_vector']} (bar "
+          f"{rp.MIN_VECTOR_REJECTED}), adapter reads trimmed "
+          f"{shares['adapter_trimmed']:.4f} of {shares['n_adapter']} (bar "
+          f"{rp.MIN_ADAPTER_TRIMMED}) ({smi})")
+    if (shares["vector_rejected"] < rp.MIN_VECTOR_REJECTED
+            or shares["adapter_trimmed"] < rp.MIN_ADAPTER_TRIMMED):
+        raise AssertionError(f"phase 29: planted shares {shares}")
+
+    # the screen's engine on the first block of read 1, card against CPU
+    r, ln = pad_rows(r1[:8_192], lengths[:8_192])
+    res = {}
+    for d in (torch.device("cpu"), dev):
+        db = contaminants.Contaminants.load(str(WORK / "rp_contam.fa"), d)
+        res[d.type] = db._vector_engine()[0].align_with_rescue(r, ln)
+    keys = [k for k, v in res["cpu"].items() if isinstance(v, np.ndarray)]
+    bad = [k for k in keys if not np.array_equal(res["cpu"][k],
+                                                 res["cuda"][k])]
+    if bad or not res["cuda"]["any_hit"].any():
+        raise AssertionError(f"phase 29: vector screen engine differs: {bad}")
+    print(f"vector screen engine on 8,192 reads: {len(keys)} fields equal "
+          f"on the card and the CPU, {int(res['cuda']['any_hit'].sum())} "
+          f"reads in a vector")
+    return {"children": children, "launches": launches_f,
+            "launches_ngsqc": launches_q}
+
+
+def _readprep_finish(run) -> None:
+    for tag, proc in run["children"].items():
+        _wait_child(proc, tag)
+    n_files = 0
+    for n in RP_PARITY:
+        for out in ("_1.fq", "_2.fq", ".html"):
+            a = (WORK / f"rp{n}_cpu{out}").read_bytes()
+            if a != (WORK / f"rp{n}_cuda{out}").read_bytes():
+                raise AssertionError(f"phase 29: rp{n}{out} differs cpu vs "
+                                     f"cuda")
+            n_files += 1
+    print(f"filter -c --near-dedupe and ngsqc -c on {RP_PARITY[0]} and "
+          f"{RP_PARITY[1]} pairs: --device cpu == --device cuda byte for "
+          f"byte ({n_files} files)")
+
+
 def main() -> int:
     import torch
 
@@ -4756,6 +4919,10 @@ def main() -> int:
     lap("27")
     flagship = flagship_cell(dev, smi)
     lap("28")
+    # 29. read preparation: filter and ngsqc with the vector screen, #1-#3
+    # counted on each; their --device cpu runs are child processes
+    rp_run = readprep_cell(seqs, dev, smi)
+    lap("29")
 
     # 16-17, end: the CPU runs against the card's; LongReadAligner
     chunked_cli_finish(ck_runs)
@@ -4776,8 +4943,11 @@ def main() -> int:
     _uh_finish(uh_run)
     _bz_finish(bz_run)
     _other_tools_finish(tools_run)
-    lap("21-28, end")
+    _readprep_finish(rp_run)
+    lap("21-29, end")
     new_paths = {"launches_flagship": flagship["launches"],
+                 "launches_filter": rp_run["launches"],
+                 "launches_ngsqc": rp_run["launches_ngsqc"],
                  "launches_bisulfite": bs_run["launches"],
                  "launches_colorspace": cs_run["launches"],
                  "launches_contigs": pb_run["ctg_launches"],

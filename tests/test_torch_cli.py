@@ -13,7 +13,10 @@ SW bands past 255; the FASTA files must be byte-identical.  The port runs with `
 its kernels' plain versions.  A subprocess run shows the port's CLI never
 imports jax, and a scan of the sources that no module of the port, and
 not chip_smoke.py, profile_torch.py or the port's probe, SASS, bench and
-multi-host scripts, imports jax or the JAX package.
+multi-host scripts, imports jax or the JAX package.  The dispatch: `-v`,
+and `-q DB` on the subcommands without their own (the JAX CLI's row),
+while `index` and `align` keep theirs; `cuda` without a card raises
+for `align`, `filter -c` and `ngsqc -c`.
 """
 import ast
 import functools
@@ -33,6 +36,7 @@ from biokanga_tpu.seq.fasta import write_fasta, write_fastq
 from biokanga_tpu.seq.rds import write_rds
 from biokanga_tpu.sim.simreads import random_genome, simulate_reads
 from biokanga_tpu_torch.cli import main as torch_main
+from cli_parity import assert_same_outputs, sqlite_rows
 
 torch.set_num_threads(2)
 
@@ -107,6 +111,18 @@ def test_cuda_is_never_replaced_by_the_cpu(inputs, monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         torch_main(["align", "-i", str(d / "reads.fq"), "-I",
                     str(d / "ref.npz"), "-o", str(d / "x.sam")])
+    # filter -c and ngsqc -c screen vectors with the aligner on --device
+    write_fasta(str(d / "contam.fa"),
+                [("adp@3", np.array([0, 2, 0, 3, 1, 2, 2] * 3, np.int8)),
+                 ("vec&12", random_genome([("v", 400)], seed=3)[0][1])])
+    for argv in (["filter", "-i", str(d / "reads.fq"), "-o",
+                  str(d / "x.fq")],
+                 ["ngsqc", "-i", str(d / "reads.fq"), "-o",
+                  str(d / "x.html")]):
+        for device in ([], ["--device", "cuda"]):
+            with pytest.raises(RuntimeError, match="is_available"):
+                torch_main(argv + ["-c", str(d / "contam.fa")] + device)
+    assert not (d / "x.fq").exists() and not (d / "x.html").exists()
 
 
 @pytest.fixture(scope="module")
@@ -387,9 +403,101 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
               root / "scripts" / "bench_tools_torch.py",
               root / "scripts" / "multihost_dryrun_torch.py",
               root / "tests" / "bs_reads.py",
-              root / "tests" / "win_edge_cases.py"]
+              root / "tests" / "win_edge_cases.py",
+              root / "tests" / "readprep_reads.py"]
     assert len(files) > 30
     bad = [(str(f.relative_to(root)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "biokanga_tpu")]
     assert not bad, bad
+
+
+def test_version_flag(capsys):
+    for flag in ("-v", "--version"):
+        assert jax_main([flag]) == 0
+        want = capsys.readouterr().out
+        assert torch_main([flag]) == 0
+        assert capsys.readouterr().out == want == "0.1.0\n"
+    assert torch_main([]) == 0
+    listed = capsys.readouterr().out.split("subcommands: ")[1].split(", ")
+    assert len(listed) == 80
+
+
+@pytest.mark.parametrize("case", ["kangarg", "uhamming", "filter",
+                                  "fasta2nxx", "argparse-error"])
+def test_dispatch_logs_the_jax_cli_sumrslts_row(inputs, tmp_path, capsys,
+                                                monkeypatch, case):
+    """`-q DB` (or `--sumrslts=DB`) anywhere in a subcommand's argv, for
+    every subcommand but index and align: the row of the JAX CLI's
+    dispatch, outside the time fields; the port's row differs only by the
+    `--device cpu` its device commands are given."""
+    d = inputs
+    fa = str(d / "ref.fa")
+    argv, device = {
+        "kangarg": (["kangarg", "-i", fa, "-q", "run.db", "-o", "o.fa",
+                     "-k", "3"], False),
+        "uhamming": (["uhamming", "-i", str(d / "small.fa"), "-o",
+                      "o.hmg.npz", "-K", "24", "--sumrslts=run.db"], True),
+        "filter": (["filter", "-q", "run.db", "-i", str(d / "reads.fq"),
+                    "-o", "o.fq", "-c", str(d / "qc_contam.fa")], True),
+        "fasta2nxx": (["fasta2nxx", "-i", fa, "-q", "run.db"], False),
+        "argparse-error": (["xfasta", "-i", fa, "-q", "run.db"], False),
+    }[case]
+    if case == "uhamming":
+        write_fasta(str(d / "small.fa"),
+                    random_genome([("u", 1_500)], seed=4))
+    if case == "filter":
+        write_fasta(str(d / "qc_contam.fa"),
+                    [("vec&1", random_genome([("v", 300)], seed=5)[0][1])])
+    extra = ["--device", "cpu"] if device else []
+    outs = {}
+    for who, main, more in (("jax", jax_main, []),
+                            ("torch", torch_main, extra)):
+        (tmp_path / who).mkdir()
+        monkeypatch.chdir(tmp_path / who)
+        capsys.readouterr()
+        if case == "argparse-error":      # -o missing: rc 1 is logged
+            with pytest.raises(SystemExit):
+                main(argv + more)
+        else:
+            assert main(argv + more) == 0
+        outs[who] = capsys.readouterr().out
+    assert outs["jax"] == outs["torch"]
+    rows = {who: sqlite_rows(tmp_path / who / "run.db")
+            for who in ("jax", "torch")}
+    cols, params = rows["torch"]["TblParameters"]
+    k = cols.index("ParamValue")
+    rows["torch"]["TblParameters"] = (cols, [
+        r[:k] + (r[k].replace(" --device cpu", ""),) + r[k + 1:]
+        for r in params])
+    assert rows["torch"] == rows["jax"]
+    assert rows["jax"]["TblProcesses"][1][0][2] == argv[0]
+    results = dict(r[3:5] for r in rows["jax"]["TblResults"][1])
+    assert results["result_code"] == (
+        "1" if case == "argparse-error" else "0")
+    if case not in ("argparse-error", "fasta2nxx"):      # fasta2nxx: stdout
+        for who in ("jax", "torch"):
+            (tmp_path / who / "run.db").unlink()
+        assert_same_outputs(tmp_path / "jax", tmp_path / "torch")
+
+
+def test_index_and_align_keep_their_own_sumrslts(inputs, tmp_path):
+    """The dispatch leaves -q to index and align, whose rows hold their
+    own parameters and results (tests/test_torch_index.py and
+    test_torch_align_options.py hold those rows against the JAX CLI)."""
+    from biokanga_tpu_torch.cli import _OWN_SUMRSLTS
+
+    assert _OWN_SUMRSLTS == {"index", "align"}
+    d = inputs
+    db = tmp_path / "run.db"
+    assert torch_main(["index", "-i", str(d / "ref.fa"), "-o",
+                       str(tmp_path / "i.npz"), "--lut-bases", "8", "-q",
+                       str(db)]) == 0
+    assert torch_main(["align", "-i", str(d / "reads.fq"), "-I",
+                       str(d / "ref.npz"), "-o", str(tmp_path / "a.sam"),
+                       "--device", "cpu", "-q", str(db)]) == 0
+    rows = sqlite_rows(db)
+    assert [r[2] for r in rows["TblProcesses"][1]] == ["index", "align"]
+    names = {r[3] for r in rows["TblParameters"][1]}
+    assert "argv" not in names
+    assert "total_bp" in {r[3] for r in rows["TblResults"][1]}

@@ -21,7 +21,9 @@ tests/win_edge_cases.py, the pair sort its plain version past 16,384
 pairs, and the bisulfite and colorspace CLI and the scaled assembly on
 the card equal the CPU's; the uhamming sweep (#7) and the blitz chain DP
 (#8) equal their plain versions, and `uhamming`, `blitz`,
-`mergeoverlaps` and `findapproxmatches` on the card equal the CPU's.
+`mergeoverlaps` and `findapproxmatches` on the card equal the CPU's; the
+contaminant vector screen on two full blocks and a partial one, and
+`filter -c` and `ngsqc -c`, on the card equal the CPU's.
 """
 import numpy as np
 import pytest
@@ -1214,3 +1216,68 @@ def test_tools_cli_on_the_card_equal_cpu(cuda_device, tmp_path):
                         + [str(tmp_path / f"{d}_{out}"), "--device", d]) == 0
         assert (tmp_path / f"cpu_{out}").read_bytes() == \
             (tmp_path / f"cuda_{out}").read_bytes()
+
+
+@pytest.mark.cuda
+def test_vector_screen_on_the_card_equals_cpu(cuda_device, tmp_path):
+    """Contaminants.match_vectors on two full blocks of 8,192 reads and a
+    partial one (the last block of `filter -c` pads to 128 rows), both
+    mates, against its CPU run; the card launches #1-#3 on every block."""
+    import readprep_reads as rp
+    from biokanga_tpu_torch.seq.contaminants import Contaminants
+    from biokanga_tpu_torch.seq.fasta import write_fasta
+    from biokanga_tpu_torch.sim.simreads import random_genome
+
+    g = random_genome([("chr", 300_000)], seed=81)[0][1]
+    _, r1, r2, ln = rp.library(g, 2 * 8_192 + 100, seed=82)
+    write_fasta(str(tmp_path / "c.fa"), rp.contaminant_entries(82))
+    dbs = {dev: Contaminants.load(str(tmp_path / "c.fa"), dev)
+           for dev in ("cpu", cuda_device)}
+    for s, e in ((0, 8_192), (8_192, 16_384), (16_384, 16_484)):
+        for mate, reads in enumerate((r1, r2)):
+            want = dbs["cpu"].match_vectors(reads[s:e], ln[s:e],
+                                            is_pe2=bool(mate))
+            before = (sort.sort_rows.launches, sort.sort2_rows.launches,
+                      ep.hamming_extend_packed.launches)
+            got = dbs[cuda_device].match_vectors(reads[s:e], ln[s:e],
+                                                 is_pe2=bool(mate))
+            after = (sort.sort_rows.launches, sort.sort2_rows.launches,
+                     ep.hamming_extend_packed.launches)
+            assert np.array_equal(got, want)
+            assert all(a > b for a, b in zip(after, before))
+    assert dbs["cpu"].report_rows() == dbs[cuda_device].report_rows()
+    assert dbs["cpu"].vectors[0].hit_tot > 100
+
+
+@pytest.mark.cuda
+def test_filter_and_ngsqc_on_the_card_equal_cpu(cuda_device, tmp_path):
+    """`filter -c --near-dedupe` (PE) and `ngsqc -c` on 8,292 planted
+    pairs (a full block and a partial one) with --device cuda against
+    --device cpu, byte for byte."""
+    import readprep_reads as rp
+    from biokanga_tpu_torch.cli import main
+    from biokanga_tpu_torch.seq.fasta import write_fasta, write_fastq
+    from biokanga_tpu_torch.sim.simreads import random_genome
+
+    g = random_genome([("chr", 300_000)], seed=83)[0][1]
+    names, r1, r2, _ = rp.library(g, 8_292, seed=84)
+    for m, r in ((1, r1), (2, r2)):
+        write_fastq(str(tmp_path / f"r{m}.fq"),
+                    ((n, c, None) for n, c in zip(names, r)))
+    write_fasta(str(tmp_path / "c.fa"), rp.contaminant_entries(84))
+    for d in ("cpu", "cuda"):
+        assert main(["filter", "-i", str(tmp_path / "r1.fq"), "-u",
+                     str(tmp_path / "r2.fq"), "-o",
+                     str(tmp_path / f"{d}_1.fq"), "-U",
+                     str(tmp_path / f"{d}_2.fq"), "-c", str(tmp_path / "c.fa"),
+                     "--near-dedupe", "--device", d]) == 0
+        assert main(["ngsqc", "-i", str(tmp_path / "r1.fq"), "-o",
+                     str(tmp_path / f"{d}.html"), "-c",
+                     str(tmp_path / "c.fa"), "--device", d]) == 0
+    for out in ("_1.fq", "_2.fq", ".html"):
+        assert (tmp_path / f"cpu{out}").read_bytes() == \
+            (tmp_path / f"cuda{out}").read_bytes()
+    shares = rp.planted_shares(names,
+                               rp.fastq_name_lengths(tmp_path / "cuda_1.fq"))
+    assert shares["vector_rejected"] >= rp.MIN_VECTOR_REJECTED
+    assert shares["adapter_trimmed"] >= rp.MIN_ADAPTER_TRIMMED
