@@ -22,8 +22,10 @@ the device tools (`uhamming`, `blitz`, `mergeoverlaps`,
 preparation with the host tools: `filter` and `ngsqc` (whose contaminant
 vector screen runs the aligner on `--device`), `kangar`, `kangapr`,
 `filterreads`, `kmerdist`, the converters, the expression, zygosity and
-misc tools, and the SQLite loaders (80 of the JAX CLI's 109
-subcommands).
+misc tools, the SQLite loaders, and the chromatin structure,
+conservation and GO families (`predconfnucs` and `genstructprofile`
+gather their octamer profiles on `--device`): 108 of the JAX CLI's 109
+subcommands, all but `eccontigs`.
 """
 
 __version__ = "0.1.0"

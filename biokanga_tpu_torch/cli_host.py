@@ -5,13 +5,15 @@ biokanga_tpu/cli.py: `fasta2nxx`, `xfasta`, `pseudogenome` (:944-1001),
 (:1461-1503), `kmerdist`, `kangar`, `kangapr`, `filterreads`
 (:1702-1890), the converter table and the misc tools (:1981-2187),
 `csv2sqlite`, `alignvalidate` (:2188, :2254), `genzygosity` and
-`alignsbs` (:2487, :2521).
+`alignsbs` (:2487, :2521), and the chromatin/structure, conservation and
+GO families (:2552-2785).
 
 Each writes the files of the same subcommand of `python -m biokanga_tpu`
-on the same inputs.  All are host numpy but `filter -c` and `ngsqc -c`:
-their contaminant database screens reads against its vectors with the
-aligner on `--device` (default cuda, which raises without CUDA; cpu runs
-the kernels' plain versions).
+on the same inputs.  All are host numpy but `filter -c` and `ngsqc -c`,
+whose contaminant database screens reads against its vectors with the
+aligner on `--device`, and `predconfnucs` and `genstructprofile`, which
+gather their conformation profiles on `--device` (default cuda, which
+raises without CUDA; cpu runs the plain versions).
 """
 from __future__ import annotations
 
@@ -546,13 +548,16 @@ def cmd_filterreads(argv):
 
 
 def _simple_cmd(fn_name, arg_specs, result_fmt="{n} records",
-                module="converters"):
-    """Factory for thin converter subcommands over tools/ modules."""
+                module="converters", device=False):
+    """Factory for thin converter subcommands over tools/ modules; with
+    `device`, the subcommand also takes --device and passes it on."""
 
     def cmd(argv):
         p = argparse.ArgumentParser(prog=f"biokanga-tpu-torch {fn_name}")
         for flags, kw in arg_specs:
             p.add_argument(*flags, **kw)
+        if device:
+            add_device(p)
         args = p.parse_args(argv)
         import importlib
 
@@ -947,6 +952,237 @@ def cmd_alignsbs(argv):
 
 
 # --------------------------------------------- chromatin/structure family --
+# (biokanga_tpu/cli.py:2552-2785; per-tool reference citations in
+# tools/chromatin_tools.py, tools/conservation.py and tools/go_tools.py)
+
+cmd_dnasitepotential = _simple_cmd(
+    "dna_site_potential",
+    [(("-i", "--reads-path"), dict(required=True)),
+     (("-I", "--genome-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-s", "--strand"), dict(default=None, choices=("+", "-")))],
+    "{n} octamer rows", "chromatin_tools")
+cmd_rnasitepotential = _simple_cmd(
+    "rna_site_potential",
+    [(("-i", "--reads-path"), dict(required=True)),
+     (("-I", "--genome-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-s", "--strand"), dict(default=None, choices=("+", "-")))],
+    "{n} octamer rows", "chromatin_tools")
+cmd_simulatemnase = _simple_cmd(
+    "simulate_mnase",
+    [(("-i", "--genome-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-I", "--prefs-path"), dict(default=None)),
+     (("-m", "--mode"), dict(type=int, default=0, choices=(0, 1, 2))),
+     (("-n", "--numreads"), dict(type=int, default=10000)),
+     (("-l", "--readlen"), dict(type=int, default=36)),
+     (("-c", "--cutmin"), dict(type=int, default=122)),
+     (("-C", "--cutmax"), dict(type=int, default=172)),
+     (("-s", "--strand"), dict(default=None, choices=("+", "-"))),
+     (("--seed",), dict(type=int, default=1))],
+    "{n} simulated MNase reads", "chromatin_tools")
+cmd_prednucleosomes = _simple_cmd(
+    "pred_nucleosomes",
+    [(("-i", "--reads-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-g", "--genome-path"), dict(default=None)),
+     (("-I", "--prefs-path"), dict(default=None)),
+     (("-M", "--fmt"), dict(type=int, default=0)),
+     (("-a", "--movavg"), dict(type=int, default=10)),
+     (("-A", "--basewin"), dict(type=int, default=250)),
+     (("-t", "--title"), dict(default="prednucs")),
+     (("--min-score",), dict(type=float, default=1.0))],
+    "{n} track rows", "chromatin_tools")
+cmd_predconfnucs = _simple_cmd(
+    "pred_conf_nucs",
+    [(("-i", "--genome-path"), dict(required=True)),
+     (("-I", "--conf-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-M", "--fmt"), dict(type=int, default=0)),
+     (("-a", "--movavg"), dict(type=int, default=10)),
+     (("-A", "--basewin"), dict(type=int, default=250)),
+     (("-t", "--title"), dict(default="confnucs"))],
+    "{n} track rows", "chromatin_tools", device=True)
+cmd_genstructprofile = _simple_cmd(
+    "gen_struct_profile",
+    [(("-i", "--fasta-path"), dict(required=True)),
+     (("-p", "--params-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("--param",), dict(default="minorgroove")),
+     (("-T", "--trunclength"), dict(type=int, default=147)),
+     (("-u", "--ofsstart"), dict(type=int, default=0)),
+     (("-n", "--nsamples"), dict(type=int, default=0))],
+    "{n} profiles", "chromatin_tools", device=True)
+cmd_genstructstats = _simple_cmd(
+    "gen_struct_stats",
+    [(("-i", "--params-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-s", "--sort-flanking"), dict(action="store_true"))],
+    "{n} octamer rows", "chromatin_tools")
+cmd_gennucstats = _simple_cmd(
+    "gen_nuc_stats",
+    [(("-i", "--bkg-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-I", "--sample-path"), dict(default=None)),
+     (("-b", "--bkgdyadofs"), dict(type=int, default=73)),
+     (("-s", "--smpldyadofs"), dict(type=int, default=73)),
+     (("-w", "--winddyad"), dict(type=int, default=5))],
+    "{n} dyads", "chromatin_tools")
+cmd_gencomposition = _simple_cmd(
+    "gen_composition",
+    [(("-i", "--genome-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-n", "--nmer"), dict(type=int, default=2))],
+    "{n} composition rows", "chromatin_tools")
+cmd_gencentroidmetrics = _simple_cmd(
+    "gen_centroid_metrics",
+    [(("-i", "--algn-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-n", "--nmer"), dict(type=int, default=5)),
+     (("-r", "--ref-species"), dict(default=None))],
+    "{n} oligo rows", "chromatin_tools")
+cmd_proccentroids = _simple_cmd(
+    "proc_centroids",
+    [(("-i", "--inpath"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-m", "--mode"), dict(type=int, default=0))],
+    "{n} centroid rows", "chromatin_tools")
+
+
+# --------------------------------------------------- conservation family --
+# (SURVEY §2.6 comparative-genomics/conservation tools; per-tool reference
+# citations in tools/conservation.py)
+
+cmd_genhyperconserved = _simple_cmd(
+    "gen_hyperconserved",
+    [(("-i", "--algn-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-O", "--cores-path"), dict(default=None)),
+     (("-r", "--ref-species"), dict(default=None)),
+     (("-s", "--species"), dict(action="append", default=None)),
+     (("-y", "--min-ident"), dict(type=int, default=90)),
+     (("-n", "--min-ultra-len"), dict(type=int, default=50)),
+     (("-N", "--min-hyper-len"), dict(type=int, default=0)),
+     (("-X", "--max-mismatches"), dict(type=int, default=100)),
+     (("-j", "--indels-as-mismatches"), dict(action="store_true")),
+     (("-k", "--slough-ref-indels"), dict(action="store_true"))],
+    "{n} conserved elements", "conservation")
+cmd_genultras = _simple_cmd(
+    "gen_ultras",
+    [(("-i", "--algn-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-O", "--cores-path"), dict(default=None)),
+     (("-r", "--ref-species"), dict(default=None)),
+     (("-s", "--species"), dict(action="append", default=None)),
+     (("-n", "--min-ultra-len"), dict(type=int, default=50))],
+    "{n} ultra elements", "conservation")
+cmd_genhyperdropouts = _simple_cmd(
+    "gen_hyperdropouts",
+    [(("-i", "--ref-path"), dict(required=True)),
+     (("-I", "--rel-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-p", "--mode"), dict(type=int, default=0, choices=(0, 1, 2, 3)))],
+    "{n} elements", "conservation")
+cmd_genalignstats = _simple_cmd(
+    "gen_align_stats",
+    [(("-i", "--algn-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True))],
+    "{n} species rows", "conservation")
+cmd_genalignconf = _simple_cmd(
+    "gen_align_conf",
+    [(("-i", "--algn-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-m", "--mode"), dict(type=int, default=0, choices=(0, 1, 2)))],
+    "{n} blocks", "conservation")
+cmd_genalignref2relloci = _simple_cmd(
+    "gen_align_ref2relloci",
+    [(("-i", "--loci-path"), dict(required=True)),
+     (("-I", "--algn-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-r", "--ref-species"), dict(default=None))],
+    "{n} mapped loci", "conservation")
+cmd_genalignloci2core = _simple_cmd(
+    "gen_align_loci2core",
+    [(("-i", "--loci-path"), dict(required=True)),
+     (("-I", "--algn-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-d", "--dist-segs"), dict(type=int, default=10))],
+    "{n} profile rows", "conservation")
+cmd_loci2phylip = _simple_cmd(
+    "loci2phylip",
+    [(("-i", "--loci-path"), dict(required=True)),
+     (("-I", "--algn-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-x", "--mode"), dict(type=int, default=0, choices=(0, 1)))],
+    "{n} phylip blocks", "conservation")
+cmd_genrollups = _simple_cmd(
+    "gen_rollups",
+    [(("-i", "--inpaths"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-m", "--mode"), dict(type=int, default=0))],
+    "{n} files rolled up", "conservation")
+cmd_genelementseq = _simple_cmd(
+    "gen_element_seq",
+    [(("-i", "--loci-path"), dict(required=True)),
+     (("-I", "--genome-path"), dict(required=True)),
+     (("-o", "--out-fasta"), dict(required=True)),
+     (("-f", "--flank"), dict(type=int, default=0))],
+    "{n} element sequences", "conservation")
+cmd_genloci2gene = _simple_cmd(
+    "gen_loci2gene",
+    [(("-i", "--loci-path"), dict(required=True)),
+     (("-b", "--bed-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-L", "--updnstream"), dict(type=int, default=2000))],
+    "{n} loci classified", "conservation")
+cmd_genseqcandidates = _simple_cmd(
+    "gen_seq_candidates",
+    [(("-i", "--fasta-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("--min-len",), dict(type=int, default=50)),
+     (("--max-len",), dict(type=int, default=1 << 30)),
+     (("--max-n-pct",), dict(type=float, default=5.0)),
+     (("--min-gc",), dict(type=float, default=0.0)),
+     (("--max-gc",), dict(type=float, default=100.0))],
+    "{n} candidates", "conservation")
+cmd_genelementprofiles = _simple_cmd(
+    "gen_element_profiles",
+    [(("-i", "--loci-path"), dict(required=True)),
+     (("-I", "--algn-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-d", "--segs"), dict(type=int, default=10))],
+    "{n} element profiles", "conservation")
+cmd_processcsvfiles = _simple_cmd(
+    "process_csv_files",
+    [(("-i", "--inpaths"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-m", "--op"), dict(default="merge", choices=("merge", "common")))],
+    "{n} loci", "conservation")
+cmd_gennormwiggle = _simple_cmd(
+    "gen_norm_wiggle",
+    [(("-i", "--loci-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-m", "--mode"), dict(type=int, default=0, choices=(0, 1))),
+     (("-s", "--span"), dict(type=int, default=1))],
+    "{n} wiggle values", "conservation")
+
+
+cmd_goenrichment = _simple_cmd(
+    "go_enrichment_csv",
+    [(("-i", "--study-path"), dict(required=True)),
+     (("-I", "--pop-path"), dict(required=True)),
+     (("-b", "--obo-path"), dict(required=True)),
+     (("-a", "--gaf-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True)),
+     (("-n", "--min-count"), dict(type=int, default=2))],
+    "{n} enriched terms", "go_tools")
+cmd_goassoc = _simple_cmd(
+    "go_assoc_dump",
+    [(("-b", "--obo-path"), dict(required=True)),
+     (("-a", "--gaf-path"), dict(required=True)),
+     (("-o", "--outpath"), dict(required=True))],
+    "{n} associations", "go_tools")
 
 
 HOST_SUBCOMMANDS = {
@@ -1007,4 +1243,32 @@ HOST_SUBCOMMANDS = {
     "filtchrom": cmd_filtchrom,
     "remaploci": cmd_remaploci,
     "maploci2features": cmd_maploci,
+    "dnaseqsitepotential": cmd_dnasitepotential,
+    "rnaseqsitepotential": cmd_rnasitepotential,
+    "simulatemnase": cmd_simulatemnase,
+    "prednucleosomes": cmd_prednucleosomes,
+    "predconfnucs": cmd_predconfnucs,
+    "genstructprofile": cmd_genstructprofile,
+    "genstructstats": cmd_genstructstats,
+    "gennucstats": cmd_gennucstats,
+    "gencomposition": cmd_gencomposition,
+    "gencentroidmetrics": cmd_gencentroidmetrics,
+    "proccentroids": cmd_proccentroids,
+    "genhyperconserved": cmd_genhyperconserved,
+    "genultras": cmd_genultras,
+    "genhyperdropouts": cmd_genhyperdropouts,
+    "genalignstats": cmd_genalignstats,
+    "genalignconf": cmd_genalignconf,
+    "genalignref2relloci": cmd_genalignref2relloci,
+    "genalignloci2core": cmd_genalignloci2core,
+    "loci2phylip": cmd_loci2phylip,
+    "genrollups": cmd_genrollups,
+    "genelementseq": cmd_genelementseq,
+    "genloci2gene": cmd_genloci2gene,
+    "genseqcandidates": cmd_genseqcandidates,
+    "genelementprofiles": cmd_genelementprofiles,
+    "processcsvfiles": cmd_processcsvfiles,
+    "gennormwiggle": cmd_gennormwiggle,
+    "goenrichment": cmd_goenrichment,
+    "goassoc": cmd_goassoc,
 }

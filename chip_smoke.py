@@ -207,12 +207,21 @@ Phases, each of which raises on failure:
      adapter reads trimmed; the screen's engine result on one block
      equal on the card and the CPU; the first 16,384 pairs (two full
      blocks) and 8,292 pairs (a partial block) byte for byte against
-     --device cpu children.
+     --device cpu children;
+ 30. chromatin structure: a seeded genome of S. cerevisiae R64's 16
+     chromosome lengths (12.07 Mbp) and a full seeded octamer table
+     through `predconfnucs -M 0`, and 100,000 cores of 147 bp from it
+     through `genstructprofile --param minorgroove` and `--param twist`,
+     on the card: the walls, the gathers' and call_dyads' seconds, the
+     gathers each run launched; conformation_profile on chromosome IV
+     on the card equal to the CPU's exactly, its gather timed beside its
+     bound; the three outputs byte for byte against --device cpu
+     children.
 Phases 16 and 17 run on the card right after phase 6, and 21-22 after
 them; their --device cpu child processes go on beside the phases that
 follow and are compared after phase 18 (16-17) and at the end (21-29).
-Phase 20 runs right after phase 3, 23 after phase 13, 24 after 18 and
-25-29 after 24.
+Phase 20 runs right after phase 3, 23 after phase 13, 24 after 18,
+25-29 after 24, and 30 last, after the CPU runs of 21-29 are compared.
 Phase 3 also holds the extension kernel at the orphan rescue's shape
 (2,048 windows of 500 consecutive loci, some off the genome's ends).
 The kernels line gives #1-#3 their launches on every path above, #3w
@@ -402,6 +411,10 @@ FL_PAIRS = 65_536
 # a block and 100 pairs, against --device cpu children
 RP_PAIRS, RP_SEED = N_READS, 29
 RP_PARITY = (16_384, 8_292)
+# chromatin structure (phase 30): a seeded genome of S. cerevisiae R64's
+# 16 chromosome lengths (12.07 Mbp, tests/chromatin_inputs.py), a full
+# seeded octamer table, and nucleosome cores of 147 bp from the genome
+CR_SEED, CR_CORES, CR_CHECK_CHROM = 30, 100_000, "IV"
 
 # least-time bounds (NVIDIA H100 SXM data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
@@ -4659,6 +4672,150 @@ def _readprep_finish(run) -> None:
           f"byte ({n_files} files)")
 
 
+def _cr_argv(tag: str) -> dict:
+    """Phase 30's `predconfnucs` and `genstructprofile` argv on WORK's
+    yeast genome, table and cores, their outputs named by `tag`."""
+    w = str(WORK)
+    prof = ["genstructprofile", "-i", f"{w}/cr_cores.fa", "-p",
+            f"{w}/cr_oct.csv"]
+    return {"predconfnucs": ["predconfnucs", "-i", f"{w}/cr_yeast.fa", "-I",
+                             f"{w}/cr_oct.csv", "-M", "0", "-o",
+                             f"{w}/cr_nucs_{tag}.bg"],
+            "minorgroove": prof + ["--param", "minorgroove", "-o",
+                                   f"{w}/cr_minorgroove_{tag}.csv"],
+            "twist": prof + ["--param", "twist", "-o",
+                             f"{w}/cr_twist_{tag}.csv"]}
+
+
+def chromatin_cell(dev, smi):
+    """Phase 30: the chromatin structure tools on the card.  A seeded
+    genome of S. cerevisiae R64's 16 chromosome lengths, a full seeded
+    octamer table (65,536 rows x 22 parameters) and CR_CORES cores of 147
+    bp drawn from the genome: `predconfnucs -M 0` on the whole genome and
+    `genstructprofile --param minorgroove` and `--param twist` on the
+    cores with --device cuda, their walls with the host seconds of the
+    gathers (ending in the copy to the host) and of call_dyads' greedy
+    loop, and the gathers each run launched; conformation_profile on
+    chromosome IV on the card equal to its plain version on the CPU,
+    exactly, and the gather's CUDA-event ms there beside its bound and
+    the plain version's ms; the three outputs against --device cpu
+    children, compared by _chromatin_finish."""
+    import torch
+
+    from biokanga_tpu_torch.chromatin import conformation as conf
+    from biokanga_tpu_torch.seq.fasta import write_fasta
+    from biokanga_tpu_torch.tools import chromatin_tools
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import chromatin_inputs as ci
+
+    t0 = time.monotonic()
+    genome = ci.yeast_genome(CR_SEED)
+    write_fasta(str(WORK / "cr_yeast.fa"), genome)
+    ci.write_octamer_table(WORK / "cr_oct.csv", CR_SEED)
+    write_fasta(str(WORK / "cr_cores.fa"),
+                ci.cores(genome, CR_CORES, CR_SEED))
+    make_s = time.monotonic() - t0
+    children = {f"cr_{k}_cpu": _cpu_child(argv, f"cr_{k}_cpu")
+                for k, argv in _cr_argv("cpu").items()}
+
+    # chromosome IV: the card against the plain version, then timings
+    table = conf.load_octamer_params(str(WORK / "cr_oct.csv"))
+    codes = dict(genome)[CR_CHECK_CHROM]
+    cpu = torch.device("cpu")
+    want = conf.conformation_profile(codes, table, "minorgroove",
+                                     device=cpu)
+    got = conf.conformation_profile(codes, table, "minorgroove", device=dev)
+    if got.dtype != np.float32 or not np.array_equal(got, want):
+        raise AssertionError("phase 30: the chromosome IV profile differs "
+                             "between the card and the CPU")
+    column = conf.param_column(table, "minorgroove", dev)
+    idx = conf.step_octamer_indices(codes, dev)
+    gather_ms = _timed_ms(lambda: conf.gather_column(column, idx), iters=20)
+    index_ms = _timed_ms(lambda: conf.step_octamer_indices(codes, dev),
+                         iters=20)
+    col_c, idx_c = column.cpu(), idx.cpu()
+    t0 = time.monotonic()
+    for _ in range(5):
+        conf.gather_column(col_c, idx_c)
+    plain_ms = (time.monotonic() - t0) / 5 * 1e3
+    # the indices read and the values written once, the column read once;
+    # a clamp, a compare and a select a step
+    bound_ms, bound_by = _bound(idx.numel() * (8 + 4) + column.numel() * 4,
+                                3 * idx.numel())
+
+    parts = {}
+    plain_gather = chromatin_tools.gather_steps
+    plain_dyads = chromatin_tools.call_dyads
+
+    def timed(fn, key):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            out = fn(*a, **k)
+            parts[key] += time.monotonic() - t
+            return out
+        return wrapped
+
+    chromatin_tools.gather_steps = timed(plain_gather, "gather_s")
+    chromatin_tools.call_dyads = timed(plain_dyads, "dyads_s")
+    walls, launches, split = {}, {}, {}
+    try:
+        for k, argv in _cr_argv("cuda").items():
+            parts.update(gather_s=0.0, dyads_s=0.0)
+            conf.gather_column.launches = 0
+            walls[k] = _timed_cli(argv + ["--device", "cuda"])
+            launches[k] = conf.gather_column.launches
+            split[k] = dict(parts)
+    finally:
+        chromatin_tools.gather_steps = plain_gather
+        chromatin_tools.call_dyads = plain_dyads
+    per_batch = -(-chromatin_tools.PROFILE_BATCH_STEPS // 146)
+    want_launches = {"predconfnucs": len(genome),
+                     "minorgroove": -(-CR_CORES // per_batch),
+                     "twist": -(-CR_CORES // per_batch)}
+    if launches != want_launches:
+        raise AssertionError(f"phase 30: gathers {launches}, expected "
+                             f"{want_launches}")
+    n_dyads = sum(1 for ln in open(WORK / "cr_nucs_cuda.bg")) - 1
+    n_rows = [sum(1 for ln in open(WORK / f"cr_{p}_cuda.csv")) - 1
+              for p in ("minorgroove", "twist")]
+    if n_dyads < 1 or n_rows != [CR_CORES, CR_CORES]:
+        raise AssertionError(f"phase 30: {n_dyads} dyads, {n_rows} profile "
+                             f"rows")
+    n_bp = sum(c.size for _, c in genome)
+    print(f"chromatin structure, {len(genome)} chromosomes of R64's "
+          f"lengths ({n_bp} bp), a full octamer table and {CR_CORES} cores "
+          f"of 147 bp (made and written in {make_s:.2f} s): predconfnucs "
+          f"-M 0 --device cuda {walls['predconfnucs']:.2f} s ({n_dyads} "
+          f"dyads; gathers {split['predconfnucs']['gather_s']:.3f} s in "
+          f"{launches['predconfnucs']} launches, call_dyads "
+          f"{split['predconfnucs']['dyads_s']:.2f} s); genstructprofile "
+          f"--param minorgroove {walls['minorgroove']:.2f} s and twist "
+          f"{walls['twist']:.2f} s (gathers "
+          f"{split['minorgroove']['gather_s']:.3f} and "
+          f"{split['twist']['gather_s']:.3f} s in {launches['minorgroove']} "
+          f"and {launches['twist']} launches); chromosome {CR_CHECK_CHROM} "
+          f"({idx.numel()} steps) equal on the card and the CPU, its gather "
+          f"{gather_ms:.4f} ms (bound {bound_ms:.4f} ms, {bound_by}; plain "
+          f"on the CPU {plain_ms:.4f} ms), step indices with the upload "
+          f"{index_ms:.4f} ms ({smi})")
+    return {"children": children, "walls": walls, "launches": launches}
+
+
+def _chromatin_finish(run) -> None:
+    for tag, proc in run["children"].items():
+        _wait_child(proc, tag)
+    outs = ("cr_nucs_{}.bg", "cr_minorgroove_{}.csv", "cr_twist_{}.csv")
+    for out in outs:
+        a = (WORK / out.format("cpu")).read_bytes()
+        if a != (WORK / out.format("cuda")).read_bytes():
+            raise AssertionError(f"phase 30: {out.format('*')} differs cpu "
+                                 f"vs cuda")
+    print(f"predconfnucs and genstructprofile (minorgroove, twist): "
+          f"--device cpu == --device cuda byte for byte ({len(outs)} files)")
+
+
 def main() -> int:
     import torch
 
@@ -4945,6 +5102,11 @@ def main() -> int:
     _other_tools_finish(tools_run)
     _readprep_finish(rp_run)
     lap("21-29, end")
+
+    # 30. chromatin structure on the yeast genome: the octamer gather on
+    # the card; its --device cpu runs are child processes
+    _chromatin_finish(chromatin_cell(dev, smi))
+    lap("30")
     new_paths = {"launches_flagship": flagship["launches"],
                  "launches_filter": rp_run["launches"],
                  "launches_ngsqc": rp_run["launches_ngsqc"],

@@ -13,7 +13,8 @@ SW bands past 255; the FASTA files must be byte-identical.  The port runs with `
 its kernels' plain versions.  A subprocess run shows the port's CLI never
 imports jax, and a scan of the sources that no module of the port, and
 not chip_smoke.py, profile_torch.py or the port's probe, SASS, bench and
-multi-host scripts, imports jax or the JAX package.  The dispatch: `-v`,
+multi-host scripts, imports jax or the JAX package.  The port's
+subcommands are the JAX CLI's but `eccontigs`.  The dispatch: `-v`,
 and `-q DB` on the subcommands without their own (the JAX CLI's row),
 while `index` and `align` keep theirs; `cuda` without a card raises
 for `align`, `filter -c` and `ngsqc -c`.
@@ -404,7 +405,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
               root / "scripts" / "multihost_dryrun_torch.py",
               root / "tests" / "bs_reads.py",
               root / "tests" / "win_edge_cases.py",
-              root / "tests" / "readprep_reads.py"]
+              root / "tests" / "readprep_reads.py",
+              root / "tests" / "chromatin_inputs.py"]
     assert len(files) > 30
     bad = [(str(f.relative_to(root)), m) for f in files
            for m in _imported_modules(f)
@@ -420,7 +422,16 @@ def test_version_flag(capsys):
         assert capsys.readouterr().out == want == "0.1.0\n"
     assert torch_main([]) == 0
     listed = capsys.readouterr().out.split("subcommands: ")[1].split(", ")
-    assert len(listed) == 80
+    assert len(listed) == 108
+
+
+def test_port_has_every_jax_subcommand_but_eccontigs():
+    """A subcommand added to one CLI and not the other fails here;
+    `eccontigs` stays out while the JAX CLI's own version raises."""
+    from biokanga_tpu.cli import SUBCOMMANDS as jax_subcommands
+    from biokanga_tpu_torch.cli import SUBCOMMANDS
+
+    assert set(SUBCOMMANDS) == set(jax_subcommands) - {"eccontigs"}
 
 
 @pytest.mark.parametrize("case", ["kangarg", "uhamming", "filter",

@@ -23,7 +23,8 @@ the card equal the CPU's; the uhamming sweep (#7) and the blitz chain DP
 (#8) equal their plain versions, and `uhamming`, `blitz`,
 `mergeoverlaps` and `findapproxmatches` on the card equal the CPU's; the
 contaminant vector screen on two full blocks and a partial one, and
-`filter -c` and `ngsqc -c`, on the card equal the CPU's.
+`filter -c` and `ngsqc -c`, on the card equal the CPU's; the octamer
+gather, `predconfnucs` and `genstructprofile` on the card equal the CPU's.
 """
 import numpy as np
 import pytest
@@ -1281,3 +1282,52 @@ def test_filter_and_ngsqc_on_the_card_equal_cpu(cuda_device, tmp_path):
                                rp.fastq_name_lengths(tmp_path / "cuda_1.fq"))
     assert shares["vector_rejected"] >= rp.MIN_VECTOR_REJECTED
     assert shares["adapter_trimmed"] >= rp.MIN_ADAPTER_TRIMMED
+
+
+@pytest.mark.cuda
+def test_conformation_gather_on_the_card_equals_cpu(cuda_device, tmp_path):
+    """conformation_profile on the card equals its CPU run exactly (N
+    runs, short sequences, an undefined value) and launches its gather;
+    `predconfnucs` and `genstructprofile` (several gathers a run) with
+    --device cuda against --device cpu, byte for byte."""
+    import chromatin_inputs as ci
+    from biokanga_tpu_torch.chromatin import conformation as conf
+    from biokanga_tpu_torch.cli import main
+    from biokanga_tpu_torch.seq.fasta import write_fasta
+    from biokanga_tpu_torch.tools import chromatin_tools
+
+    ci.write_octamer_table(tmp_path / "oct.csv", seed=5)
+    table = conf.load_octamer_params(str(tmp_path / "oct.csv"))
+    rng = np.random.default_rng(6)
+    for n in (0, 1, 2, 8, 147, 300_000):
+        codes = rng.integers(0, 5, n).astype(np.int8)
+        codes[: n // 3] = np.minimum(codes[: n // 3], 3)
+        before = conf.gather_column.launches
+        got = conf.conformation_profile(codes, table, "roll", -2.5,
+                                        device=cuda_device)
+        assert conf.gather_column.launches == before + 1
+        want = conf.conformation_profile(codes, table, "roll", -2.5,
+                                         device=torch.device("cpu"))
+        assert got.dtype == np.float32 and np.array_equal(got, want)
+    genome = ci.yeast_genome(seed=7)[:3]
+    write_fasta(str(tmp_path / "g.fa"), genome)
+    write_fasta(str(tmp_path / "cores.fa"), ci.cores(genome, 4_000, seed=8))
+    runs = {"nucs.bg": ["predconfnucs", "-i", str(tmp_path / "g.fa"), "-I",
+                        str(tmp_path / "oct.csv"), "-o"],
+            "prof.csv": ["genstructprofile", "-i", str(tmp_path / "cores.fa"),
+                         "-p", str(tmp_path / "oct.csv"), "--param", "twist",
+                         "-o"]}
+    for out, argv in runs.items():
+        for d in ("cpu", "cuda"):
+            before = conf.gather_column.launches
+            assert main(argv + [str(tmp_path / f"{d}_{out}"), "--device",
+                                d]) == 0
+            launched = conf.gather_column.launches - before
+            # one gather a chromosome; a batch of cores closes once it
+            # holds PROFILE_BATCH_STEPS steps, 146 a core
+            per_batch = -(-chromatin_tools.PROFILE_BATCH_STEPS // 146)
+            if d == "cuda":
+                assert launched == (3 if out == "nucs.bg"
+                                    else -(-4_000 // per_batch))
+        assert (tmp_path / f"cpu_{out}").read_bytes() == \
+            (tmp_path / f"cuda_{out}").read_bytes()

@@ -343,9 +343,15 @@ def test_host_subcommand_matches_jax_cli(inp, tmp_path, capsys,
 
 def test_every_host_subcommand_has_a_case():
     from biokanga_tpu_torch.cli_host import HOST_SUBCOMMANDS
+    from test_torch_chromatin import CASES as chromatin_cases
+    from test_torch_conservation import CASES as conservation_cases
+    from test_torch_go_stats import CASES as go_cases
 
     read_tools = {"filter", "ngsqc", "filterreads", "kangar", "kangapr",
                   "kmerdist"}                 # test_torch_readprep.py
     covered = {argv[0] for _, argv, _ in CASES}
-    assert covered | read_tools == set(HOST_SUBCOMMANDS)
-    assert len(HOST_SUBCOMMANDS) == 57
+    families = {argv[0] for _, argv in
+                chromatin_cases + conservation_cases + go_cases}
+    assert len(families) == 28
+    assert covered | read_tools | families == set(HOST_SUBCOMMANDS)
+    assert len(HOST_SUBCOMMANDS) == 57 + 28
