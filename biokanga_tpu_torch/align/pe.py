@@ -23,10 +23,10 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..index.device import DeviceIndex
 from ..ops.extend_packed import hamming_extend_packed, pack_reads
+from ..utils.trace import count, span
 from .pipeline import AlignEngine
 
 C_DFLT_PAIR_MIN_LEN = 100   # Aligner.h:71
@@ -197,7 +197,7 @@ class PEAligner:
         """Enqueue the fused 2N-row primary align; pair with finish_pairs.
         Lets a caller keep one PE batch in flight on the device while it
         classifies, rescues and writes the previous one on the host."""
-        with record_function("pe.launch"):
+        with span("pe.launch"):
             state = self.engine.launch_primary(
                 np.concatenate([reads1, reads2]),
                 np.concatenate([len1, len2]))
@@ -207,7 +207,7 @@ class PEAligner:
         """Resolve a launch_pairs handle: two-level completion + overflow
         rescue + pairing + orphan rescue (host side)."""
         state, reads1, len1, reads2, len2 = pending
-        with record_function("pe.finish"):
+        with span("pe.finish"):
             res = self.engine.finish_primary(state)
         return self._split_pair_and_rescue(res, reads1, len1, reads2, len2)
 
@@ -243,7 +243,7 @@ class PEAligner:
 
     def _pair_and_rescue(self, res1, res2, reads1, len1, reads2, len2):
         starts = self.engine.didx.entry_starts.cpu().numpy()
-        with record_function("pe.classify"):
+        with span("pe.classify"):
             cls = classify_pairs(res1, res2, len1, len2, starts, self.pe)
 
         if self.pe.rescue:
@@ -255,7 +255,7 @@ class PEAligner:
                 rows = np.nonzero(orph)[0]
                 if len(rows) == 0:
                     continue
-                with record_function("pe.rescue"):
+                with span("pe.rescue"):
                     a_loc = anch["locus"][rows]
                     a_rc = anch["is_rc"][rows]
                     a_len = (len1 if which == 1 else len2)[rows]
@@ -273,9 +273,12 @@ class PEAligner:
                 mres["locus"][rows[ok]] = out["locus"][ok]
                 mres["is_rc"][rows[ok]] = ~a_rc[ok]
                 mres["best_mm"][rows[ok]] = out["mm"][ok]
-                self.rescued += int(ok.sum())
+                n = int(ok.sum())
+                self.rescued += n
+                count("pe.rescue_mates", len(rows))
+                count("pe.rescued_mates", n)
             # reclassify with rescued mates
-            with record_function("pe.classify"):
+            with span("pe.classify"):
                 cls = classify_pairs(res1, res2, len1, len2, starts,
                                      self.pe)
 

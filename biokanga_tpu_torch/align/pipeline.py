@@ -37,6 +37,7 @@ from ..ops.extend_packed import (
 )
 from ..ops.lookup import pack_read_kmers, seed_range_lookup
 from ..ops.sort import sort2_rows, sort_rows
+from ..utils.trace import count, span
 from .params import AlignParams, DerivedParams
 
 # candidate diagonals a strand gives the indel and splice scans: the
@@ -148,6 +149,8 @@ def align_core(didx: DeviceIndex, reads: torch.Tensor, lengths: torch.Tensor,
         loci, vmask, s_over, s_trunc = _strand_candidates(
             didx, seq, dp, H, cand_cap, didx.owned, occ_skip=occ_skip)
         if use_packed:
+            count("extend.slots", vmask.numel())
+            count("extend.valid_slots", vmask)
             rcodes, rnlane = pack_reads(seq, lengths)
             mm = hamming_extend_packed(didx.packed, didx.entry_starts, loci,
                                        vmask, rcodes, rnlane, lengths)
@@ -236,11 +239,14 @@ class AlignEngine:
         if cand_cap is None:
             cand_cap = self.params.max_cand_per_strand
         dev = self.didx.device
-        r = torch.from_numpy(np.ascontiguousarray(reads, np.int8)).to(dev)
-        ln = torch.from_numpy(np.ascontiguousarray(lengths, np.int32)).to(dev)
-        out = align_core(self.didx, r, ln, ap=self.params, dp=dp, H=H,
-                         cand_cap=int(cand_cap), strand=self.params.strand,
-                         occ_skip=occ_skip)
+        with span("engine.upload"):
+            r = torch.from_numpy(np.ascontiguousarray(reads, np.int8)).to(dev)
+            ln = torch.from_numpy(np.ascontiguousarray(lengths,
+                                                       np.int32)).to(dev)
+        with span("engine.enqueue"):
+            out = align_core(self.didx, r, ln, ap=self.params, dp=dp, H=H,
+                             cand_cap=int(cand_cap),
+                             strand=self.params.strand, occ_skip=occ_skip)
         return out, dp
 
     def align_batch(self, reads: np.ndarray, lengths: np.ndarray, H=None,
@@ -261,6 +267,7 @@ class AlignEngine:
     def launch_primary(self, reads: np.ndarray, lengths: np.ndarray):
         """Enqueue the primary pass (two-level fast pass when available,
         classic otherwise).  Pair with finish_primary."""
+        count("engine.rows", len(reads))
         fp = self._fast_params(reads)
         if fp is None:
             out, dp = self.launch(reads, lengths)
@@ -274,7 +281,8 @@ class AlignEngine:
         align_with_rescue semantics: rerun fast-pass-unresolved reads
         through the classic pass, then the rescue ladder."""
         reads, lengths, out, dp, fp = state
-        res = _to_host(out, dp)
+        with span("engine.fetch"):
+            res = _to_host(out, dp)
         if fp is None:
             self.rescue_pass(reads, lengths, res)
             return res
@@ -287,12 +295,14 @@ class AlignEngine:
         res["n_over"] = np.zeros_like(res["n_over"])
         res["cap_trunc"] = np.zeros_like(res["cap_trunc"])
         rows = np.nonzero(~resolved)[0]
+        count("engine.rerun_rows", len(rows))
         if len(rows):
-            sub_r, sub_l = pad_rows(reads[rows], lengths[rows])
-            sub = self.align_batch(sub_r, sub_l)
-            self.rescue_pass(sub_r, sub_l, sub)
-            for k in RESULT_KEYS + _LADDER_KEYS:
-                res[k][rows] = sub[k][: len(rows)]
+            with span("engine.rerun"):
+                sub_r, sub_l = pad_rows(reads[rows], lengths[rows])
+                sub = self.align_batch(sub_r, sub_l)
+                self.rescue_pass(sub_r, sub_l, sub)
+                for k in RESULT_KEYS + _LADDER_KEYS:
+                    res[k][rows] = sub[k][: len(rows)]
         return res
 
     def launch_fast(self, reads: np.ndarray, lengths: np.ndarray):

@@ -4,10 +4,10 @@ Counterpart of biokanga_tpu/assembly/assemble.py, with the same contigs.
 The passes' device work is the aligner's (AlignEngine for containment,
 kernels #1-#3) and the scaled overlap sweep's (assembly/scale_overlap.py,
 #1 and #3w); every entry point takes the device it runs on.  A pass and
-a containment sweep are `torch.profiler.record_function` ranges named
-`asm.pass` and `asm.contain` (the scaled pass's index build and sweeps
-inside it are `asm.index` and `asm.sweep`); they cost nothing without
-an active profiler (profile_torch.py asm reads them).
+a containment sweep are `utils.trace.span` ranges named `asm.pass` and
+`asm.contain` (the scaled pass's index build and sweeps inside it are
+`asm.index` and `asm.sweep`): `torch.profiler` ranges while a profiler
+records, one check otherwise (profile_torch.py asm reads them).
 
 Capability match for `biokanga assemb` (CdeNovoAssemb::AssembReads,
 biokanga/deNovoAssemb.cpp:109): iterative passes with a decaying minimum
@@ -27,9 +27,9 @@ from dataclasses import dataclass
 import numpy as np
 
 import torch
-from torch.profiler import record_function
 
 from ..seq.encode import revcomp
+from ..utils.trace import spanned
 from .overlap import find_prefix_occurrences, verify_overlaps
 
 C_DFLT_INIT_SE_OVLP = 150  # Kangadna.h:89
@@ -56,7 +56,7 @@ def _pad(seqs: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
     return out, lens
 
 
-@record_function("asm.pass")
+@spanned("asm.pass")
 def one_pass(seqs: list[np.ndarray], min_overlap: int, k: int = 16,
              max_subs_per_100: float = 1.0,
              device: torch.device | str = "cuda"):
@@ -173,7 +173,7 @@ def _merge_chains(seqs: list[np.ndarray], merge_info: dict):
     return out, n_merges
 
 
-@record_function("asm.pass")
+@spanned("asm.pass")
 def one_pass_scaled(seqs: list[np.ndarray], min_overlap: int,
                     k: int = 16, max_subs_per_100: float = 1.0,
                     device: torch.device | str = "cuda"):
@@ -250,7 +250,7 @@ def one_pass_scaled(seqs: list[np.ndarray], min_overlap: int,
     return out, merges
 
 
-@record_function("asm.contain")
+@spanned("asm.contain")
 def remove_contained(seqs: list[np.ndarray],
                      max_subs_per_100: float = 1.0,
                      device: torch.device | str = "cuda"

@@ -38,7 +38,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..align.params import DerivedParams
 from ..align.pipeline import _strand_candidates
@@ -49,6 +48,7 @@ from ..ops.extend_packed import (
     pack_reads,
 )
 from ..seq.encode import revcomp
+from ..utils.trace import span
 
 # queries are verified over at most this prefix window; dovetails longer
 # than this (giant contig-contig overlaps) are rejected conservatively
@@ -136,7 +136,7 @@ def best_right_extensions(
     lens = np.concatenate([lens1, lens1])
     starts = np.zeros(2 * n + 1, np.int64)
     np.cumsum(lens, out=starts[1:])
-    with record_function("asm.index"):
+    with span("asm.index"):
         concat = (np.concatenate(seqs + [revcomp(s) for s in seqs]) if n
                   else np.zeros(0, np.int8))
         didx = device_build_index(concat.astype(np.int8), starts,
@@ -167,7 +167,7 @@ def best_right_extensions(
     win_subs = torch.full((nq,), _BIG, dtype=torch.int32, device=dev)
     common = dict(H=H, cap=cap, shift_bits=shift_bits, offsets=offs,
                   core_len=k)
-    with record_function("asm.sweep"):
+    with span("asm.sweep"):
         for phase in ("max", "tie"):
             for orient in (0, 1):
                 for b0 in range(0, n, batch):

@@ -26,9 +26,10 @@ the same corrected reads (the JAX package's `_make_sw_vote_fn` psum;
 integer sums are exact in any order).  The TPU's one-hot bf16 vote matmul
 (`_vote_deltas`) is a TPU workaround and is not ported.
 
-Stages are marked with `torch.profiler.record_function` ranges named
-`ec.index`, `ec.seed`, `ec.cluster`, `ec.sw` and `ec.consensus`; they
-cost nothing without an active profiler (profile_torch.py reads them).
+Stages are marked with `utils.trace.span` ranges named `ec.index`,
+`ec.seed`, `ec.cluster`, `ec.sw` and `ec.consensus`: `torch.profiler`
+ranges while a profiler records, one check otherwise (profile_torch.py
+reads them).
 """
 from __future__ import annotations
 
@@ -36,7 +37,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..index.device_build import device_build_index
@@ -45,6 +45,7 @@ from ..ops.lookup import seed_range_lookup
 from ..ops.sw_trace import traceback_cols_packed
 from ..parallel.dist import sum_dp
 from ..seq.encode import revcomp
+from ..utils.trace import span, spanned
 
 
 @dataclass(frozen=True)
@@ -113,7 +114,7 @@ def _build_ec_index(entries, device, lut_bases: int = 8):
              if entries else np.zeros(0, np.int8))
     starts = np.zeros(len(entries) + 1, np.int64)
     np.cumsum([len(e[1]) for e in entries], out=starts[1:])
-    with record_function("ec.index"):
+    with span("ec.index"):
         didx = device_build_index(codes, starts.astype(np.int32),
                                   lut_bases=lut_bases, device=device)
     return didx, starts
@@ -140,13 +141,13 @@ def find_overlap_candidates_batch(didx, starts, probes, plens, p: ECParams,
     offsets = tuple(range(0, L - k + 1, p.seed_stride))
     S = len(offsets)
     H = 16
-    with record_function("ec.seed"):
+    with span("ec.seed"):
         pos, valid = _seed_all(didx,
                                torch.from_numpy(probes).to(didx.device),
                                k, H, p.seed_stride, S)
         pos = pos.cpu().numpy().astype(np.int64)
         valid = valid.cpu().numpy()
-    with record_function("ec.cluster"):
+    with span("ec.cluster"):
         return _cluster(pos, valid, starts, offsets, p, probe_gids,
                         n_reads_total, ent_gids)
 
@@ -299,7 +300,7 @@ def _sw_and_vote(probes_t, plens_t, c_probe, c_ent, c_diag, didx,
     cols = torch.arange(La, device=dev)
     n_used = torch.zeros((), dtype=torch.int64, device=dev)
     tlast = max(tcat.shape[0] - 1, 0)
-    with record_function("ec.sw"):
+    with span("ec.sw"):
         for s0 in range(0, P, chunk):
             s = s0 + first
             if s >= min(s0 + chunk, P):
@@ -365,7 +366,7 @@ def _consensus(votes: _Votes, probes_t, plens_t, min_cov: int):
     return out_call, ins_go, ins_b
 
 
-@record_function("ec.consensus")
+@spanned("ec.consensus")
 def _finish_consensus(votes: _Votes, probes_t, plens, p: ECParams):
     """Consensus call + host-side edit application (ecreads.py:511-532)."""
     call, ins_go, ins_b = (t.cpu().numpy() for t in _consensus(

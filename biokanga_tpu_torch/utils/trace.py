@@ -1,0 +1,69 @@
+"""The port's tracing: named spans and counters, live only under
+`torch.profiler`.
+
+    from biokanga_tpu_torch.utils.trace import count, counts, span
+
+    with span("engine.upload"):
+        ...
+    count("engine.rows", len(reads))       # a host int
+    count("extend.valid_slots", mask)      # or a tensor, summed
+
+While a profiler records (`torch.autograd._profiler_enabled()`), `span`
+opens a `torch.profiler.record_function` range, on the profiler's clock
+with the device events of its trace, and `count` adds to a named
+counter; a tensor is summed on its device, without waiting for it.
+Otherwise a span is one shared no-op context and a count does nothing,
+not even the sum: each costs one check of the profiler's state.  There
+is no setting: an operator turns tracing on by running the program
+under `torch.profiler`.
+
+`counts()` returns the counters as ints, waiting for the device there
+and only there; `reset_counts()` clears them.
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+
+import torch
+from torch.profiler import record_function
+
+_NOOP = contextlib.nullcontext()
+_counts: dict = {}
+
+
+def span(name: str):
+    """A `record_function` range named `name` while a profiler records,
+    else a shared no-op context."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NOOP
+
+
+def spanned(name: str):
+    """Decorator: each call of the function runs inside `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return run
+    return wrap
+
+
+def count(name: str, n) -> None:
+    """Add `n` to counter `name` while a profiler records: a host int, or
+    a tensor whose elements are summed on its device."""
+    if torch.autograd._profiler_enabled():
+        if isinstance(n, torch.Tensor):
+            n = n.sum()
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def counts() -> dict:
+    """The counters as ints (waits for the device)."""
+    return {k: int(v) for k, v in _counts.items()}
+
+
+def reset_counts() -> None:
+    _counts.clear()

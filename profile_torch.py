@@ -1,7 +1,7 @@
-"""Stage profiles of the port's three cells on one CUDA card.
+"""Stage profiles of the port's cells on one CUDA card.
 
     python3 profile_torch.py            # all cells
-    python3 profile_torch.py ec         # or some: ec | align | pe | pe_repeat
+    python3 profile_torch.py ec         # or some: ec | align | pe_repeat
                                         #   | asm
 
 ec: the error-correction head-to-head read set of chip_smoke.py phase 9
@@ -9,13 +9,11 @@ ec: the error-correction head-to-head read set of chip_smoke.py phase 9
 with the CLI's defaults (2 rounds, 48 targets, W 96).  align: the
 single-end cell of chip_smoke.py phase 6 (262,144 x 100 bp reads against
 a 4.6 Mbp genome, batch 65,536) through `AlignEngine.align_with_rescue`.
-pe: the paired-end cell of chip_smoke.py phase 13 (262,144 pairs of 2 x
-100 bp, inserts 200-500, `-d 100 -D 600`) through `PEAligner`, one batch
-in flight as the CLI drives it (`launch_pairs` of batch k+1 before
-`finish_pairs` of batch k).  pe_repeat: the 2,048 repeat-genome pairs of
-2 x 150 bp of chip_smoke.py phase 12, the only pairs here that reach the
-orphan rescue, as one batch.  asm: the assembly cell of chip_smoke.py
-phase 24 (50,000 error-free pairs of 2 x 150 bp from a 0.5 Mbp genome,
+pe_repeat: the 2,048 repeat-genome pairs of 2 x 150 bp of chip_smoke.py
+phase 12 through `PEAligner` as one batch, pairs that reach the orphan
+rescue (the paired-end loop at scale is the benchmark's, `python3 -m
+benchmark.run`).  asm: the assembly cell of chip_smoke.py phase 24
+(50,000 error-free pairs of 2 x 150 bp from a 0.5 Mbp genome,
 BENCH_ASM.json's 0.5mbp_30x_r4) through `assemble` with its defaults;
 its `asm.pass` ranges hold the scaled passes' `asm.index` (the device
 index build) and `asm.sweep` (candidates, #3w, the winner scatters)
@@ -26,9 +24,9 @@ Each cell runs once unprofiled (the wall time users see) and once under
 `torch.profiler` with CPU and CUDA activities.  It prints one JSON line
 per cell: the wall times, the device busy time (CUDA kernels and copies
 summed) and the idle share of the profiled wall, the host time of each
-`ec.*` or `pe.*` stage range and the time its range spans on the device
-timeline,
-and the device time of the busiest kernels.  Needs one card; exits
+`ec.*`, `pe.*`, `engine.*` or `asm.*` stage range and the time its range
+spans on the device timeline, and the device time of the busiest
+kernels.  Needs one card; exits
 non-zero without CUDA.
 """
 from __future__ import annotations
@@ -41,7 +39,7 @@ import time
 import numpy as np
 
 
-STAGE_PREFIXES = ("ec.", "pe.", "asm.")  # record_function ranges of the port
+STAGE_PREFIXES = ("ec.", "pe.", "engine.", "asm.")  # the port's spans
 
 
 def _on_device(evt) -> bool:
@@ -207,20 +205,6 @@ def _profile_pairs(cell: str, idx, reads, batch: int) -> dict:
                      "rescue_calls": pea.rescue_calls})
 
 
-def profile_pe() -> dict:
-    from biokanga_tpu_torch.index.build import build_index
-    from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
-    from chip_smoke import BATCH, GENOME_BP, N_PAIRS, PE_INSERT, READ_LEN
-
-    seqs = random_genome([("chr", GENOME_BP)], seed=42)
-    idx = build_index(seqs, lut_bases=10)
-    _, reads, _ = simulate_reads(seqs, N_PAIRS, read_len=READ_LEN,
-                                 sub_rate=0.01, seed=17, pe=True,
-                                 insert_min=PE_INSERT[0],
-                                 insert_max=PE_INSERT[1])
-    return _profile_pairs("pe", idx, reads, BATCH)
-
-
 def profile_pe_repeat() -> dict:
     from biokanga_tpu_torch.index.build import build_index
     from chip_smoke import BATCH, _pe_repeat_case
@@ -262,7 +246,7 @@ def main(argv: list[str]) -> int:
         print("profile_torch: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    cells = argv or ["ec", "align", "pe", "pe_repeat"]
+    cells = argv or ["ec", "align", "pe_repeat"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -270,7 +254,7 @@ def main(argv: list[str]) -> int:
     print(smi)
     for cell in cells:
         fn = {"ec": profile_ec, "align": profile_align,
-              "pe": profile_pe, "pe_repeat": profile_pe_repeat,
+              "pe_repeat": profile_pe_repeat,
               "asm": profile_asm}[cell]
         print(json.dumps({**fn(), "card": smi}))
     return 0
