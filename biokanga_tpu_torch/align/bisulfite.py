@@ -17,7 +17,7 @@ collapsed:
 A true top-strand read matches pass 1 exactly; a bottom-strand read
 satisfies rc(CT(read)) == GA(genome window).  Both passes are enqueued
 before either is fetched, their top-K lists come to the host in one copy
-a batch, and `merge_two_pass` merges them there in numpy with the same
+a batch (or as the engine's staged copies, on a CUDA index), and `merge_two_pass` merges them there in numpy with the same
 best/next-best MMDelta margin rule as the primary aligner.
 """
 from __future__ import annotations
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..seq.encode import ct_collapse
-from .pipeline import AlignEngine
+from .pipeline import AlignEngine, result_tensors
 
 # the keys of an engine result that merge_two_pass reads
 _MERGE_KEYS = ("ml_mm", "ml_loci", "overflow", "n_over", "cap_trunc")
@@ -34,9 +34,10 @@ _NP_DTYPES = {torch.uint8: np.uint8, torch.int32: np.int32,
               torch.bool: np.bool_}
 
 
-def fetch_results(*outs: dict) -> list[dict]:
-    """The merge keys of several launches' device results as host dicts,
-    brought over in one device-to-host copy."""
+def fetch_results(*outs) -> list[dict]:
+    """The merge keys of several launches' results as host dicts, brought
+    over in one device-to-host copy where they are still on the device."""
+    outs = [result_tensors(o) for o in outs]
     cols = [o[k].reshape(o[k].shape[0], -1).to(torch.int32)
             for o in outs for k in _MERGE_KEYS]
     host = torch.cat(cols, dim=1).cpu().numpy()

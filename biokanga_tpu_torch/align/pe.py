@@ -198,9 +198,9 @@ class PEAligner:
         Lets a caller keep one PE batch in flight on the device while it
         classifies, rescues and writes the previous one on the host."""
         with span("pe.launch"):
-            state = self.engine.launch_primary(
-                np.concatenate([reads1, reads2]),
-                np.concatenate([len1, len2]))
+            eng = self.engine
+            state = eng.launch_primary(eng.stack([reads1, reads2]),
+                                       eng.stack([len1, len2]))
         return (state, reads1, len1, reads2, len2)
 
     def finish_pairs(self, pending):
@@ -242,7 +242,7 @@ class PEAligner:
                                      len2)
 
     def _pair_and_rescue(self, res1, res2, reads1, len1, reads2, len2):
-        starts = self.engine.didx.entry_starts.cpu().numpy()
+        starts = self.engine.entry_starts_host()
         with span("pe.classify"):
             cls = classify_pairs(res1, res2, len1, len2, starts, self.pe)
 

@@ -23,6 +23,11 @@ each is replaced by the general form that gives the same bits.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import functools
+import math
+
 import numpy as np
 import torch
 
@@ -57,6 +62,62 @@ def _rc_reads(reads: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return torch.gather(rc, 1, col)
 
 
+def _seed_diagonals(didx: DeviceIndex, seq: torch.Tensor, dp: DerivedParams,
+                    H: int, owned=None, occ_skip: bool = False, offs=None):
+    """The seed stage of one strand, up to the dedup sort: (B, S*H) int32
+    candidate diagonals, INT32_MAX where a slot holds none, and the (B, S)
+    cores whose range exceeds H.  `offs`: dp.offsets as an int32 tensor
+    on seq's device (made here when None)."""
+    S = len(dp.offsets)
+    B = seq.shape[0]
+    dev = seq.device
+    if offs is None:
+        offs = torch.as_tensor(dp.offsets, dtype=torch.int32, device=dev)
+    qlh, qll, qhh, qhl, has_n = pack_read_kmers(seq, offs, dp.core_len)
+    start, end = seed_range_lookup(
+        didx.key_hi, didx.key_lo, didx.lut, didx.lut_bases, qlh, qll, qhh,
+        qhl, core_len=dp.core_len, max_steps=didx.max_bsearch_steps,
+    )
+    size = end - start
+    # N-containing cores give junk ranges; they never count as over-occurring
+    overflow = (size > H) & ~has_n
+    if occ_skip:
+        size = torch.where(overflow, 0, size)
+    j = torch.arange(H, device=dev)
+    slot = torch.clamp(start[..., None] + j, max=didx.pos_sorted.shape[0] - 1)
+    pos = didx.pos_sorted[slot]                                # (B, S, H)
+    in_range = j < torch.clamp(size, max=H)[..., None]
+    diag = pos - offs[None, :, None]
+    valid = in_range & ~has_n[..., None] & (diag >= 0)
+    if owned is not None:
+        valid = valid & (diag < owned)
+    return torch.where(valid, diag, I32_MAX).reshape(B, S * H), overflow
+
+
+def _dedup(srt: torch.Tensor, overflow: torch.Tensor, cand_cap: int,
+           occ_skip: bool):
+    """The seed stage after the dedup sort: (loci, valid, n_over, trunc)
+    as `_strand_candidates` returns them."""
+    B, SH = srt.shape
+    dev = srt.device
+    dup = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=dev),
+                     srt[:, 1:] == srt[:, :-1]], dim=1)
+    v = (srt != I32_MAX) & ~dup
+    C = min(cand_cap, SH)
+    if C < SH:
+        trunc = v[:, C:].any(dim=1)
+        srt, v = srt[:, :C], v[:, :C]
+    else:
+        trunc = torch.zeros(B, dtype=torch.bool, device=dev)
+    if occ_skip:
+        # skipped cores weaken the pigeonhole bound (inexact_rows)
+        n_over = overflow.sum(dim=1, dtype=torch.int32)
+    else:
+        n_over = torch.zeros(B, dtype=torch.int32, device=dev)
+        trunc = trunc | overflow.any(dim=1)
+    return srt, v, n_over, trunc
+
+
 def _strand_candidates(didx: DeviceIndex, seq: torch.Tensor,
                        dp: DerivedParams, H: int, cand_cap: int, owned=None,
                        occ_skip: bool = False):
@@ -73,112 +134,49 @@ def _strand_candidates(didx: DeviceIndex, seq: torch.Tensor,
     rule); without it the range is cut to its first H positions and the
     read is flagged truncated.  `owned`: alignments must start below it.
     """
-    S = len(dp.offsets)
-    B = seq.shape[0]
-    dev = seq.device
-    qlh, qll, qhh, qhl, has_n = pack_read_kmers(seq, dp.offsets, dp.core_len)
-    start, end = seed_range_lookup(
-        didx.key_hi, didx.key_lo, didx.lut, didx.lut_bases, qlh, qll, qhh,
-        qhl, core_len=dp.core_len, max_steps=didx.max_bsearch_steps,
-    )
-    size = end - start
-    # N-containing cores give junk ranges; they never count as over-occurring
-    overflow = (size > H) & ~has_n
-    if occ_skip:
-        size = torch.where(overflow, 0, size)
-    j = torch.arange(H, device=dev)
-    slot = torch.clamp(start[..., None] + j, max=didx.pos_sorted.shape[0] - 1)
-    pos = didx.pos_sorted[slot]                                # (B, S, H)
-    in_range = j < torch.clamp(size, max=H)[..., None]
-    offs = torch.as_tensor(dp.offsets, dtype=torch.int32, device=dev)
-    diag = pos - offs[None, :, None]
-    valid = in_range & ~has_n[..., None] & (diag >= 0)
-    if owned is not None:
-        valid = valid & (diag < owned)
-
-    flat = torch.where(valid, diag, I32_MAX).reshape(B, S * H)
+    flat, overflow = _seed_diagonals(didx, seq, dp, H, owned, occ_skip)
     # diagonal dedup: one locus found through several cores is one hit
-    srt = sort_rows(flat)
-    dup = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=dev),
-                     srt[:, 1:] == srt[:, :-1]], dim=1)
-    v = (srt != I32_MAX) & ~dup
-    C = min(cand_cap, S * H)
-    if C < S * H:
-        trunc = v[:, C:].any(dim=1)
-        srt, v = srt[:, :C], v[:, :C]
-    else:
-        trunc = torch.zeros(B, dtype=torch.bool, device=dev)
-    if occ_skip:
-        # skipped cores weaken the pigeonhole bound (inexact_rows)
-        n_over = overflow.sum(dim=1, dtype=torch.int32)
-    else:
-        n_over = torch.zeros(B, dtype=torch.int32, device=dev)
-        trunc = trunc | overflow.any(dim=1)
-    return srt, v, n_over, trunc
+    return _dedup(sort_rows(flat), overflow, cand_cap, occ_skip)
 
 
-def mismatch_budget(lengths: torch.Tensor, ap: AlignParams) -> torch.Tensor:
+def _budget_rate(ap: AlignParams, device) -> torch.Tensor:
+    return torch.tensor(ap.max_subs_per100 / 100.0, dtype=torch.float32,
+                        device=device)
+
+
+def mismatch_budget(lengths: torch.Tensor, ap: AlignParams,
+                    rate: torch.Tensor | None = None) -> torch.Tensor:
     """Per-read mismatch budget from the actual read length, in float32 as
-    the JAX package computes it (float64 rounds differently at x.5)."""
+    the JAX package computes it (float64 rounds differently at x.5).
+    `rate`: `_budget_rate` made beforehand (made here when None)."""
     if ap.max_subs_per100 == 0:
         return torch.zeros_like(lengths)
-    rate = torch.tensor(ap.max_subs_per100 / 100.0, dtype=torch.float32,
-                        device=lengths.device)
+    if rate is None:
+        rate = _budget_rate(ap, lengths.device)
     return torch.clamp(torch.floor(lengths.to(torch.float32) * rate + 0.5).to(
         torch.int32), 1, 63)
 
 
-def align_core(didx: DeviceIndex, reads: torch.Tensor, lengths: torch.Tensor,
-               *, ap: AlignParams, dp: DerivedParams, H: int, cand_cap: int,
-               strand: str, occ_skip: bool = True) -> dict:
-    """One batch through the five device stages; returns device tensors
-    keyed as the JAX align_core's result (RESULT_KEYS + ladder keys)."""
-    dev = reads.device
-    max_tot_mm = mismatch_budget(lengths, ap)
-    strands = []                      # sense columns first (rc_col below)
-    if strand in ("both", "sense"):
-        strands.append(reads)
-    if strand in ("both", "antisense"):
-        strands.append(_rc_reads(reads, lengths))
-
-    use_packed = (didx.packed is not None
-                  and reads.shape[1] <= MAX_PACKED_READ_LEN)
-    loci_parts, mm_parts = [], []
-    n_over = trunc = None
-    for seq in strands:
-        loci, vmask, s_over, s_trunc = _strand_candidates(
-            didx, seq, dp, H, cand_cap, didx.owned, occ_skip=occ_skip)
-        if use_packed:
-            count("extend.slots", vmask.numel())
-            count("extend.valid_slots", vmask)
-            rcodes, rnlane = pack_reads(seq, lengths)
-            mm = hamming_extend_packed(didx.packed, didx.entry_starts, loci,
-                                       vmask, rcodes, rnlane, lengths)
-        else:
-            mm = hamming_extend(didx.genome, didx.entry_starts, loci, vmask,
-                                seq, lengths)
-        loci_parts.append(loci)
-        mm_parts.append(mm)
-        # a hidden hit lives on one strand: the worst single strand counts
-        n_over = s_over if n_over is None else torch.maximum(n_over, s_over)
-        trunc = s_trunc if trunc is None else (trunc | s_trunc)
-
+def _accept_key(loci_parts, mm_parts, strand: str):
+    """The two-key sort's inputs, (mm*2 | rc, locus), and the (B, Ctot)
+    int32 counts of both strands."""
     loci_all = torch.cat(loci_parts, dim=1)
     mm_all = torch.cat(mm_parts, dim=1).to(torch.int32)
     C1 = loci_parts[0].shape[1]
-
-    # one two-key sort by (mm*2 | rc, locus): column 0 is the best hit,
-    # column 1 the next best, columns 0..K-1 the multi-hit loci; rc in the
-    # key's low bit puts sense before antisense at equal mm
-    K = max(1, ap.max_multi)
     Ctot = mm_all.shape[1]
+    dev = mm_all.device
     if strand == "both":
         rc_col = (torch.arange(Ctot, device=dev) >= C1).to(torch.int32)
     else:
         rc_col = torch.full((Ctot,), int(strand == "antisense"),
                             dtype=torch.int32, device=dev)
-    key = mm_all * 2 + rc_col[None, :]
-    s_key, s_loci = sort2_rows(key, loci_all)
+    return mm_all * 2 + rc_col[None, :], loci_all, mm_all
+
+
+def _accept(s_key, s_loci, mm_all, max_tot_mm, n_over, trunc,
+            ap: AlignParams) -> dict:
+    """align_core's result from the sorted (key, locus) rows."""
+    K = max(1, ap.max_multi)
     best = s_key[:, 0] >> 1
     is_rc_hit = (s_key[:, 0] & 1).to(torch.bool)
     locus = s_loci[:, 0]
@@ -209,24 +207,353 @@ def align_core(didx: DeviceIndex, reads: torch.Tensor, lengths: torch.Tensor,
     }
 
 
-def _to_host(out: dict, dp: DerivedParams) -> dict:
-    """A launch's device tensors as a host result dict."""
-    res = {k: v.cpu().numpy() for k, v in out.items()}
+def align_core(didx: DeviceIndex, reads: torch.Tensor, lengths: torch.Tensor,
+               *, ap: AlignParams, dp: DerivedParams, H: int, cand_cap: int,
+               strand: str, occ_skip: bool = True) -> dict:
+    """One batch through the five device stages; returns device tensors
+    keyed as the JAX align_core's result (RESULT_KEYS + ladder keys)."""
+    max_tot_mm = mismatch_budget(lengths, ap)
+    strands = []                      # sense columns first (rc_col below)
+    if strand in ("both", "sense"):
+        strands.append(reads)
+    if strand in ("both", "antisense"):
+        strands.append(_rc_reads(reads, lengths))
+
+    use_packed = (didx.packed is not None
+                  and reads.shape[1] <= MAX_PACKED_READ_LEN)
+    loci_parts, mm_parts = [], []
+    n_over = trunc = None
+    for seq in strands:
+        loci, vmask, s_over, s_trunc = _strand_candidates(
+            didx, seq, dp, H, cand_cap, didx.owned, occ_skip=occ_skip)
+        if use_packed:
+            count("extend.slots", vmask.numel())
+            count("extend.valid_slots", vmask)
+            rcodes, rnlane = pack_reads(seq, lengths)
+            mm = hamming_extend_packed(didx.packed, didx.entry_starts, loci,
+                                       vmask, rcodes, rnlane, lengths)
+        else:
+            mm = hamming_extend(didx.genome, didx.entry_starts, loci, vmask,
+                                seq, lengths)
+        loci_parts.append(loci)
+        mm_parts.append(mm)
+        # a hidden hit lives on one strand: the worst single strand counts
+        n_over = s_over if n_over is None else torch.maximum(n_over, s_over)
+        trunc = s_trunc if trunc is None else (trunc | s_trunc)
+
+    # one two-key sort by (mm*2 | rc, locus): column 0 is the best hit,
+    # column 1 the next best, columns 0..K-1 the multi-hit loci; rc in the
+    # key's low bit puts sense before antisense at equal mm
+    key, loci_all, mm_all = _accept_key(loci_parts, mm_parts, strand)
+    s_key, s_loci = sort2_rows(key, loci_all)
+    return _accept(s_key, s_loci, mm_all, max_tot_mm, n_over, trunc, ap)
+
+
+def _cuda_capture(device):
+    """A capture function for _CoreGraphs: each segment one CUDA graph,
+    captured on a stream of its own into a memory pool that the key's
+    segments share; returns (the graph's replay, the segment's outputs)."""
+    pool = torch.cuda.graph_pool_handle()
+    stream = torch.cuda.Stream(device)
+
+    def capture(fn):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            g.capture_begin(pool=pool)
+            try:
+                out = fn()
+            finally:
+                g.capture_end()
+        return g.replay, out
+
+    return capture
+
+
+class _CoreGraphs:
+    """`align_core` of one launch key as replays over static buffers.
+
+    Its PyTorch op chains are captured between the hand-written kernels,
+    a segment each: a strand's seed stage up to the dedup sort (#1,
+    `sort_rows`); its dedup mask, truncation and read packing up to the
+    extension (#3, `hamming_extend_packed`); the accept key up to the
+    two-key sort (#2, `sort2_rows`); and the result.  The kernels run
+    eagerly between the replays, through this module's names, each into
+    the static input of the next segment (their `out=`), so a kernel is
+    called once a call site as in `align_core`.  The segments replay in
+    the order they were captured, on one stream: `reads` and `lengths`
+    are filled on it before `run`, and the dict `run` returns is
+    overwritten by the next `run`.
+
+    `capture(fn) -> (replay, outputs)` captures one segment
+    (`_cuda_capture`); outputs are read after each replay.
+    """
+
+    def __init__(self, didx: DeviceIndex, ap: AlignParams, dp: DerivedParams,
+                 H: int, cand_cap: int, occ_skip: bool, B: int, L: int,
+                 capture=None):
+        dev = didx.device
+        cuda_capture = capture or _cuda_capture(dev)
+        # the segments stay referenced: a graph reads the constants and
+        # the static tensors they hold by address, and nothing else keeps
+        # those alive
+        self._segments = []
+
+        def capture(fn):
+            self._segments.append(fn)
+            return cuda_capture(fn)
+
+        self.didx = didx
+        # all N and of length 0 until the first batch is copied in
+        self.reads = torch.full((B, L), 4, dtype=torch.int8, device=dev)
+        self.lengths = torch.zeros(B, dtype=torch.int32, device=dev)
+        # made by host-to-device copies, so outside the captures
+        offs = torch.as_tensor(dp.offsets, dtype=torch.int32, device=dev)
+        rate = _budget_rate(ap, dev)
+        self.strands = []
+        for rc in ((False,) if ap.strand == "sense" else
+                   (True,) if ap.strand == "antisense" else (False, True)):
+            st = {}
+
+            def seed(rc=rc):
+                seq = (_rc_reads(self.reads, self.lengths) if rc
+                       else self.reads)
+                flat, overflow = _seed_diagonals(didx, seq, dp, H,
+                                                 didx.owned, occ_skip, offs)
+                return seq, flat, overflow
+
+            st["seed"], (seq, st["flat"], overflow) = capture(seed)
+            st["srt"] = torch.empty_like(st["flat"])
+
+            def dedup(st=st, seq=seq, overflow=overflow):
+                loci, v, n_over, trunc = _dedup(st["srt"], overflow,
+                                                cand_cap, occ_skip)
+                rcodes, rnlane = pack_reads(seq, self.lengths)
+                return (loci.contiguous(), v.contiguous(), n_over, trunc,
+                        rcodes, rnlane)
+
+            st["dedup"], (st["loci"], st["valid"], st["n_over"],
+                          st["trunc"], st["rcodes"], st["rnlane"]) = \
+                capture(dedup)
+            st["mm"] = torch.empty(st["loci"].shape, dtype=torch.uint8,
+                                   device=dev)
+            self.strands.append(st)
+
+        def key():
+            k, loci_all, mm_all = _accept_key(
+                [st["loci"] for st in self.strands],
+                [st["mm"] for st in self.strands], ap.strand)
+            n_over, trunc = self.strands[0]["n_over"], \
+                self.strands[0]["trunc"]
+            for st in self.strands[1:]:
+                n_over = torch.maximum(n_over, st["n_over"])
+                trunc = trunc | st["trunc"]
+            return k, loci_all, mm_all, n_over, trunc
+
+        self.key, (self.sort_key, self.sort_loci, mm_all, n_over,
+                   trunc) = capture(key)
+        self.s_key = torch.empty_like(self.sort_key)
+        self.s_loci = torch.empty_like(self.sort_loci)
+
+        def accept():
+            out = _accept(self.s_key, self.s_loci, mm_all,
+                          mismatch_budget(self.lengths, ap, rate), n_over,
+                          trunc, ap)
+            return out, _pack_result(out)
+
+        self.accept, (self.out, self.packed) = capture(accept)
+
+    def run(self):
+        """(result dict, its `_pack_result`), both static."""
+        didx = self.didx
+        for st in self.strands:
+            st["seed"]()
+            sort_rows(st["flat"], out=st["srt"])
+            st["dedup"]()
+            count("extend.slots", st["valid"].numel())
+            count("extend.valid_slots", st["valid"])
+            hamming_extend_packed(didx.packed, didx.entry_starts, st["loci"],
+                                  st["valid"], st["rcodes"], st["rnlane"],
+                                  self.lengths, out=st["mm"])
+        self.key()
+        sort2_rows(self.sort_key, self.sort_loci,
+                   out=(self.s_key, self.s_loci))
+        self.accept()
+        return self.out, self.packed
+
+
+def _layout(out: dict) -> dict:
+    return {k: (t.dtype, tuple(t.shape)) for k, t in out.items()}
+
+
+def _packing(layout: dict) -> dict:
+    """Where each tensor of a result lies in `_pack_result`'s bytes: key
+    -> (first byte, bytes); 4-byte tensors first, so that every one
+    starts on a multiple of its size."""
+    at, where = 0, {}
+    for k in sorted(layout, key=lambda k: -layout[k][0].itemsize):
+        dtype, shape = layout[k]
+        where[k] = (at, math.prod(shape) * dtype.itemsize)
+        at += where[k][1]
+    return where
+
+
+def _pack_result(out: dict) -> torch.Tensor:
+    """A result's tensors one after another as the bytes of one uint8
+    tensor, for one copy to the host."""
+    return torch.cat([out[k].contiguous().view(torch.uint8).reshape(-1)
+                      for k in _packing(_layout(out))])
+
+
+def _unpack(buf: torch.Tensor, layout: dict) -> dict:
+    """The tensors of a `_pack_result`, each a contiguous view of it."""
+    where = _packing(layout)
+    res = {}
+    for k, (dtype, shape) in layout.items():
+        at, n = where[k]
+        res[k] = buf[at:at + n].view(dtype).reshape(shape)
+    return res
+
+
+class _Fetch:
+    """A launch's result on its way to the host: its `_pack_result` copied
+    into a pinned host buffer on the launch's stream, and the event
+    recorded after the copy.  The buffer comes from PyTorch's caching
+    host allocator, which reuses it only once its copy is done."""
+
+    def __init__(self, out: dict, packed: torch.Tensor | None, stream):
+        if packed is None:
+            packed = _pack_result(out)
+        self.layout = _layout(out)
+        self.buf = torch.empty(packed.shape, dtype=torch.uint8,
+                               pin_memory=True)
+        self.buf.copy_(packed, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(stream)
+        # a primary pass's classic rerun, once enqueued ahead of the next
+        # pass: (rows, None or (sub_reads, sub_lengths, (fetch, dp)))
+        self.rerun = None
+
+    def tensors(self) -> dict:
+        """The result's host tensors, views of the buffer, once the event
+        has passed: it waits for that alone."""
+        self.event.synchronize()
+        return _unpack(self.buf, self.layout)
+
+
+def result_tensors(out) -> dict:
+    """The tensors of a launch's result: the host tensors of a `_Fetch`,
+    else the device tensors themselves."""
+    return out.tensors() if isinstance(out, _Fetch) else out
+
+
+def _to_host(out, dp: DerivedParams) -> dict:
+    """A launch's result as a host result dict."""
+    res = {k: v.cpu().numpy() for k, v in result_tensors(out).items()}
     res["derived"] = dp
     return res
 
 
+def _pinned(a: np.ndarray, dtype) -> torch.Tensor:
+    """`a` as a pinned host tensor: itself where it lies in pinned memory
+    (`AlignEngine.stack`), else a pinned copy."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype))
+    return t if t.is_pinned() else t.pin_memory()
+
+
+# launch keys an engine captures at most; past them a key runs eagerly
+MAX_GRAPH_KEYS = 8
+
+
+@functools.cache
+def _high_priority_stream(device_index: int):
+    """The high-priority stream of align_batch on one card, shared by the
+    engines: PyTorch's caching allocator reuses a freed block only on the
+    stream it was made on, so a stream of its own would start each engine,
+    and the many short-lived ones (assembly makes one a pass), on fresh
+    device allocations."""
+    return torch.cuda.Stream(torch.device("cuda", device_index),
+                             priority=-1)
+
+
 class AlignEngine:
-    """Runs batch alignment of host reads against one DeviceIndex."""
+    """Runs batch alignment of host reads against one DeviceIndex.
+
+    On a CUDA index with packed rows a launch stages its reads through
+    pinned host memory, copies its result back into pinned memory on the
+    launch's stream and records an event there, and its fetch waits for
+    that event alone.  A launch key (the batch's shape, H, the candidate
+    cap, occ_skip, the derived parameters, the parameters and the stream)
+    runs `align_core` eagerly on its first launch, is captured as CUDA
+    graphs (`_CoreGraphs`) on its second, and replays them from then on;
+    one-off shapes stay eager.  The graphs belong to the index: setting
+    `didx` drops them.  `align_batch`, which waits for its result at once
+    (the classic rerun and the rescue ladder), runs on a high-priority
+    stream (`_high_priority_stream`), so that it need not wait behind the
+    primary pass enqueued before it; and the classic rerun of a primary pass in flight
+    is enqueued, where it can be, ahead of the next one
+    (`_start_reruns`).
+    """
 
     def __init__(self, didx: DeviceIndex, params: AlignParams | None = None):
-        self.didx = didx
         self.params = params or AlignParams()
+        self._cores: dict = {}      # launch key -> _CoreGraphs
+        self._seen: dict = {}       # launch key -> launches so far
+        # staged primary passes launched and not yet finished, whose
+        # reruns _start_reruns may enqueue early
+        self._inflight = collections.deque(maxlen=4)
+        self._rerun_last = False    # the last finish_primary reran rows
+        self.didx = didx
+
+    @property
+    def didx(self) -> DeviceIndex:
+        return self._didx
+
+    @didx.setter
+    def didx(self, didx: DeviceIndex) -> None:
+        if self._cores:
+            torch.cuda.synchronize()    # replays may still read the old one
+        self._cores.clear()
+        self._seen.clear()
+        self._inflight.clear()
+        self._side_ready = False        # the new index may still be built
+        self._starts = None
+        self._didx = didx
+
+    def entry_starts_host(self) -> np.ndarray:
+        """The index's entry starts in host memory, copied once."""
+        if self._starts is None:
+            self._starts = self.didx.entry_starts.cpu().numpy()
+        return self._starts
+
+    def stack(self, parts) -> np.ndarray:
+        """`np.concatenate(parts)`, a batch to `launch`: where launches are
+        staged, built in pinned memory by PyTorch's threads, so that the
+        upload copies it as it lies."""
+        parts = [np.asarray(p) for p in parts]
+        if not self._staged(0):
+            return np.concatenate(parts)
+        dtype = np.result_type(*parts)
+        out = torch.from_numpy(np.empty(0, dtype)).new_empty(
+            (sum(len(p) for p in parts),) + parts[0].shape[1:],
+            pin_memory=True)
+        at = 0
+        for p in parts:
+            out[at:at + len(p)].copy_(torch.from_numpy(
+                np.ascontiguousarray(p, dtype)))
+            at += len(p)
+        return out.numpy()
+
+    def _staged(self, L: int) -> bool:
+        didx = self.didx
+        return (didx.device.type == "cuda" and didx.packed is not None
+                and L <= MAX_PACKED_READ_LEN)
 
     def launch(self, reads: np.ndarray, lengths: np.ndarray, H=None,
                cand_cap=None, dp=None, occ_skip: bool = True):
-        """Upload one batch and enqueue its alignment; returns (dict of
-        device tensors, dp).  Nothing waits for the device here."""
+        """Upload one batch and enqueue its alignment; returns (result,
+        dp): a dict of device tensors, or a `_Fetch` where the launch is
+        staged.  Read it with `_to_host` or `result_tensors`.  Nothing
+        waits for the device here."""
         B, L = reads.shape
         if dp is None:
             dp = self.params.derive(int(L), self.didx.total_len)
@@ -238,6 +565,10 @@ class AlignEngine:
         H = int(H or self.params.cand_per_core)
         if cand_cap is None:
             cand_cap = self.params.max_cand_per_strand
+        count("engine.launches", 1)
+        if self._staged(L):
+            return self._launch_staged(reads, lengths, dp, H, int(cand_cap),
+                                       occ_skip), dp
         dev = self.didx.device
         with span("engine.upload"):
             r = torch.from_numpy(np.ascontiguousarray(reads, np.int8)).to(dev)
@@ -249,11 +580,56 @@ class AlignEngine:
                              strand=self.params.strand, occ_skip=occ_skip)
         return out, dp
 
+    def _launch_staged(self, reads, lengths, dp, H, cand_cap, occ_skip):
+        didx, ap = self.didx, self.params
+        dev = didx.device
+        stream = torch.cuda.current_stream(dev)
+        B, L = reads.shape
+        key = (stream.cuda_stream, B, L, H, cand_cap, occ_skip, dp, ap)
+        seen = self._seen[key] = self._seen.get(key, 0) + 1
+        core = self._cores.get(key)
+        if (core is None and seen >= 2 and B
+                and len(self._cores) < MAX_GRAPH_KEYS):
+            core = self._cores[key] = _CoreGraphs(didx, ap, dp, H, cand_cap,
+                                                  occ_skip, B, L)
+        with span("engine.upload"):
+            r, ln = _pinned(reads, np.int8), _pinned(lengths, np.int32)
+            if core is None:
+                r = r.to(dev, non_blocking=True)
+                ln = ln.to(dev, non_blocking=True)
+            else:
+                core.reads.copy_(r, non_blocking=True)
+                core.lengths.copy_(ln, non_blocking=True)
+        with span("engine.enqueue"):
+            count("engine.graph_launches", int(core is not None))
+            if core is None:
+                out = align_core(didx, r, ln, ap=ap, dp=dp, H=H,
+                                 cand_cap=cand_cap, strand=ap.strand,
+                                 occ_skip=occ_skip)
+                packed = None
+            else:
+                out, packed = core.run()
+            return _Fetch(out, packed, stream)
+
+    def _side_stream(self):
+        """align_batch's high-priority stream; it waits once an index for
+        the work enqueued so far, which may still be building the index."""
+        dev = self.didx.device
+        side = _high_priority_stream(
+            torch.cuda.current_device() if dev.index is None else dev.index)
+        if not self._side_ready:
+            side.wait_stream(torch.cuda.current_stream(dev))
+            self._side_ready = True
+        return side
+
     def align_batch(self, reads: np.ndarray, lengths: np.ndarray, H=None,
                     cand_cap=None, dp=None, occ_skip: bool = True) -> dict:
         """reads: (B, L) int8 host array.  Returns host-side result dict."""
-        out, dp = self.launch(reads, lengths, H=H, cand_cap=cand_cap, dp=dp,
-                              occ_skip=occ_skip)
+        on = (torch.cuda.stream(self._side_stream())
+              if self._staged(reads.shape[1]) else contextlib.nullcontext())
+        with on:
+            out, dp = self.launch(reads, lengths, H=H, cand_cap=cand_cap,
+                                  dp=dp, occ_skip=occ_skip)
         return _to_host(out, dp)
 
     def _fast_params(self, reads):
@@ -264,9 +640,7 @@ class AlignEngine:
         return self.params.derive_fast(
             int(reads.shape[1]), self.didx.total_len, self.didx.lut_bases)
 
-    def launch_primary(self, reads: np.ndarray, lengths: np.ndarray):
-        """Enqueue the primary pass (two-level fast pass when available,
-        classic otherwise).  Pair with finish_primary."""
+    def _launch_pass(self, reads: np.ndarray, lengths: np.ndarray):
         count("engine.rows", len(reads))
         fp = self._fast_params(reads)
         if fp is None:
@@ -276,30 +650,80 @@ class AlignEngine:
                                   cand_cap=fp.cand_cap, dp=fp.dp)
         return (reads, lengths, out, dp, fp)
 
+    def launch_primary(self, reads: np.ndarray, lengths: np.ndarray):
+        """Enqueue the primary pass (two-level fast pass when available,
+        classic otherwise).  Pair with finish_primary."""
+        self._start_reruns()
+        state = self._launch_pass(reads, lengths)
+        if isinstance(state[2], _Fetch) and state[4] is not None:
+            self._inflight.append(state)
+        return state
+
+    def _unresolved(self, res: dict, lengths, fp) -> np.ndarray:
+        """The rows the fast pass left unresolved, for the classic rerun:
+        skip-aware, each skipped core weakens the bound by one."""
+        bound = fp.resolved_bound(lengths, self.params.min_edit_dist)
+        resolved = (
+            res["best_mm"].astype(np.int32) + res["n_over"] <= bound
+        ) & (~res["cap_trunc"])
+        return np.nonzero(~resolved)[0]
+
+    def _start_reruns(self) -> None:
+        """Enqueue the classic rerun of each staged primary pass in flight
+        on align_batch's stream, ahead of the pass about to be launched,
+        which the current stream makes wait for it: on a card busy with
+        that pass the rerun's few rows take as long as the pass, since its
+        ops wait for the pass's blocks, and ahead of it a few hundred
+        microseconds.  A pass in flight is read once its result has
+        landed, or waited for where the last pass finished had rows to
+        rerun (finish_primary would wait for it next all the same)."""
+        for state in self._inflight:
+            reads, lengths, out, dp, fp = state
+            if out.rerun is not None or not (self._rerun_last
+                                             or out.event.query()):
+                continue
+            with span("engine.rerun"):
+                rows = self._unresolved(
+                    {k: v.numpy() for k, v in out.tensors().items()},
+                    lengths, fp)
+                out.rerun = (rows, None)
+                if len(rows):
+                    count("engine.early_reruns", 1)
+                    sub_r, sub_l = pad_rows(reads[rows], lengths[rows])
+                    with torch.cuda.stream(self._side_stream()):
+                        sub = self.launch(sub_r, sub_l)
+                    torch.cuda.current_stream(self.didx.device).wait_event(
+                        sub[0].event)
+                    out.rerun = (rows, (sub_r, sub_l, sub))
+
     def finish_primary(self, state) -> dict:
         """Fetch a launch_primary result and complete it to the full
         align_with_rescue semantics: rerun fast-pass-unresolved reads
         through the classic pass, then the rescue ladder."""
         reads, lengths, out, dp, fp = state
+        self._inflight = collections.deque(
+            (s for s in self._inflight if s is not state),
+            maxlen=self._inflight.maxlen)
         with span("engine.fetch"):
             res = _to_host(out, dp)
         if fp is None:
             self.rescue_pass(reads, lengths, res)
             return res
-        # skip-aware resolution: each skipped core weakens the bound by one
-        bound = fp.resolved_bound(lengths, self.params.min_edit_dist)
-        resolved = (
-            res["best_mm"].astype(np.int32) + res["n_over"] <= bound
-        ) & (~res["cap_trunc"])
+        rows = self._unresolved(res, lengths, fp)
         res["overflow"] = np.zeros_like(res["overflow"])
         res["n_over"] = np.zeros_like(res["n_over"])
         res["cap_trunc"] = np.zeros_like(res["cap_trunc"])
-        rows = np.nonzero(~resolved)[0]
         count("engine.rerun_rows", len(rows))
+        self._rerun_last = bool(len(rows))
         if len(rows):
             with span("engine.rerun"):
-                sub_r, sub_l = pad_rows(reads[rows], lengths[rows])
-                sub = self.align_batch(sub_r, sub_l)
+                early = getattr(out, "rerun", None)
+                if early is not None and early[1] is not None:
+                    sub_r, sub_l, (sub, sub_dp) = early[1]
+                    sub = _to_host(sub, sub_dp)
+                else:
+                    sub_r, sub_l = pad_rows(reads[rows], lengths[rows])
+                    sub = self.align_batch(sub_r, sub_l)
                 self.rescue_pass(sub_r, sub_l, sub)
                 for k in RESULT_KEYS + _LADDER_KEYS:
                     res[k][rows] = sub[k][: len(rows)]
@@ -309,7 +733,7 @@ class AlignEngine:
         """Enqueue only the fast pass (the classic pass where there is no
         fast pass): no unresolved rerun, no rescue.  For chunk sweeps that
         resolve reads on the merged result (two_level_chunk_sweep)."""
-        _, _, out, dp, fp = self.launch_primary(reads, lengths)
+        _, _, out, dp, fp = self._launch_pass(reads, lengths)
         return (out, dp, fp)
 
     def finish_fast(self, state) -> dict:

@@ -254,18 +254,28 @@ def _launch(name: str, pg: PackedGenome, entry_starts, loci, valid, rcodes,
 
 
 def hamming_extend_packed(pg: PackedGenome, entry_starts, loci, valid,
-                          rcodes, rnlane, lengths):
+                          rcodes, rnlane, lengths, *, out=None):
     """(B, C) uint8 mismatch counts; MM_INVALID where masked.
 
     pg: packed genome; entry_starts (E+1,) int32; loci (B, C) int32;
     valid (B, C) bool; rcodes / rnlane (B, W) int32 bits (pack_reads);
-    lengths (B,) int32."""
+    lengths (B,) int32.  `out`: a contiguous (B, C) uint8 tensor on
+    loci's device to write the counts into and return."""
     _check_extend_args(pg, entry_starts, loci, valid, rcodes, rnlane,
                        lengths)
+    if out is not None and (out.shape != loci.shape
+                            or out.dtype != torch.uint8
+                            or out.device != loci.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"hamming_extend_packed: out is {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}, want a contiguous "
+                         f"{tuple(loci.shape)} torch.uint8 on {loci.device}")
     if loci.device.type == "cpu":
-        return hamming_extend_packed_plain(pg, entry_starts, loci, valid,
-                                           rcodes, rnlane, lengths)
-    out = torch.empty(loci.shape, dtype=torch.uint8, device=loci.device)
+        mm = hamming_extend_packed_plain(pg, entry_starts, loci, valid,
+                                         rcodes, rnlane, lengths)
+        return mm if out is None else out.copy_(mm)
+    if out is None:
+        out = torch.empty(loci.shape, dtype=torch.uint8, device=loci.device)
     if loci.numel():
         _launch("hamming_extend_packed", pg, entry_starts, loci, valid,
                 rcodes, rnlane, lengths, out)

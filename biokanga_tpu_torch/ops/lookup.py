@@ -62,7 +62,8 @@ def seed_range_lookup(key_hi, key_lo, lut, lut_bases: int, q_lo_hi, q_lo_lo,
 def pack_read_kmers(codes: torch.Tensor, offsets, k: int):
     """Pack k bases at each offset of each read into query bounds.
 
-    codes: (B, L) int8; offsets: tuple of core offsets.  Returns (q_lo_hi,
+    codes: (B, L) int8; offsets: core offsets, a tuple or an integer
+    tensor on codes' device (no host copy then).  Returns (q_lo_hi,
     q_lo_lo, q_hi_hi, q_hi_lo), each (B, S) int64 unsigned words, and a
     (B, S) bool `has_n` marking cores that contain an N."""
     if not 1 <= k <= 32:

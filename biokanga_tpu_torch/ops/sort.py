@@ -7,6 +7,10 @@ matrix is sorted along C, one read per row:
     sort_rows(x)           == torch.sort(x, dim=1).values
     sort2_rows(key, val)   == (key, val) sorted lexicographically per row
 
+Each takes a keyword-only `out=` (a tensor, or the (key, val) pair) that
+it writes into and returns: the align engine's CUDA graphs hand the
+kernels their static buffers this way (align/pipeline.py).
+
 On a CUDA tensor each wrapper launches its kernel from csrc/sort_rows.cu
 (a bitonic network; one warp a row with the row in registers up to 1,024
 values or 512 pairs, one block a row through shared memory up to 32,768
@@ -38,6 +42,14 @@ def _check_rows(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{name}: unsupported device {x.device}")
 
 
+def _check_out(name: str, out: torch.Tensor, like: torch.Tensor) -> None:
+    if (out.shape != like.shape or out.dtype != like.dtype
+            or out.device != like.device or not out.is_contiguous()):
+        raise ValueError(f"{name}: out is {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device}, want a contiguous "
+                         f"{tuple(like.shape)} {like.dtype} on {like.device}")
+
+
 def sort_rows_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(x, dim=1).values
 
@@ -50,14 +62,20 @@ def sort2_rows_plain(key: torch.Tensor, val: torch.Tensor):
     return (s >> 32).to(torch.int32), ((s & 0xFFFFFFFF) - 2**31).to(torch.int32)
 
 
-def sort_rows(x: torch.Tensor) -> torch.Tensor:
-    """Ascending sort of each row of a (B, C) int32 tensor."""
+def sort_rows(x: torch.Tensor, *, out: torch.Tensor | None = None
+              ) -> torch.Tensor:
+    """Ascending sort of each row of a (B, C) int32 tensor (into `out`)."""
     _check_rows("sort_rows", x)
+    if out is not None:
+        _check_out("sort_rows", out, x)
     if x.device.type == "cpu":
-        return sort_rows_plain(x)
+        if out is None:
+            return sort_rows_plain(x)
+        return out.copy_(sort_rows_plain(x))
     B, C = x.shape
     x = x.contiguous()
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
     if B and C:
         lib = kernels.library()
         stream = kernels.stream_ptr(x.device)
@@ -81,16 +99,27 @@ def sort_rows(x: torch.Tensor) -> torch.Tensor:
 sort_rows.launches = 0
 
 
-def sort2_rows(key: torch.Tensor, val: torch.Tensor):
-    """Sort each row of two (B, C) int32 tensors by (key, val)."""
+def sort2_rows(key: torch.Tensor, val: torch.Tensor, *, out=None):
+    """Sort each row of two (B, C) int32 tensors by (key, val) (into the
+    pair `out`)."""
     _check_rows("sort2_rows", key)
     _check_rows("sort2_rows", val)
     if key.shape != val.shape or key.device != val.device:
         raise ValueError("sort2_rows: key and val differ in shape or device")
+    if out is not None:
+        for o in out:
+            _check_out("sort2_rows", o, key)
     if key.device.type == "cpu":
-        return sort2_rows_plain(key, val)
+        if out is None:
+            return sort2_rows_plain(key, val)
+        for o, r in zip(out, sort2_rows_plain(key, val)):
+            o.copy_(r)
+        return tuple(out)
     key, val = key.contiguous(), val.contiguous()
-    ok, ov = torch.empty_like(key), torch.empty_like(val)
+    if out is None:
+        ok, ov = torch.empty_like(key), torch.empty_like(val)
+    else:
+        ok, ov = out
     B, C = key.shape
     if B and C:
         lib = kernels.library()

@@ -11,7 +11,9 @@
 While a profiler records (`torch.autograd._profiler_enabled()`), `span`
 opens a `torch.profiler.record_function` range, on the profiler's clock
 with the device events of its trace, and `count` adds to a named
-counter; a tensor is summed on its device, without waiting for it.
+counter; a tensor is summed on its device, on the stream it was made on
+and without waiting for it, and its sum is added in `counts()`, so that
+counts from several streams never race.
 Otherwise a span is one shared no-op context and a count does nothing,
 not even the sum: each costs one check of the profiler's state.  There
 is no setting: an operator turns tracing on by running the program
@@ -30,6 +32,7 @@ from torch.profiler import record_function
 
 _NOOP = contextlib.nullcontext()
 _counts: dict = {}
+_pending: dict = {}     # name -> tensor sums not yet added to _counts
 
 
 def span(name: str):
@@ -56,14 +59,21 @@ def count(name: str, n) -> None:
     a tensor whose elements are summed on its device."""
     if torch.autograd._profiler_enabled():
         if isinstance(n, torch.Tensor):
-            n = n.sum()
-        _counts[name] = _counts.get(name, 0) + n
+            _pending.setdefault(name, []).append(n.sum())
+        else:
+            _counts[name] = _counts.get(name, 0) + n
 
 
 def counts() -> dict:
     """The counters as ints (waits for the device)."""
+    if any(t.is_cuda for sums in _pending.values() for t in sums):
+        torch.cuda.synchronize()
+    for k, sums in _pending.items():
+        _counts[k] = _counts.get(k, 0) + int(torch.stack(sums).sum())
+    _pending.clear()
     return {k: int(v) for k, v in _counts.items()}
 
 
 def reset_counts() -> None:
     _counts.clear()
+    _pending.clear()

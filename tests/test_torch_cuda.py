@@ -1331,3 +1331,199 @@ def test_conformation_gather_on_the_card_equals_cpu(cuda_device, tmp_path):
                                     else -(-4_000 // per_batch))
         assert (tmp_path / f"cpu_{out}").read_bytes() == \
             (tmp_path / f"cuda_{out}").read_bytes()
+
+
+# ---- the align engine's CUDA graphs (align/pipeline.py _CoreGraphs) ----
+
+GRAPH_KERNELS = ("sort_rows", "sort2_rows", "hamming_extend_packed")
+
+
+def _repeat_genome():
+    """A 300 kb genome with a 150 bp block in 100 copies: its cores pass
+    the classic pass's 48 positions, so its reads go through the fast
+    pass, the classic rerun and the ladder's first step."""
+    from biokanga_tpu_torch.sim.simreads import random_genome
+
+    seqs = random_genome([("chrA", 200_000), ("chrB", 100_000)], seed=29)
+    block = seqs[0][1][5_000:5_150].copy()
+    for i in range(100):
+        seqs[1][1][10_000 + 400 * i: 10_150 + 400 * i] = block
+    return seqs
+
+
+def _graph_pairs(seqs, k, n_pairs=512, L=100):
+    """Batch k of pairs: 12 pairs with one mate in the repeat block and 12
+    with a mate that has a substitution in every seed core, every batch,
+    so the rerun pads to one row count and the ladder runs each time."""
+    from biokanga_tpu_torch.sim.simreads import simulate_reads
+
+    _, reads, _ = simulate_reads(seqs, n_pairs, read_len=L, sub_rate=0.01,
+                                 seed=300 + k, pe=True, insert_min=200,
+                                 insert_max=500)
+    r1, r2 = reads[0::2].copy(), reads[1::2].copy()
+    g = seqs[1][1]
+    for i in range(12):
+        s = 10_000 + 400 * (7 * i + k) + 20
+        r1[i] = g[s:s + L]
+        r1[i][50] = (r1[i][50] + 1) % 4
+        j = 40 + i
+        r2[j][4:93:11] = (r2[j][4:93:11] + 1) % 4
+    ln = np.full(n_pairs, L, np.int32)
+    return r1, ln, r2, ln
+
+
+def _wrap_kernels(monkeypatch, calls):
+    """Count calls through the pipeline module's kernel names, wrapped as
+    the benchmark wraps them (`*args, **kwargs` passed on)."""
+    from biokanga_tpu_torch.align import pipeline
+
+    for name in GRAPH_KERNELS:
+        fn = getattr(pipeline, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(pipeline, name, wrapped)
+
+
+def _assert_same(got, want, where):
+    assert got.keys() == want.keys(), where
+    for k, v in want.items():
+        if isinstance(v, dict):
+            _assert_same(got[k], v, f"{where}.{k}")
+        elif isinstance(v, np.ndarray):
+            assert got[k].dtype == v.dtype, (where, k)
+            np.testing.assert_array_equal(got[k], v, err_msg=f"{where}.{k}")
+        else:
+            assert got[k] == v, (where, k)
+
+
+@pytest.mark.cuda
+def test_graph_launches_in_flight_equal_eager(cuda_device, monkeypatch):
+    """Launch k + 1 before fetching k, as the CLI loop does: the key's
+    first launch runs eagerly, the second captures and replays, the rest
+    replay, under a profiler too; every result equals align_core run
+    eagerly on the same card, and each launch calls each kernel as
+    often on both paths."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from biokanga_tpu_torch.align import pipeline
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.index.build import build_index
+    from biokanga_tpu_torch.index.device import to_device
+    from biokanga_tpu_torch.utils import trace
+
+    seqs = _repeat_genome()
+    didx = to_device(build_index(seqs, lut_bases=8), cuda_device)
+    ap = AlignParams()
+    eng = pipeline.AlignEngine(didx, ap)
+    fp = ap.derive_fast(100, didx.total_len, didx.lut_bases)
+    batches = []
+    for k in range(5):
+        r1, ln, r2, _ = _graph_pairs(seqs, k)
+        batches.append((np.concatenate([r1, r2]), np.concatenate([ln, ln])))
+    calls = {}
+    _wrap_kernels(monkeypatch, calls)
+    want, eager_calls = [], []
+    for reads, lengths in batches:
+        out = pipeline.align_core(
+            didx, torch.from_numpy(reads).to(cuda_device),
+            torch.from_numpy(lengths).to(cuda_device), ap=ap, dp=fp.dp,
+            H=fp.H, cand_cap=fp.cand_cap, strand=ap.strand)
+        want.append({k: v.cpu().numpy() for k, v in out.items()})
+        eager_calls.append(dict(calls))
+        calls.clear()
+    trace.reset_counts()
+    got, replayed, graph_calls = [], [], []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pending = None
+        for reads, lengths in batches:
+            before = trace.counts().get("engine.graph_launches", 0)
+            cur = eng.launch(reads, lengths, H=fp.H, cand_cap=fp.cand_cap,
+                             dp=fp.dp)
+            replayed.append(trace.counts()["engine.graph_launches"] - before)
+            graph_calls.append(dict(calls))
+            calls.clear()
+            if pending is not None:
+                got.append(pipeline._to_host(*pending))
+            pending = cur
+        got.append(pipeline._to_host(*pending))
+    assert replayed == [0, 1, 1, 1, 1]
+    assert trace.counts()["engine.launches"] == 5
+    assert len(eng._cores) == 1
+    assert graph_calls == eager_calls
+    assert eager_calls[0] == {"sort_rows": 2, "sort2_rows": 1,
+                              "hamming_extend_packed": 2}
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.pop("derived") == fp.dp
+        _assert_same(g, w, f"batch {k}")
+    assert sum(int(w["unique"].sum()) for w in want) > 4_000
+    assert sum(int(w["n_over"].sum()) for w in want) > 0
+    trace.reset_counts()
+
+
+@pytest.mark.cuda
+def test_graph_keys_interleaved_equal_eager(cuda_device, monkeypatch):
+    """Paired-end batches in the CLI's loop: the primary pass on the
+    current stream, the padded classic rerun and the ladder's 2,048-row
+    dispatches on the engine's own stream, three keys interleaved in every
+    batch, the rerun enqueued ahead of the next pass where the card is
+    done (forced in one run by waiting for the card before each launch);
+    every field of every batch equals the engine's with no graph and one
+    batch at a time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from biokanga_tpu_torch.align import pipeline
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.align.pe import PEAligner, PEParams
+    from biokanga_tpu_torch.index.build import build_index
+    from biokanga_tpu_torch.index.device import to_device
+    from biokanga_tpu_torch.utils import trace
+
+    seqs = _repeat_genome()
+    didx = to_device(build_index(seqs, lut_bases=8), cuda_device)
+    batches = [_graph_pairs(seqs, k) for k in range(5)]
+    calls = {}
+    _wrap_kernels(monkeypatch, calls)
+    max_keys = pipeline.MAX_GRAPH_KEYS
+
+    def run(keys, in_flight, wait_first=False):
+        monkeypatch.setattr(pipeline, "MAX_GRAPH_KEYS", keys)
+        pea = PEAligner(pipeline.AlignEngine(didx, AlignParams()),
+                        PEParams(pair_min_len=100, pair_max_len=600))
+        out, pending = [], None
+        trace.reset_counts()
+        with profile(activities=[ProfilerActivity.CPU]):
+            for b in batches:
+                if not in_flight:
+                    out.append(pea.finish_pairs(pea.launch_pairs(*b)))
+                    continue
+                if wait_first:
+                    torch.cuda.synchronize()
+                cur = pea.launch_pairs(*b)
+                if pending is not None:
+                    out.append(pea.finish_pairs(pending))
+                pending = cur
+            if pending is not None:
+                out.append(pea.finish_pairs(pending))
+        n = dict(calls)
+        calls.clear()
+        return out, n, pea.engine, trace.counts()
+
+    want, eager_calls, _, c = run(0, False)
+    assert c.get("engine.early_reruns", 0) == 0
+    for wait_first in (False, True):
+        got, graph_calls, eng, c = run(max_keys, True, wait_first)
+        assert graph_calls == eager_calls
+        rows = sorted(key[1] for key in eng._cores)
+        # the primary pass (1,024 rows), the rerun padded to 64 and the
+        # ladder's fixed 2,048-row dispatch
+        assert rows == [64, 1024, 2048], rows
+        assert len({key[0] for key in eng._cores}) == 2    # two streams
+        if wait_first:
+            # every batch's rerun but the last went ahead of the next pass
+            assert c["engine.early_reruns"] == len(batches) - 1
+        for k, (g, w) in enumerate(zip(got, want)):
+            _assert_same(g, w, f"batch {k}")
+    assert sum(int(w["proper"].sum()) for w in want) > 2_000

@@ -216,3 +216,24 @@ def test_count_sums_tensors_and_spanned_opens_a_range_a_call():
     assert len(_ranges(prof, "test.call")) == 2
     trace.reset_counts()
     assert trace.counts() == {}
+
+
+def test_every_launch_counted_and_none_replayed_on_the_cpu(didx, pairs,
+                                                           monkeypatch):
+    calls = []
+    real = pipeline.align_core
+
+    def counting(*a, **k):
+        calls.append(a[1].shape)
+        return real(*a, **k)
+
+    monkeypatch.setattr(pipeline, "align_core", counting)
+    pea = _aligner(didx)
+    _profiled(lambda: pea.finish_pairs(pea.launch_pairs(*pairs[1])))
+    got = trace.counts()
+    # the primary pass, and in the divergent set the classic rerun: one
+    # align_core call a launch on the CPU
+    assert len(calls) >= (2 if pairs[0] == "divergent" else 1)
+    assert got["engine.launches"] == len(calls)
+    assert got.get("engine.graph_launches", 0) == 0
+    assert pea.engine._cores == {}
