@@ -286,6 +286,14 @@ class _CoreGraphs:
 
     `capture(fn) -> (replay, outputs)` captures one segment
     (`_cuda_capture`); outputs are read after each replay.
+
+    Only the seed stage reads the index (the extension, eager, is given
+    it), so one `_CoreGraphs` serves several indexes of one shape, as
+    the engines of a chunked index share it (`AlignEngine`'s `graphs`):
+    `run(didx)` replays that index's seed segments, captured at its first
+    run, which write into the first index's static outputs, and every
+    other segment and static buffer is shared.  The indexes' runs must
+    then follow one another on one stream, as a key's do.
     """
 
     def __init__(self, didx: DeviceIndex, ap: AlignParams, dp: DerivedParams,
@@ -302,6 +310,7 @@ class _CoreGraphs:
             self._segments.append(fn)
             return cuda_capture(fn)
 
+        self._capture = capture
         self.didx = didx
         # all N and of length 0 until the first batch is copied in
         self.reads = torch.full((B, L), 4, dtype=torch.int8, device=dev)
@@ -309,19 +318,24 @@ class _CoreGraphs:
         # made by host-to-device copies, so outside the captures
         offs = torch.as_tensor(dp.offsets, dtype=torch.int32, device=dev)
         rate = _budget_rate(ap, dev)
-        self.strands = []
-        for rc in ((False,) if ap.strand == "sense" else
-                   (True,) if ap.strand == "antisense" else (False, True)):
-            st = {}
 
-            def seed(rc=rc):
+        def seed_of(didx, rc):
+            def seed():
                 seq = (_rc_reads(self.reads, self.lengths) if rc
                        else self.reads)
                 flat, overflow = _seed_diagonals(didx, seq, dp, H,
                                                  didx.owned, occ_skip, offs)
                 return seq, flat, overflow
+            return seed
 
-            st["seed"], (seq, st["flat"], overflow) = capture(seed)
+        self._seed_of = seed_of
+        self.strands = []
+        for rc in ((False,) if ap.strand == "sense" else
+                   (True,) if ap.strand == "antisense" else (False, True)):
+            st = {"rc": rc}
+            st["seed"], (seq, st["flat"], overflow) = capture(
+                seed_of(didx, rc))
+            st["static"] = (seq, st["flat"], overflow)
             st["srt"] = torch.empty_like(st["flat"])
 
             def dedup(st=st, seq=seq, overflow=overflow):
@@ -361,12 +375,31 @@ class _CoreGraphs:
             return out, _pack_result(out)
 
         self.accept, (self.out, self.packed) = capture(accept)
+        # id(index) -> (the index, its seed segments' replays, a strand each)
+        self._seeds = {id(didx): (didx, [st["seed"] for st in self.strands])}
 
-    def run(self):
-        """(result dict, its `_pack_result`), both static."""
-        didx = self.didx
+    def _add_index(self, didx: DeviceIndex):
+        """Capture the seed segments of another index of the same shape:
+        each writes its outputs into the first index's static ones."""
+        seeds = []
         for st in self.strands:
-            st["seed"]()
+            def seed(fn=self._seed_of(didx, st["rc"]), static=st["static"]):
+                for dst, src in zip(static, fn()):
+                    if dst.data_ptr() != src.data_ptr():
+                        dst.copy_(src)
+                return static
+            seeds.append(self._capture(seed)[0])
+        self._seeds[id(didx)] = (didx, seeds)
+        return seeds
+
+    def run(self, didx: DeviceIndex | None = None):
+        """(result dict, its `_pack_result`), both static, for `didx` (the
+        index it was made with when None)."""
+        didx = self.didx if didx is None else didx
+        known = self._seeds.get(id(didx))
+        seeds = known[1] if known is not None else self._add_index(didx)
+        for st, seed in zip(self.strands, seeds):
+            seed()
             sort_rows(st["flat"], out=st["srt"])
             st["dedup"]()
             count("extend.slots", st["valid"].numel())
@@ -492,11 +525,20 @@ class AlignEngine:
     primary pass enqueued before it; and the classic rerun of a primary pass in flight
     is enqueued, where it can be, ahead of the next one
     (`_start_reruns`).
+
+    `graphs`: a dict of launch keys to `_CoreGraphs` that engines over
+    indexes of one shape share (the chunks of a chunked index), so that
+    a key's static buffers and graph pool are held once and not once an
+    engine.  Their launches must then run one after another, as a sweep
+    over the chunks runs them; shared graphs outlive a `didx` setting.
     """
 
-    def __init__(self, didx: DeviceIndex, params: AlignParams | None = None):
+    def __init__(self, didx: DeviceIndex, params: AlignParams | None = None,
+                 graphs: dict | None = None):
         self.params = params or AlignParams()
-        self._cores: dict = {}      # launch key -> _CoreGraphs
+        self._own_graphs = graphs is None
+        # launch key -> _CoreGraphs
+        self._cores: dict = {} if graphs is None else graphs
         self._seen: dict = {}       # launch key -> launches so far
         # staged primary passes launched and not yet finished, whose
         # reruns _start_reruns may enqueue early
@@ -510,9 +552,10 @@ class AlignEngine:
 
     @didx.setter
     def didx(self, didx: DeviceIndex) -> None:
-        if self._cores:
-            torch.cuda.synchronize()    # replays may still read the old one
-        self._cores.clear()
+        if self._own_graphs:
+            if self._cores:
+                torch.cuda.synchronize()  # replays may still read the old one
+            self._cores.clear()
         self._seen.clear()
         self._inflight.clear()
         self._side_ready = False        # the new index may still be built
@@ -608,7 +651,7 @@ class AlignEngine:
                                  occ_skip=occ_skip)
                 packed = None
             else:
-                out, packed = core.run()
+                out, packed = core.run(didx)
             return _Fetch(out, packed, stream)
 
     def _side_stream(self):
@@ -650,12 +693,24 @@ class AlignEngine:
                                   cand_cap=fp.cand_cap, dp=fp.dp)
         return (reads, lengths, out, dp, fp)
 
-    def launch_primary(self, reads: np.ndarray, lengths: np.ndarray):
+    def launch_primary(self, reads: np.ndarray, lengths: np.ndarray,
+                       classic_too: bool = False):
         """Enqueue the primary pass (two-level fast pass when available,
-        classic otherwise).  Pair with finish_primary."""
+        classic otherwise).  Pair with finish_primary.
+
+        `classic_too`: with a fast pass, enqueue the classic pass of every
+        row behind it now, for a caller most of whose rows the fast pass
+        leaves unresolved (a chunk of a chunked index, where a read's hits
+        lie in one chunk of many): finish_primary then takes each
+        unresolved row's classic result from it, as rows are independent,
+        and nothing waits on the host between the two passes."""
         self._start_reruns()
         state = self._launch_pass(reads, lengths)
-        if isinstance(state[2], _Fetch) and state[4] is not None:
+        if state[4] is None:
+            return state
+        if classic_too:
+            return state + (self.launch(reads, lengths),)
+        if isinstance(state[2], _Fetch):
             self._inflight.append(state)
         return state
 
@@ -700,7 +755,7 @@ class AlignEngine:
         """Fetch a launch_primary result and complete it to the full
         align_with_rescue semantics: rerun fast-pass-unresolved reads
         through the classic pass, then the rescue ladder."""
-        reads, lengths, out, dp, fp = state
+        reads, lengths, out, dp, fp = state[:5]
         self._inflight = collections.deque(
             (s for s in self._inflight if s is not state),
             maxlen=self._inflight.maxlen)
@@ -715,7 +770,11 @@ class AlignEngine:
         res["cap_trunc"] = np.zeros_like(res["cap_trunc"])
         count("engine.rerun_rows", len(rows))
         self._rerun_last = bool(len(rows))
-        if len(rows):
+        if len(rows) and len(state) > 5:
+            with span("engine.rerun"):
+                res = self._take_classic(reads, lengths, rows, res,
+                                         _to_host(*state[5]))
+        elif len(rows):
             with span("engine.rerun"):
                 early = getattr(out, "rerun", None)
                 if early is not None and early[1] is not None:
@@ -728,6 +787,25 @@ class AlignEngine:
                 for k in RESULT_KEYS + _LADDER_KEYS:
                     res[k][rows] = sub[k][: len(rows)]
         return res
+
+    def _take_classic(self, reads, lengths, rows, res: dict,
+                      sub: dict) -> dict:
+        """finish_primary's rerun from a classic pass of every row
+        (launch_primary's `classic_too`): the rescue ladder over the
+        unresolved `rows` alone (the others' ladder flags cleared); the
+        result is that pass's, with the resolved rows' fast-pass fields
+        put back (few rows where most rerun)."""
+        kept = np.ones(len(reads), bool)
+        kept[rows] = False
+        kept = np.nonzero(kept)[0]
+        sub["n_over"][kept] = 0
+        sub["cap_trunc"][kept] = False
+        self.rescue_pass(reads, lengths, sub)
+        sub["overflow"][kept] = False
+        for k in RESULT_KEYS:
+            sub[k][kept] = res[k][kept]
+        sub["derived"] = res["derived"]
+        return sub
 
     def launch_fast(self, reads: np.ndarray, lengths: np.ndarray):
         """Enqueue only the fast pass (the classic pass where there is no

@@ -631,7 +631,9 @@ def _align_chunked(args, device, input_blocks, log, sw) -> None:
     mate files with -d -D -E, and for single ends -a -A, -O with -p -P
     --snpnonrefpcnt, and --checkpoint-dir; it ignores every other
     option (no insert CSV, side files but the SNP CSV, post-passes, trims
-    or -q rows)."""
+    or -q rows).  Every chunk stays on the device, uploaded once, where
+    the index fits there (parallel/chunked.ChunkedAligner); else the
+    chunks cycle through it."""
     from .align.params import AlignParams, Sensitivity
     from .align.pipeline import pad_rows
     from .align.sam import write_alignments_sam
@@ -649,6 +651,13 @@ def _align_chunked(args, device, input_blocks, log, sw) -> None:
         batch_size=args.batch_size,
     )
     ca = ChunkedAligner(ci, params, device)
+    if ca.resident is not None:
+        log.info("%d chunks resident on %s: %.2f GiB (%.1fs)",
+                 ca.num_chunks, device, ca.index_bytes() / 2**30,
+                 sw.mark("upload"))
+    else:
+        log.info("index larger than the free memory of %s: chunks cycle",
+                 device)
     if args.pair:
         from .align.pe import PEParams
         from .align.sam import write_pe_sam

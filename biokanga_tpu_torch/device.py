@@ -11,6 +11,10 @@ word as a non-negative int64 (`u32`), mask every left shift with
 `U32_MASK`, and count bits with SWAR (`popcount32`).  Tensors that a
 CUDA kernel reads keep the same 32 bits in int32 storage (`i32_bits`);
 the kernels read them as `uint32_t`.
+
+Suffix keys are held in 32 bits (`key32`): the unsigned word with its
+sign bit flipped, as int32, so that a signed compare of two keys is the
+unsigned compare of their words.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 
 U32_MASK = 0xFFFFFFFF
 I32_MAX = 2**31 - 1
+SIGN32 = 2**31
 
 
 def resolve_device(arg: str | torch.device) -> torch.device:
@@ -39,6 +44,23 @@ def u32(x: torch.Tensor) -> torch.Tensor:
 def i32_bits(x: torch.Tensor) -> torch.Tensor:
     """int64 tensor of values in [0, 2^32) -> int32 with the same 32 bits."""
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def key32(x: torch.Tensor) -> torch.Tensor:
+    """int64 tensor of values in [0, 2^32) -> int32 keys in the same
+    order: each value with its sign bit flipped (x - 2^31)."""
+    return (x - SIGN32).to(torch.int32)
+
+
+def key32_from_numpy(a: np.ndarray) -> np.ndarray:
+    """numpy uint32 array -> int32 keys in the same order (`key32`)."""
+    a = np.asarray(a, np.uint32) ^ np.uint32(SIGN32)
+    return a.view(np.int32)
+
+
+def u32_from_key32(k: torch.Tensor) -> torch.Tensor:
+    """`key32` keys -> int64 with the unsigned word's value."""
+    return k.to(torch.int64) + SIGN32
 
 
 def u32_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -20,21 +20,31 @@ package did so to share one compiled graph; the padding also sets the
 result, because AlignParams.derive takes the padded length to choose the
 core length, so it is kept exactly: codes pad with N, keys with
 0xFFFFFFFF, entry starts by repeating the slice length.
+
+`ResidentChunks` holds every chunk's DeviceIndex on one device at once:
+a host index uploaded once (`upload_chunked_index`), where its bytes fit
+(`fits_on_device`), or chunks built on the device
+(index/device_build.build_resident_chunks).
 """
 from __future__ import annotations
 
 import json
+import os
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..ops.extend_packed import pack_genome
+from ..ops.extend_packed import PAD_ROWS, ROW_STRIDE_BASES, pack_genome
 from .build import DEFAULT_LUT_BASES, GenomeIndex, build_index
-from .device import DeviceIndex, _padded_positions, _tensor
+from .device import (MAX_CAND_PER_CORE, DeviceIndex, _keys,
+                     _padded_positions, _tensor, index_nbytes)
 
 DEFAULT_OVERLAP = 2048  # must cover the longest alignment window - 1
+# a host index is held on the device when its bytes are at most this share
+# of the device's free memory: the rest is the engines' working memory
+RESIDENT_SHARE = 0.75
 
 
 @dataclass
@@ -242,8 +252,8 @@ def chunk_to_device(ci: ChunkedIndex, k: int, pad_shapes=None,
         genome=_tensor(codes, np.int8, device),
         entry_starts=_tensor(es, np.int32, device),
         pos_sorted=_tensor(_padded_positions(pos), np.int32, device),
-        key_hi=_tensor(khi, np.int64, device),
-        key_lo=_tensor(klo, np.int64, device),
+        key_hi=_keys(khi, device),
+        key_lo=_keys(klo, device),
         lut=_tensor(lut, np.int32, device),
         lut_bases=idx.lut_bases,
         entry_names=list(idx.entry_names),
@@ -251,3 +261,68 @@ def chunk_to_device(ci: ChunkedIndex, k: int, pad_shapes=None,
         max_bsearch_steps=steps,
         owned=int(ci.owned[k]),
     )
+
+
+@dataclass
+class ResidentChunks:
+    """Every chunk of a chunked index on one device at once: a DeviceIndex
+    a chunk, padded to one shape and with its ownership limit, and the
+    chunk plan in global coordinates."""
+
+    chunks: list[DeviceIndex]
+    bases: np.ndarray           # (K,) int64 global offset of slice start
+    owned: np.ndarray           # (K,) int64 owned length per chunk
+    entry_names: list[str]
+    entry_starts: np.ndarray    # (E+1,) int64 global entry boundaries
+    overlap: int
+
+    @property
+    def num_chunks(self) -> int:
+        return len(self.chunks)
+
+    @property
+    def total_len(self) -> int:
+        return int(self.entry_starts[-1])
+
+    def nbytes(self) -> int:
+        """Device bytes of every chunk's tensors."""
+        return sum(index_nbytes(c) for c in self.chunks)
+
+
+def padded_nbytes(ci: ChunkedIndex) -> int:
+    """Device bytes of every chunk of `ci` as chunk_to_device makes them:
+    codes, entry starts, tail-padded positions, two int32 key arrays, the
+    LUT and the packed rows with their N plane (the N pad gives every
+    chunk one)."""
+    pad_n, pad_E, _ = ci.pad_shapes()
+    pos = (pad_n + MAX_CAND_PER_CORE) // 64 * 64
+    rows = 2 * (pad_n // ROW_STRIDE_BASES + PAD_ROWS) * 64
+    lut = 4 * (4 ** ci.chunks[0].lut_bases + 1)
+    one = pad_n + 4 * (pad_E + 1) + 4 * pos + 8 * pad_n + lut + rows
+    return ci.num_chunks * one
+
+
+def free_bytes(device: torch.device) -> int:
+    """Free memory of `device`: the card's, or the host's available pages
+    for the CPU."""
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[0])
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def fits_on_device(ci: ChunkedIndex, device: torch.device) -> bool:
+    """Whether every chunk of `ci` can stay on `device`: its bytes at most
+    RESIDENT_SHARE of the free memory."""
+    return padded_nbytes(ci) <= RESIDENT_SHARE * free_bytes(device)
+
+
+def upload_chunked_index(ci: ChunkedIndex,
+                         device: torch.device | str = "cuda"
+                         ) -> ResidentChunks:
+    """Every chunk of a host ChunkedIndex on `device`, uploaded once."""
+    shapes = ci.pad_shapes()
+    return ResidentChunks(
+        chunks=[chunk_to_device(ci, k, shapes, device)
+                for k in range(ci.num_chunks)],
+        bases=ci.bases, owned=ci.owned, entry_names=list(ci.entry_names),
+        entry_starts=ci.entry_starts, overlap=ci.overlap)

@@ -3,8 +3,9 @@
 Counterpart of biokanga_tpu/index/device.py.  The sorted positions stay
 flat (the JAX package's 64-int rows served the TPU's row gathers); the
 MAX_CAND_PER_CORE tail pad stays, so a candidate run of up to that many
-slots read from any start <= n is in bounds.  Keys are uint32 values in
-int64 (device.u32) for unsigned compares.
+slots read from any start <= n is in bounds.  Keys are int32 with the
+sign bit flipped (device.key32), so that signed compares give the JAX
+package's unsigned order in half the memory of int64 values.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import u32_from_numpy
+from ..device import key32_from_numpy, u32_from_numpy
 from ..ops.extend_packed import PackedGenome, pack_genome
 from .build import GenomeIndex
 
@@ -27,8 +28,8 @@ class DeviceIndex:
     genome: torch.Tensor        # (n,) int8
     entry_starts: torch.Tensor  # (E+1,) int32
     pos_sorted: torch.Tensor    # (n + tail pad, cut to a multiple of 64,) int32
-    key_hi: torch.Tensor        # (n,) int64 unsigned 32-bit keys
-    key_lo: torch.Tensor        # (n,) int64
+    key_hi: torch.Tensor        # (n,) int32 keys (device.key32)
+    key_lo: torch.Tensor        # (n,) int32
     lut: torch.Tensor           # (4^P + 1,) int32
     lut_bases: int
     entry_names: list[str]
@@ -47,6 +48,16 @@ class DeviceIndex:
         return self.genome.device
 
 
+def index_nbytes(didx: DeviceIndex) -> int:
+    """Device bytes of an index's tensors."""
+    ts = [didx.genome, didx.entry_starts, didx.pos_sorted, didx.key_hi,
+          didx.key_lo, didx.lut]
+    if didx.packed is not None:
+        ts += [t for t in (didx.packed.rows, didx.packed.n_rows)
+               if t is not None]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def _bsearch_steps(lut: np.ndarray) -> int:
     max_bucket = int(np.diff(lut.astype(np.int64)).max())
     return max(1, int(np.ceil(np.log2(max_bucket + 1))) + 1)
@@ -62,6 +73,11 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.require(a, dtype, ["C", "W"])).to(device)
 
 
+def _keys(a, device) -> torch.Tensor:
+    """uint32 host keys as `key32` keys on `device`."""
+    return torch.from_numpy(key32_from_numpy(a)).to(device)
+
+
 def to_device(idx: GenomeIndex, device: torch.device,
               pack: bool = True) -> DeviceIndex:
     """Move a host GenomeIndex to `device`, packing the genome rows unless
@@ -73,8 +89,8 @@ def to_device(idx: GenomeIndex, device: torch.device,
         entry_starts=_tensor(idx.entry_starts, np.int32, device),
         pos_sorted=_tensor(_padded_positions(idx.pos_sorted), np.int32,
                            device),
-        key_hi=_tensor(idx.key_hi, np.int64, device),
-        key_lo=_tensor(idx.key_lo, np.int64, device),
+        key_hi=_keys(idx.key_hi, device),
+        key_lo=_keys(idx.key_lo, device),
         lut=_tensor(idx.lut, np.int32, device),
         lut_bases=idx.lut_bases,
         entry_names=list(idx.entry_names),
@@ -97,8 +113,8 @@ def from_arrays(arrays: dict, device: torch.device) -> DeviceIndex:
         entry_starts=_tensor(arrays["entry_starts"], np.int32, device),
         pos_sorted=_tensor(np.asarray(arrays["pos_rows"]).reshape(-1),
                            np.int32, device),
-        key_hi=_tensor(arrays["key_hi"], np.int64, device),
-        key_lo=_tensor(arrays["key_lo"], np.int64, device),
+        key_hi=_keys(arrays["key_hi"], device),
+        key_lo=_keys(arrays["key_lo"], device),
         lut=_tensor(arrays["lut"], np.int32, device),
         lut_bases=int(arrays["lut_bases"]),
         entry_names=list(arrays["entry_names"]),

@@ -2,14 +2,17 @@
 
 Counterpart of biokanga_tpu/index/device_build.py: `device_build_index`
 (:142), its packed rows (`_packed_rows`, which also serves as the JAX
-package's `_pack_only`) and `DeviceBuildChunkedAligner` (:187).  Only
+package's `_pack_only`) and `DeviceBuildChunkedAligner` (:187), which
+builds a chunk each time it is needed; `build_resident_chunks` builds
+every chunk once and keeps them all on the device.  Only
 the int8 codes go to the device; the 32-base keys, their sorted order,
 the prefix LUT and the packed 2-bit rows are computed there, and the
 result is a DeviceIndex like the one `index/device.to_device` makes from
 a host build.  The JAX package sorts (key_hi, key_lo, pos) in one 3-key
 `jax.lax.sort`; here two stable `torch.sort` passes, by key_lo and then
 by key_hi, over positions in ascending order give that order exactly.
-Keys are uint32 values held in int64 (device.u32).
+The keys are sorted and kept as int32 `device.key32` keys, whose signed
+order is the unsigned order of the JAX package's uint32 words.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import numpy as np
 import torch
 
 from ..align.params import AlignParams, min_core_len
-from ..device import i32_bits, resolve_device
+from ..device import i32_bits, key32, resolve_device
+from ..utils.trace import count
 from ..ops.extend_packed import (
     BASES_PER_WORD,
     PAD_ROWS,
@@ -27,11 +31,13 @@ from ..ops.extend_packed import (
     ROW_WORDS,
     PackedGenome,
 )
+from .chunked import ResidentChunks, plan_chunks
 from .device import MAX_CAND_PER_CORE, DeviceIndex
 
 
 def _keys(codes: torch.Tensor):
-    """(hi, lo) int64 unsigned 32-bit keys of every position: hi packs
+    """(hi, lo) int64 unsigned 32-bit keys of every position, views of one
+    tensor: hi packs
     bases [i, i+16), lo bases [i+16, i+32); N and bases past the end
     pack as 0 (A)."""
     n = codes.shape[0]
@@ -101,16 +107,20 @@ def device_build_index(codes: np.ndarray, entry_starts: np.ndarray,
                      torch.cumsum(cnt, 0)]).to(torch.int32)
     del cnt
 
+    # 32-bit keys from here on: half the memory of the sorts and the index
+    hi32 = key32(hi)
+    lo32 = key32(lo) if with_keys else None
+    del hi, lo
     # (key_hi, key_lo, pos) order: stable sorts, least significant key first
     if with_keys:
-        order = torch.sort(lo, stable=True).indices
-        order = order[torch.sort(hi[order], stable=True).indices]
-        key_hi, key_lo = hi[order], lo[order]
+        order = torch.sort(lo32, stable=True).indices
+        order = order[torch.sort(hi32[order], stable=True).indices]
+        key_hi, key_lo = hi32[order], lo32[order]
     else:
-        order = torch.sort(hi, stable=True).indices
-        key_hi = hi[order[:1]]
+        order = torch.sort(hi32, stable=True).indices
+        key_hi = hi32[order[:1]]
         key_lo = key_hi
-    del hi, lo
+    del hi32, lo32
 
     pad = MAX_CAND_PER_CORE + (-(n + MAX_CAND_PER_CORE) % 64)
     pos = torch.cat([order.to(torch.int32),
@@ -134,6 +144,55 @@ def device_build_index(codes: np.ndarray, entry_starts: np.ndarray,
     )
 
 
+def chunk_pad(plans) -> int:
+    """The one length every chunk is N-padded to: past the longest slice,
+    a multiple of 128 (as the JAX package pads it)."""
+    return (max(p[2] for p in plans) // 128 + 1) * 128
+
+
+def chunk_codes(codes: np.ndarray, entry_starts: np.ndarray, plan,
+                pad_n: int):
+    """(codes (pad_n,) int8, local entry starts) of one chunk's slice."""
+    base, _, slice_len = plan
+    out = np.full(pad_n, 4, np.int8)
+    out[:slice_len] = codes[base: base + slice_len]
+    es = np.clip(np.asarray(entry_starts, np.int64) - base, 0, slice_len)
+    return out, es
+
+
+def build_resident_chunks(codes: np.ndarray, entry_starts: np.ndarray,
+                          entry_names: list[str], lut_bases: int = 12,
+                          max_chunk: int = 256_000_000,
+                          overlap: int = 2048,
+                          device: torch.device | str = "cuda"
+                          ) -> ResidentChunks:
+    """Build every chunk of plan_chunks(total, max_chunk, overlap) on
+    `device` with `device_build_index`, one after another, and keep them
+    all there.  `codes`: the whole genome's int8 codes (N = 4);
+    `entry_starts`, `entry_names`: its (E+1,) global entry starts and its
+    entries' names.  Each chunk is N-padded to one length and carries its
+    ownership limit and true length, as DeviceBuildChunkedAligner builds
+    it, with its keys; each build's temporaries are freed before the next
+    starts."""
+    device = resolve_device(device)
+    starts = np.asarray(entry_starts, np.int64)
+    plans = plan_chunks(int(starts[-1]), max_chunk, overlap)
+    pad_n = chunk_pad(plans)
+    chunks = []
+    for plan in plans:
+        c, es = chunk_codes(codes, starts, plan, pad_n)
+        chunks.append(device_build_index(c, es, lut_bases, owned=plan[1],
+                                         device=device, true_len=plan[2]))
+        del c
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+    return ResidentChunks(
+        chunks=chunks, bases=np.asarray([p[0] for p in plans], np.int64),
+        owned=np.asarray([p[1] for p in plans], np.int64),
+        entry_names=list(entry_names), entry_starts=starts, overlap=overlap)
+
+
 class DeviceBuildChunkedAligner:
     """Big-genome aligner on one device: cycle genome-range chunks through
     device memory, building each chunk's index on the device (only its
@@ -152,8 +211,6 @@ class DeviceBuildChunkedAligner:
                  max_chunk: int = 256_000_000, overlap: int = 2048,
                  lut_bases: int = 12, device: torch.device | str = "cuda",
                  with_keys: bool | None = None):
-        from .chunked import plan_chunks
-
         self.params = params or AlignParams()
         self.lut_bases = lut_bases
         self.device = resolve_device(device)
@@ -173,8 +230,7 @@ class DeviceBuildChunkedAligner:
         )
         self.plans = plan_chunks(total, max_chunk, overlap)
         self.bases = np.asarray([p[0] for p in self.plans], np.int64)
-        # every chunk N-padded to past the longest slice
-        self.pad_n = (max(p[2] for p in self.plans) // 128 + 1) * 128
+        self.pad_n = chunk_pad(self.plans)
         self._engine = None
         self.build_s: list[float] = []  # wall per engine_for chunk build
         # build timing synchronises the device after each chunk build
@@ -192,6 +248,7 @@ class DeviceBuildChunkedAligner:
         if self._engine is not None:
             self._engine.didx = None
         t0 = time.monotonic()
+        count("chunked.uploads", 1)
         didx = self.build_chunk(k)
         if self.time_builds and didx.device.type == "cuda":
             torch.cuda.synchronize(didx.device)
@@ -205,11 +262,9 @@ class DeviceBuildChunkedAligner:
         return self._engine
 
     def _chunk_codes(self, k: int):
-        base, own, slice_len = self.plans[k]
-        codes = np.full(self.pad_n, 4, np.int8)
-        codes[:slice_len] = self._codes[base : base + slice_len]
-        es = np.clip(self.entry_starts - base, 0, slice_len)
-        return codes, es.astype(np.int64), own
+        codes, es = chunk_codes(self._codes, self.entry_starts,
+                                self.plans[k], self.pad_n)
+        return codes, es, self.plans[k][1]
 
     def _auto_with_keys(self) -> bool:
         if self.with_keys is not None:
@@ -284,7 +339,7 @@ class DeviceBuildChunkedAligner:
             if progress:
                 progress(k)
         return [merge_chunk_results(per_block[b], self.bases, lengths,
-                                    self.params)
+                                    self.params, self.device)
                 for b, (_, lengths) in enumerate(blocks)]
 
     def align(self, reads: np.ndarray, lengths: np.ndarray) -> dict:

@@ -2,15 +2,17 @@
 
 Counterpart of biokanga_tpu/ops/lookup.py: a prefix LUT gives each query
 its bucket, and a fixed-trip binary search over (hi, lo) key pairs finds
-the range inside it.  Keys and queries are uint32 values held in int64
-(device.u32), so every compare is the unsigned compare of the JAX
-package.  Plain torch on every device: there is no TPU kernel here.
+the range inside it.  Queries are uint32 values held in int64
+(device.u32); the index keys are int32 `device.key32` keys, and the
+search flips the queries the same way, so every compare is the unsigned
+compare of the JAX package.  Plain torch on every device: there is no
+TPU kernel here.
 """
 from __future__ import annotations
 
 import torch
 
-from ..device import U32_MASK
+from ..device import U32_MASK, key32
 
 # 31 halvings always converge for n < 2^31 elements (fallback bound).
 MAX_BSEARCH_STEPS = 31
@@ -18,7 +20,8 @@ MAX_BSEARCH_STEPS = 31
 
 def _lower_bound(key_hi, key_lo, lo, hi, q_hi, q_lo, strict: bool,
                  steps: int):
-    """First index i in [lo0, hi0] with key[i] > q (strict) or >= q."""
+    """First index i in [lo0, hi0] with key[i] > q (strict) or >= q; keys
+    and queries alike `key32` keys."""
     last = key_hi.shape[0] - 1
     for _ in range(steps):
         mid = (lo + hi) >> 1
@@ -41,7 +44,7 @@ def seed_range_lookup(key_hi, key_lo, lut, lut_bases: int, q_lo_hi, q_lo_lo,
                       max_steps: int = MAX_BSEARCH_STEPS):
     """(start, end) int64 index ranges: all i with qlow <= key[i] <= qhigh.
 
-    key_hi / key_lo: (n,) int64 sorted unsigned keys; lut: (4^P + 1,)
+    key_hi / key_lo: (n,) int32 sorted `key32` keys; lut: (4^P + 1,)
     int32 bucket starts; queries: int64 unsigned words of any batch shape.
     When core_len <= lut_bases the range is exactly a run of LUT buckets;
     otherwise a binary search of `max_steps` trips inside the bucket."""
@@ -52,10 +55,10 @@ def seed_range_lookup(key_hi, key_lo, lut, lut_bases: int, q_lo_hi, q_lo_lo,
     if 0 < core_len <= P:
         return lo0, hi0
     steps = min(max_steps, MAX_BSEARCH_STEPS)
-    start = _lower_bound(key_hi, key_lo, lo0, hi0, q_lo_hi, q_lo_lo,
-                         strict=False, steps=steps)
-    end = _lower_bound(key_hi, key_lo, lo0, hi0, q_hi_hi, q_hi_lo,
-                       strict=True, steps=steps)
+    start = _lower_bound(key_hi, key_lo, lo0, hi0, key32(q_lo_hi),
+                         key32(q_lo_lo), strict=False, steps=steps)
+    end = _lower_bound(key_hi, key_lo, lo0, hi0, key32(q_hi_hi),
+                       key32(q_hi_lo), strict=True, steps=steps)
     return start, end
 
 

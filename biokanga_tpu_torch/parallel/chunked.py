@@ -16,19 +16,33 @@ ownership makes the per-chunk candidate sets disjoint:
 which reproduces the reference's LowMMCnt/NxtLowMMCnt acceptance rule
 (libbiokanga/SfxArrayV2.h:70-77) over the whole genome.  Merged loci are
 int64 on the host; device tensors stay chunk-local int32.
+
+Where every chunk fits on the device at once (index/chunked.py
+`ResidentChunks`), `ChunkedAligner` keeps one AlignEngine a chunk, whose
+launch keys share one set of CUDA graphs (`AlignEngine`'s `graphs`), and
+a block's sweep enqueues every chunk's primary pass before it finishes
+the first; otherwise it cycles the chunks through one engine.  Spans
+`chunked.sweep`, `chunked.merge`, `chunked.rescue`; counters
+`chunked.chunk_passes`, `chunked.rows`, `chunked.index_bytes`,
+`chunked.uploads` (utils/trace.py).
 """
 from __future__ import annotations
 
+import contextlib
 import warnings
 
 import numpy as np
 import torch
 
 from ..align.params import AlignParams
-from ..align.pipeline import AlignEngine, ExtendedAligner, pad_rows
+from ..align.pipeline import (AlignEngine, ExtendedAligner,
+                              _high_priority_stream, pad_rows)
 from ..device import resolve_device
-from ..index.chunked import ChunkedIndex, chunk_to_device
+from ..index.chunked import (ChunkedIndex, ResidentChunks, chunk_to_device,
+                             fits_on_device, upload_chunked_index)
+from ..index.device import index_nbytes
 from ..ops.extend import MM_INVALID
+from ..utils.trace import count, span
 
 
 def _max_tot_mm(lengths: np.ndarray, params: AlignParams) -> np.ndarray:
@@ -44,10 +58,14 @@ def merge_chunk_results(
     bases: np.ndarray,
     lengths: np.ndarray,
     params: AlignParams,
+    device: torch.device | str = "cpu",
 ) -> dict:
-    """Exact host-side merge of per-chunk result dicts (see module doc).
+    """Exact merge of per-chunk result dicts (see module doc), computed
+    with torch on `device`: on a card, on its high-priority stream, so
+    that it need not wait behind a sweep already enqueued there.
 
-    Returns the single-index result schema with int64 global loci.
+    Returns the single-index result schema with int64 global loci, as
+    host numpy arrays.
     """
     K = len(partials)
     if K == 1:
@@ -56,87 +74,103 @@ def merge_chunk_results(
         ml = p["ml_loci"].astype(np.int64)
         p["ml_loci"] = np.where(ml >= 0, ml + int(bases[0]), -1)
         return p
-    best = np.stack([p["best_mm"].astype(np.int32) for p in partials])
-    nxt = np.stack([p["next_mm"].astype(np.int32) for p in partials])
-    inst = np.stack([p["inst"].astype(np.int64) for p in partials])
-    rc = np.stack([p["is_rc"] for p in partials])
-    loc_g = np.stack(
-        [p["locus"].astype(np.int64) + int(bases[k])
-         for k, p in enumerate(partials)]
-    )
-    ovf = np.any([p["overflow"] for p in partials], axis=0)
+    dev = torch.device(device)
+    on = (torch.cuda.stream(_high_priority_stream(
+        torch.cuda.current_device() if dev.index is None else dev.index))
+        if dev.type == "cuda" else contextlib.nullcontext())
+    with on:
+        out = _merge(partials, bases, lengths, params, dev)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _merge(partials, bases, lengths, params, dev) -> dict:
+    K = len(partials)
+
+    def field(key):
+        """(K, ...) tensor of every chunk's `key` on `dev`."""
+        parts = [torch.from_numpy(np.ascontiguousarray(p[key]))
+                 for p in partials]
+        out = torch.empty((K,) + tuple(parts[0].shape),
+                          dtype=parts[0].dtype, device=dev)
+        for k, t in enumerate(parts):
+            out[k].copy_(t)
+        return out
+
+    base = torch.from_numpy(np.asarray(bases, np.int64)[:K]).to(dev)
+    best = field("best_mm").to(torch.int32)
+    nxt = field("next_mm").to(torch.int32)
+    inst = field("inst")
+    rc = field("is_rc")
+    loc_g = field("locus").to(torch.int64) + base[:, None]
+    ovf = field("overflow").any(dim=0)
     # skip-aware exactness composition: a hidden hit lives in ONE chunk,
     # so the per-read pigeonhole charge is the worst chunk's skip count;
     # cap truncation anywhere taints the row
-    n_over = np.max([p["n_over"] for p in partials], axis=0)
-    cap_trunc = np.any([p["cap_trunc"] for p in partials], axis=0)
+    n_over = field("n_over").amax(dim=0)
+    cap_trunc = field("cap_trunc").any(dim=0)
 
-    # winner chunk by lexicographic (mm, strand, global locus)
-    okey = best * 2 + rc.astype(np.int32)          # (K, B)
-    cur_key = okey[0].copy()
-    cur_loc = loc_g[0].copy()
-    kstar = np.zeros(best.shape[1], np.int64)
-    for k in range(1, K):
-        better = (okey[k] < cur_key) | (
-            (okey[k] == cur_key) & (loc_g[k] < cur_loc)
-        )
-        kstar = np.where(better, k, kstar)
-        cur_key = np.where(better, okey[k], cur_key)
-        cur_loc = np.where(better, loc_g[k], cur_loc)
-    take = lambda a: np.take_along_axis(a, kstar[None, :], axis=0)[0]
+    # winner chunk by lexicographic (mm, strand, global locus), the first
+    # chunk on ties: one argmin over the pair packed in an int64 (global
+    # loci of up to 2^42 bases, past BioKanga's 1,000 Gbp of target)
+    okey = best * 2 + rc                           # (K, B)
+    if int(loc_g.min()) < 0 or int(loc_g.max()) >= 1 << 42:
+        raise ValueError("chunk loci outside [0, 2^42)")
+    kstar = torch.argmin((okey.to(torch.int64) << 42) | loc_g, dim=0)
+
+    def take(t):
+        return t.gather(0, kstar[None]).squeeze(0)
+
     b_star = take(best)
     is_best = best == b_star[None, :]
-    inst_star = np.sum(np.where(is_best, inst, 0), axis=0)
+    inst_star = torch.where(is_best, inst, 0).sum(dim=0, dtype=torch.int64)
     # rows with NO valid candidate anywhere (best == MM_INVALID): inst is
     # the invalid-slot count, not a hit count — keep the winner's verbatim
     # so the merged dict matches the single-index output bit-for-bit
-    inst_star = np.where(b_star >= MM_INVALID, take(inst), inst_star)
+    inst_star = torch.where(b_star >= MM_INVALID, take(inst).to(torch.int64),
+                            inst_star)
     # union second-smallest: best* itself when the union holds >= 2 best
     # instances (matches the single-index sorted-duplicates semantics)
-    next_star = np.min(np.where(is_best, nxt, best), axis=0)
-    next_star = np.where(inst_star >= 2, b_star, next_star)
+    next_star = torch.where(is_best, nxt, best).amin(dim=0)
+    next_star = torch.where(inst_star >= 2, b_star, next_star)
     # per-chunk next_mm arrives saturated at chunk_best + MMDelta; the
     # min-merge then re-saturates at global best + MMDelta — equal to
     # saturate(true union second-best) because chunk bests are never
     # saturated and any sub-margin union value is sub-margin in its own
     # chunk
-    next_star = np.minimum(next_star, b_star + params.min_edit_dist)
+    next_star = torch.minimum(next_star, b_star + params.min_edit_dist)
 
-    mtm = _max_tot_mm(lengths, params)
+    mtm = torch.from_numpy(_max_tot_mm(lengths, params)).to(dev)
     any_hit = b_star <= mtm
     unique = any_hit & ((next_star - b_star) >= params.min_edit_dist)
 
-    # top-K multi-hit merge: K-smallest of the union by (mm, rc, locus)
-    ml_mm = np.concatenate([p["ml_mm"] for p in partials], axis=1)
-    ml_rc = np.concatenate([p["ml_rc"] for p in partials], axis=1)
-    ml_loc = np.concatenate(
-        [np.where(p["ml_loci"] >= 0,
-                  p["ml_loci"].astype(np.int64) + int(bases[k]), -1)
-         for k, p in enumerate(partials)],
-        axis=1,
-    )
-    Kml = partials[0]["ml_mm"].shape[1]
-    comp = (
-        ((ml_mm.astype(np.int64) * 2 + ml_rc) << np.int64(44))
-        | np.clip(ml_loc, 0, (1 << 44) - 1)
-    )
-    order = np.argsort(comp, axis=1, kind="stable")[:, :Kml]
-    tk = lambda a: np.take_along_axis(a, order, axis=1)
+    # top-K multi-hit merge: K-smallest of the union by (mm, rc, locus),
+    # ties in chunk order
+    B, Kml = partials[0]["ml_mm"].shape
 
+    def union(t):
+        return t.permute(1, 0, 2).reshape(B, K * Kml)
+
+    ml_mm = union(field("ml_mm"))
+    ml_rc = union(field("ml_rc"))
+    ml_loc = field("ml_loci").to(torch.int64)
+    ml_loc = union(torch.where(ml_loc >= 0, ml_loc + base[:, None, None], -1))
+    comp = (((ml_mm.to(torch.int64) * 2 + ml_rc) << 44)
+            | ml_loc.clamp(0, (1 << 44) - 1))
+    order = torch.sort(comp, dim=1, stable=True).indices[:, :Kml]
     return {
         "unique": unique,
         "any_hit": any_hit,
-        "best_mm": np.minimum(b_star, MM_INVALID).astype(np.uint8),
-        "next_mm": np.minimum(next_star, MM_INVALID).astype(np.uint8),
-        "inst": inst_star.astype(partials[0]["inst"].dtype),
-        "locus": cur_loc,
-        "is_rc": (cur_key & 1).astype(bool),
+        "best_mm": b_star.clamp(max=MM_INVALID).to(torch.uint8),
+        "next_mm": next_star.clamp(max=MM_INVALID).to(torch.uint8),
+        "inst": inst_star.to(inst.dtype),
+        "locus": take(loc_g),
+        "is_rc": (take(okey) & 1).to(torch.bool),
         "overflow": ovf,
         "n_over": n_over,
         "cap_trunc": cap_trunc,
-        "ml_loci": tk(ml_loc),
-        "ml_mm": tk(ml_mm),
-        "ml_rc": tk(ml_rc),
+        "ml_loci": ml_loc.gather(1, order),
+        "ml_mm": ml_mm.gather(1, order),
+        "ml_rc": ml_rc.gather(1, order),
     }
 
 
@@ -145,14 +179,14 @@ def _scan_every_chunk(ca, micro_indel_len, splice_junct_len, sub_r, sub_l):
     chunk; the per-row winner by score (strictly higher replaces, so the
     earlier chunk wins ties), loci global int64.  None if no scan ran."""
     best = None
-    for k in range(ca.ci.num_chunks):
+    for k in range(ca.num_chunks):
         ext = ExtendedAligner(ca.engine_for(k), micro_indel_len,
                               splice_junct_len)
         b = ext.scan_rows(sub_r, sub_l)
         if b is None:
             continue
         b = dict(b)
-        b["locus"] = b["locus"].astype(np.int64) + int(ca.ci.bases[k])
+        b["locus"] = b["locus"].astype(np.int64) + int(ca.bases[k])
         if best is None:
             best = b
         else:
@@ -260,13 +294,15 @@ def chunk_of(bases: np.ndarray, glob_loci) -> np.ndarray:
 
 
 class ChunkedPEAligner:
-    """Paired-end alignment against a ChunkedIndex: both mates through the
-    chunk-merged SE path, global classification, then orphan rescue
-    grouped by the anchor's chunk (one chunk index per chunk holding
-    orphans) — the chunked realisation of CAligner::ProcessPairedEnds +
+    """Paired-end alignment against a chunked index: both mates through
+    the chunk-merged SE path (one fused 2N-row sweep where the mates'
+    shapes agree, as PEAligner runs them), global classification, then
+    orphan rescue grouped by the anchor's chunk (that chunk's engine:
+    the resident one, or one chunk upload per chunk holding orphans) —
+    the chunked realisation of CAligner::ProcessPairedEnds +
     AlignPairedRead (biokanga/Aligner.cpp:2876; SfxArrayV2.cpp:8247).
 
-    An orphan whose rescue window crosses a chunk cut needs ci.overlap >=
+    An orphan whose rescue window crosses a chunk cut needs an overlap >=
     pair_max_len; a shorter overlap clips such windows, as in the JAX
     package (a warning says so).
     """
@@ -276,74 +312,142 @@ class ChunkedPEAligner:
 
         self.ca = ca
         self.pe = pe or PEParams()
-        if ca.ci.overlap < self.pe.pair_max_len:
+        if ca.overlap < self.pe.pair_max_len:
             warnings.warn(
-                f"chunk overlap {ca.ci.overlap} < pair_max_len "
+                f"chunk overlap {ca.overlap} < pair_max_len "
                 f"{self.pe.pair_max_len}: PE rescue windows crossing chunk "
                 "cuts will be clipped"
             )
 
+    def launch_pairs(self, reads1, len1, reads2, len2):
+        """Enqueue both mates' sweep over the chunks (ChunkedAligner.launch);
+        pair with finish_pairs, so that a caller can keep one batch in
+        flight on the device while it merges, pairs and rescues the
+        previous one on the host."""
+        ca = self.ca
+        if reads1.shape == reads2.shape:
+            mates = (ca.launch(ca.stack([reads1, reads2]),
+                               ca.stack([len1, len2])),)
+        else:
+            mates = (ca.launch(reads1, len1), ca.launch(reads2, len2))
+        return mates, reads1, len1, reads2, len2
+
+    def finish_pairs(self, pending):
+        """Merge a launch_pairs sweep, pair, and rescue the orphans."""
+        mates, reads1, len1, reads2, len2 = pending
+        ca = self.ca
+        if len(mates) == 1:
+            N = len(reads1)
+            both = ca.finish(mates[0])
+            res1 = {k: v[:N] for k, v in both.items() if k != "derived"}
+            res2 = {k: v[N:] for k, v in both.items() if k != "derived"}
+            res1["derived"] = res2["derived"] = both["derived"]
+        else:
+            res1, res2 = ca.finish(mates[0]), ca.finish(mates[1])
+        return self._pair_and_rescue(res1, res2, reads1, len1, reads2, len2)
+
     def align_pairs(self, reads1, len1, reads2, len2):
-        from ..align.pe import PEAligner, _orient_mates, classify_pairs
+        return self.finish_pairs(self.launch_pairs(reads1, len1, reads2,
+                                                   len2))
+
+    def _pair_and_rescue(self, res1, res2, reads1, len1, reads2, len2):
+        from ..align.pe import classify_pairs
 
         ca = self.ca
-        ci = ca.ci
-        res1 = ca.align(reads1, len1)
-        res2 = ca.align(reads2, len2)
-        starts = ci.entry_starts
+        starts = ca.entry_starts
         cls = classify_pairs(res1, res2, len1, len2, starts, self.pe)
 
         if self.pe.rescue:
-            for which, (anch, mate_reads, mate_len, mres) in {
-                1: (res1, reads2, len2, res2),
-                2: (res2, reads1, len1, res1),
-            }.items():
-                rows_all = np.nonzero(cls[f"orphan{which}"])[0]
-                if len(rows_all) == 0:
-                    continue
-                a_chunk = chunk_of(ci.bases, anch["locus"][rows_all])
-                for k in np.unique(a_chunk):
-                    rows = rows_all[a_chunk == k]
-                    pea = PEAligner(ca.engine_for(int(k)), self.pe)
-                    a_loc = (anch["locus"][rows]
-                             - int(ci.bases[k])).astype(np.int32)
-                    a_rc = anch["is_rc"][rows]
-                    a_len = (len1 if which == 1 else len2)[rows]
-                    ml = mate_len[rows]
-                    # FR: the mate of a forward anchor is scanned as its
-                    # reverse complement
-                    m = _orient_mates(mate_reads[rows], ml, ~a_rc)
-                    out = pea.rescue(a_loc, a_rc, a_len, m, ml)
-                    ok = out["ok"]
-                    mres["unique"][rows[ok]] = True
-                    mres["locus"][rows[ok]] = (
-                        out["locus"][ok].astype(np.int64) + int(ci.bases[k])
-                    )
-                    mres["is_rc"][rows[ok]] = ~a_rc[ok]
-                    mres["best_mm"][rows[ok]] = out["mm"][ok]
+            with span("chunked.rescue"):
+                self._rescue_orphans(cls, res1, res2, reads1, len1, reads2,
+                                     len2)
             cls = classify_pairs(res1, res2, len1, len2, starts, self.pe)
 
         return {"res1": res1, "res2": res2, **cls}
 
+    def _rescue_orphans(self, cls, res1, res2, reads1, len1, reads2, len2):
+        """Rescue each orphan's mate in its anchor's window, on the engine
+        of the anchor's chunk, one PEAligner.rescue call a mate side and
+        chunk holding anchors; rescued mates are written into res1, res2."""
+        from ..align.pe import PEAligner, _orient_mates
+
+        ca = self.ca
+        for which, (anch, mate_reads, mate_len, mres) in {
+            1: (res1, reads2, len2, res2),
+            2: (res2, reads1, len1, res1),
+        }.items():
+            rows_all = np.nonzero(cls[f"orphan{which}"])[0]
+            if len(rows_all) == 0:
+                continue
+            a_chunk = chunk_of(ca.bases, anch["locus"][rows_all])
+            for k in np.unique(a_chunk):
+                rows = rows_all[a_chunk == k]
+                pea = PEAligner(ca.engine_for(int(k)), self.pe)
+                a_loc = (anch["locus"][rows]
+                         - int(ca.bases[k])).astype(np.int32)
+                a_rc = anch["is_rc"][rows]
+                a_len = (len1 if which == 1 else len2)[rows]
+                ml = mate_len[rows]
+                # FR: the mate of a forward anchor is scanned as its
+                # reverse complement
+                m = _orient_mates(mate_reads[rows], ml, ~a_rc)
+                out = pea.rescue(a_loc, a_rc, a_len, m, ml)
+                ok = out["ok"]
+                mres["unique"][rows[ok]] = True
+                mres["locus"][rows[ok]] = (
+                    out["locus"][ok].astype(np.int64) + int(ca.bases[k])
+                )
+                mres["is_rc"][rows[ok]] = ~a_rc[ok]
+                mres["best_mm"][rows[ok]] = out["mm"][ok]
+
 
 class ChunkedAligner:
-    """Align read sets against a ChunkedIndex on one device.
+    """Align read sets against a chunked index on one device.
 
-    One AlignEngine is reused across chunks: `engine_for(k)` points it at
-    chunk k's device index, padded to the shapes of every chunk
-    (ChunkedIndex.pad_shapes)."""
+    `index`: a `ResidentChunks` (every chunk already on the device), or a
+    host `ChunkedIndex`, which is uploaded once when it fits the device
+    (`fits_on_device`).  A resident index gets one AlignEngine a chunk,
+    the engines sharing one set of CUDA graphs; a block's sweep enqueues
+    every chunk's primary pass, then each chunk's classic rerun, before
+    it finishes the first (the result is align_with_rescue's, chunk for
+    chunk).  An index that does not fit cycles the chunks through one
+    AlignEngine: `engine_for(k)` points it at chunk k's device index,
+    padded to the shapes of every chunk (ChunkedIndex.pad_shapes)."""
 
-    def __init__(self, ci: ChunkedIndex, params: AlignParams | None = None,
+    def __init__(self, index: ChunkedIndex | ResidentChunks,
+                 params: AlignParams | None = None,
                  device: torch.device | str = "cuda"):
-        self.ci = ci
         self.params = params or AlignParams()
         self.device = resolve_device(device)
-        self.pad_shapes = ci.pad_shapes()
+        if isinstance(index, ResidentChunks):
+            self.ci, res = None, index
+        else:
+            self.ci = index
+            res = (upload_chunked_index(index, self.device)
+                   if fits_on_device(index, self.device) else None)
+        src = res if res is not None else index
+        self.bases, self.owned = src.bases, src.owned
+        self.entry_names, self.entry_starts = src.entry_names, src.entry_starts
+        self.overlap = src.overlap
+        self.num_chunks = src.num_chunks
+        self.resident = res
         self.engine: AlignEngine | None = None
+        if res is not None:
+            graphs: dict = {}
+            self.engines = [AlignEngine(d, self.params, graphs=graphs)
+                            for d in res.chunks]
+        else:
+            self.engines = None
+            self.pad_shapes = index.pad_shapes()
 
     def engine_for(self, k: int) -> AlignEngine:
+        """Chunk k's engine: the resident one, or the cycling engine
+        pointed at chunk k, uploaded now."""
+        if self.engines is not None:
+            return self.engines[k]
         if self.engine is not None:
             self.engine.didx = None        # free the previous chunk first
+        count("chunked.uploads", 1)
         didx = chunk_to_device(self.ci, k, self.pad_shapes, self.device)
         if self.engine is None:
             self.engine = AlignEngine(didx, self.params)
@@ -351,22 +455,65 @@ class ChunkedAligner:
             self.engine.didx = didx
         return self.engine
 
-    def align(self, reads: np.ndarray, lengths: np.ndarray) -> dict:
-        """One padded read block vs every chunk; exact merged result."""
-        partials = []
-        for k in range(self.ci.num_chunks):
-            eng = self.engine_for(k)
-            partials.append(eng.align_with_rescue(reads, lengths))
-        res = merge_chunk_results(partials, self.ci.bases, lengths,
-                                  self.params)
+    def index_bytes(self) -> int:
+        """Device bytes of the chunk indexes held now: every chunk's when
+        resident, else the one uploaded last."""
+        if self.resident is not None:
+            return self.resident.nbytes()
+        return 0 if self.engine is None else index_nbytes(self.engine.didx)
+
+    def stack(self, parts) -> np.ndarray:
+        """`np.concatenate(parts)`, a block to `launch`: in pinned memory
+        where the resident engines stage their launches, so that every
+        chunk's upload copies it as it lies."""
+        if self.engines is None:
+            return np.concatenate(parts)
+        return self.engines[0].stack(parts)
+
+    def launch(self, reads: np.ndarray, lengths: np.ndarray):
+        """Enqueue one padded read block against every resident chunk: each
+        chunk's primary pass and, behind it, its classic pass of every row
+        (AlignEngine.launch_primary's `classic_too`: a read's hits lie in
+        one chunk, so each chunk leaves nearly every row unresolved).
+        Nothing waits for the device.  Pair with `finish`; cycling, the
+        whole sweep runs in `finish`."""
+        with span("chunked.sweep"):
+            count("chunked.rows", len(reads))
+            count("chunked.chunk_passes", self.num_chunks)
+            count("chunked.index_bytes", self.index_bytes())
+            if self.engines is None:
+                return reads, lengths, None
+            return reads, lengths, [e.launch_primary(reads, lengths,
+                                                     classic_too=True)
+                                    for e in self.engines]
+
+    def finish(self, pending) -> dict:
+        """Every chunk's align_with_rescue result of a launched block,
+        merged exactly."""
+        reads, lengths, states = pending
+        with span("chunked.sweep"):
+            if states is None:
+                partials = [
+                    self.engine_for(k).align_with_rescue(reads, lengths)
+                    for k in range(self.num_chunks)]
+            else:
+                partials = [e.finish_primary(st)
+                            for e, st in zip(self.engines, states)]
+        with span("chunked.merge"):
+            res = merge_chunk_results(partials, self.bases, lengths,
+                                      self.params, self.device)
         res["derived"] = partials[0].get("derived")
         return res
 
+    def align(self, reads: np.ndarray, lengths: np.ndarray) -> dict:
+        """One padded read block vs every chunk; exact merged result."""
+        return self.finish(self.launch(reads, lengths))
+
     def align_blocks(self, blocks: list[tuple[np.ndarray, np.ndarray]],
                      checkpoint_dir: str | None = None):
-        """Chunk-major streaming over many read blocks (one chunk index on
-        the device at a time for the whole read set).  Returns merged
-        dicts per block.
+        """Chunk-major streaming over many read blocks (cycling: one chunk
+        index on the device at a time for the whole read set).  Returns
+        merged dicts per block.
 
         checkpoint_dir: persist every (chunk, block) partial and resume a
         killed run at the first missing cell (utils/checkpoint.py)."""
@@ -375,12 +522,12 @@ class ChunkedAligner:
             from ..utils.checkpoint import SweepCheckpoint, config_signature
 
             sig = config_signature(
-                [self.ci.bases, self.ci.owned, self.params,
+                [self.bases, self.owned, self.params,
                  [(r.shape, int(l.sum())) for r, l in blocks]]
             )
             ckpt = SweepCheckpoint(checkpoint_dir, sig)
         per_block: list[list[dict]] = [[] for _ in blocks]
-        for k in range(self.ci.num_chunks):
+        for k in range(self.num_chunks):
             need = [b for b in range(len(blocks))
                     if ckpt is None or not ckpt.has(k, b)]
             eng = self.engine_for(k) if need else None
@@ -394,11 +541,18 @@ class ChunkedAligner:
                 per_block[b].append(res)
         out = []
         for b, (reads, lengths) in enumerate(blocks):
-            res = merge_chunk_results(per_block[b], self.ci.bases, lengths,
-                                      self.params)
+            res = merge_chunk_results(per_block[b], self.bases, lengths,
+                                      self.params, self.device)
             res["derived"] = per_block[b][0].get("derived")
             out.append(res)
         return out
+
+    def close(self) -> None:
+        """Drop every engine, its graphs and the chunk indexes."""
+        self.engines = self.engine = self.resident = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
 
 
 def two_level_chunk_sweep(ca, blocks, checkpoint_dir=None, progress=None):
@@ -415,8 +569,8 @@ def two_level_chunk_sweep(ca, blocks, checkpoint_dir=None, progress=None):
     remainder makes a second, classic + rescue cycle over the chunks.
 
     `ca` is a DeviceBuildChunkedAligner-like aligner (num_chunks,
-    engine_for, bases, params, lut_bases, pad_n).  Returns merged result
-    dicts per block (int64 global loci).
+    engine_for, bases, params, lut_bases, pad_n, device).  Returns merged
+    result dicts per block (int64 global loci).
     """
     params = ca.params
     bases = ca.bases
@@ -465,7 +619,8 @@ def two_level_chunk_sweep(ca, blocks, checkpoint_dir=None, progress=None):
     merged = []
     unresolved = []  # (block, rows)
     for b, (reads, lengths) in enumerate(blocks):
-        res = merge_chunk_results(per_block[b], bases, lengths, params)
+        res = merge_chunk_results(per_block[b], bases, lengths, params,
+                                  ca.device)
         res["derived"] = per_block[b][0].get("derived")
         merged.append(res)
         fp = fps[b]
@@ -519,7 +674,8 @@ def two_level_chunk_sweep(ca, blocks, checkpoint_dir=None, progress=None):
             )
             if progress is not None:
                 progress("classic", k)
-        sub_merged = merge_chunk_results(partials, bases, sub_lens, params)
+        sub_merged = merge_chunk_results(partials, bases, sub_lens, params,
+                                         ca.device)
         ofs = 0
         for b, rows in unresolved:
             for key in ("unique", "any_hit", "best_mm", "next_mm", "inst",

@@ -33,6 +33,7 @@ from biokanga_tpu_torch.align.params import AlignParams
 from biokanga_tpu_torch.align.pe import PEParams
 from biokanga_tpu_torch.align.pipeline import AlignEngine, pad_rows
 from biokanga_tpu_torch.cli import main as torch_main
+from biokanga_tpu_torch.device import u32_from_key32
 from biokanga_tpu_torch.index import chunked as tch
 from biokanga_tpu_torch.index import device_build as tdb
 from biokanga_tpu_torch.index.build import build_index
@@ -101,8 +102,12 @@ def test_build_chunked_index_matches_jax(repeats):
     jd = jax_chunked.chunk_to_device(ci_j, 1)
     td = tch.chunk_to_device(ci_t, 1, device=CPU)
     for f in ("genome", "entry_starts", "key_hi", "key_lo", "lut"):
-        np.testing.assert_array_equal(getattr(td, f).numpy(),
-                                      np.asarray(getattr(jd, f)), err_msg=f)
+        t = getattr(td, f)
+        if f.startswith("key_"):
+            assert t.dtype == torch.int32
+            t = u32_from_key32(t)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(getattr(jd, f)),
+                                      err_msg=f)
     np.testing.assert_array_equal(td.pos_sorted.numpy(),
                                   np.asarray(jd.pos_rows).reshape(-1))
     np.testing.assert_array_equal(td.packed.rows.numpy().view(np.uint32),
@@ -205,7 +210,11 @@ def test_device_build_of_a_padded_chunk_matches_jax(with_n, with_keys):
                                  device="cpu", true_len=true_len,
                                  with_keys=with_keys)
     for f in ("genome", "entry_starts", "key_hi", "key_lo", "lut"):
-        np.testing.assert_array_equal(getattr(got, f).numpy(),
+        t = getattr(got, f)
+        if f.startswith("key_"):
+            assert t.dtype == torch.int32
+            t = u32_from_key32(t)
+        np.testing.assert_array_equal(t.numpy(),
                                       np.asarray(getattr(want, f),
                                                  np.int64), err_msg=f)
     np.testing.assert_array_equal(got.pos_sorted.numpy(),

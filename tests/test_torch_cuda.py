@@ -1527,3 +1527,77 @@ def test_graph_keys_interleaved_equal_eager(cuda_device, monkeypatch):
         for k, (g, w) in enumerate(zip(got, want)):
             _assert_same(g, w, f"batch {k}")
     assert sum(int(w["proper"].sum()) for w in want) > 2_000
+
+
+@pytest.mark.cuda
+def test_resident_chunks_share_graphs_and_equal_the_cpu(cuda_device,
+                                                        monkeypatch):
+    """Three chunks of the repeat genome resident on the card, built there
+    (`build_resident_chunks`) and uploaded from a host ChunkedIndex, one
+    engine a chunk sharing one graph set: batches with one in flight, the
+    keys eager, captured and replayed, equal the CPU's resident path field
+    for field, and each chunk's seed segments are captured once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from biokanga_tpu_torch.align.pe import PEParams
+    from biokanga_tpu_torch.align.pipeline import pad_rows
+    from biokanga_tpu_torch.index import chunked as tch
+    from biokanga_tpu_torch.index.device_build import build_resident_chunks
+    from biokanga_tpu_torch.parallel.chunked import (ChunkedAligner,
+                                                     ChunkedPEAligner)
+    from biokanga_tpu_torch.utils import trace
+
+    seqs = _repeat_genome()
+    cat = np.concatenate([s for _, s in seqs])
+    names = [n for n, _ in seqs]
+    ci = tch.build_chunked_index(seqs, num_chunks=3, overlap=1024,
+                                 lut_bases=8)
+    batches = []
+    for k in range(5):
+        r1, l1, r2, l2 = _graph_pairs(seqs, k)
+        batches.append(pad_rows(r1, l1) + pad_rows(r2, l2))
+    pe = PEParams(pair_min_len=100, pair_max_len=600)
+
+    def run(index, device):
+        pea = ChunkedPEAligner(ChunkedAligner(index, device=device), pe)
+        assert pea.ca.resident is not None
+        out, pending = [], None
+        for b in batches:
+            cur = pea.launch_pairs(*b)
+            if pending is not None:
+                out.append(pea.finish_pairs(pending))
+            pending = cur
+        out.append(pea.finish_pairs(pending))
+        return out, pea
+
+    for source in ("device_built", "uploaded"):
+        index = (build_resident_chunks(cat, ci.entry_starts, names,
+                                       lut_bases=8,
+                                       max_chunk=-(-len(cat) // 3),
+                                       overlap=1024, device=cuda_device)
+                 if source == "device_built" else ci)
+        cpu_index = (build_resident_chunks(cat, ci.entry_starts, names,
+                                           lut_bases=8,
+                                           max_chunk=-(-len(cat) // 3),
+                                           overlap=1024, device="cpu")
+                     if source == "device_built" else ci)
+        want, _ = run(cpu_index, "cpu")
+        trace.reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            got, pea = run(index, cuda_device)
+        c = trace.counts()
+        for k, (g, w) in enumerate(zip(got, want)):
+            _assert_same(g, w, f"{source} batch {k}")
+        engines = pea.ca.engines
+        assert all(e.didx.key_hi.dtype == torch.int32 for e in engines)
+        cores = engines[0]._cores
+        assert all(e._cores is cores for e in engines) and cores
+        # the primary and classic keys hold every chunk's seed segments
+        seeds = sorted(len(core._seeds) for core in cores.values())
+        assert seeds[-2:] == [3, 3] and seeds[0] >= 1
+        assert c["engine.graph_launches"] > 0
+        assert "chunked.uploads" not in c
+        assert c["chunked.index_bytes"] == 5 * pea.ca.resident.nbytes()
+        pea.ca.close()
+    assert sum(int(w["proper"].sum()) for w in want) > 2_000

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from biokanga_tpu.index.device_build import device_build_index as jax_build
+from biokanga_tpu_torch.device import u32_from_key32
 from biokanga_tpu_torch.index.device_build import device_build_index
 from biokanga_tpu_torch.seq.encode import revcomp
 
@@ -39,10 +40,11 @@ def test_device_build_matches_jax(lut_bases):
     want = jax_build(codes, starts, lut_bases=lut_bases)
     got = device_build_index(codes, starts, lut_bases=lut_bases,
                              device="cpu")
+    assert got.key_hi.dtype == got.key_lo.dtype == torch.int32
     np.testing.assert_array_equal(np.asarray(want.key_hi, np.int64),
-                                  got.key_hi.numpy())
+                                  u32_from_key32(got.key_hi).numpy())
     np.testing.assert_array_equal(np.asarray(want.key_lo, np.int64),
-                                  got.key_lo.numpy())
+                                  u32_from_key32(got.key_lo).numpy())
     np.testing.assert_array_equal(np.asarray(want.lut), got.lut.numpy())
     pos = np.asarray(want.pos_rows).reshape(-1)
     np.testing.assert_array_equal(pos, got.pos_sorted.numpy())

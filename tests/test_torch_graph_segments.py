@@ -225,3 +225,48 @@ def test_hamming_extend_packed_out_equals_the_call_without_it(didx, seqs,
     with pytest.raises(ValueError):
         ep.hamming_extend_packed(*args, out=torch.empty(loci.shape,
                                                         dtype=torch.int32))
+
+
+def test_one_core_serves_indexes_of_one_shape(didx, seqs, monkeypatch):
+    """The chunks of a chunked index share a key's `_CoreGraphs`: a second
+    index of the same shape gets its own seed segments, captured at its
+    first run, into the first index's static outputs.  Runs that
+    alternate between the indexes each equal `align_core` on their own
+    index, field for field, and call each kernel as often."""
+    other = to_device(build_index(
+        [(n, np.roll(s, 7_919)) for n, s in seqs], lut_bases=8), CPU)
+    assert other.total_len == didx.total_len
+    ap = AlignParams()
+    L = 100
+    fp = ap.derive_fast(L, didx.total_len, didx.lut_bases)
+    calls = _Calls(monkeypatch)
+    batches = _batches(seqs, 2)
+    B = len(batches[0][0])
+    captured = []
+
+    def capture(fn):
+        captured.append(fn)
+        return _emulated_capture(fn)
+
+    core = pipeline._CoreGraphs(didx, ap, fp.dp, fp.H, fp.cand_cap, True, B,
+                                L, capture=capture)
+    first = len(captured)
+    for reads, lengths in batches:
+        for idx in (didx, other, didx, other):
+            r, ln = torch.from_numpy(reads), torch.from_numpy(lengths)
+            want = pipeline.align_core(idx, r, ln, ap=ap, dp=fp.dp, H=fp.H,
+                                       cand_cap=fp.cand_cap,
+                                       strand=ap.strand, occ_skip=True)
+            eager_calls = calls.take()
+            core.reads.copy_(r)
+            core.lengths.copy_(ln)
+            got, packed = core.run(idx)
+            assert calls.take() == eager_calls
+            assert torch.equal(packed, pipeline._pack_result(want))
+            for k, v in want.items():
+                assert torch.equal(got[k], v), k
+    # one seed segment a strand for the second index, captured once
+    assert len(captured) == first + 2
+    assert not torch.equal(pipeline._pack_result(pipeline.align_core(
+        didx, r, ln, ap=ap, dp=fp.dp, H=fp.H, cand_cap=fp.cand_cap,
+        strand=ap.strand, occ_skip=True)), packed)

@@ -100,3 +100,64 @@ def test_resolve_device_is_explicit(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         resolve_device("cuda")
+
+
+def _int64_ranges(idx, q):
+    """(start, end) of each query's [qlow, qhigh] over the host index's
+    keys taken whole as unsigned 64-bit numbers: the search as it was
+    with int64 keys, by np.searchsorted."""
+    whole = (idx.key_hi.astype(np.uint64) << np.uint64(32)) \
+        | idx.key_lo.astype(np.uint64)
+    lo = (q[0].numpy().astype(np.uint64) << np.uint64(32)) \
+        | q[1].numpy().astype(np.uint64)
+    hi = (q[2].numpy().astype(np.uint64) << np.uint64(32)) \
+        | q[3].numpy().astype(np.uint64)
+    return (np.searchsorted(whole, lo, side="left"),
+            np.searchsorted(whole, hi, side="right"))
+
+
+@pytest.mark.parametrize("k", [9, 16, 20, 32])
+@pytest.mark.parametrize("build", ["host", "device", "chunk"])
+def test_key32_lookup_equals_the_int64_search(index, k, build):
+    """The int32 keys with the sign bit flipped and the flipped queries
+    find the ranges of the unsigned 64-bit search, for keys and queries at
+    and above 2^31 (hi words starting with G or T), at the all-T top and
+    the all-A bottom, in every index build."""
+    from biokanga_tpu_torch.device import u32_from_key32
+    from biokanga_tpu_torch.index import chunked as tch
+    from biokanga_tpu_torch.index.build import build_index as t_build
+    from biokanga_tpu_torch.index.device_build import device_build_index
+
+    seqs, _ = index
+    seqs = [(n, s.copy()) for n, s in seqs]
+    seqs[0][1][9_000:9_300] = 3                     # all-T keys: 0xFFFFFFFF
+    seqs[0][1][9_300:9_600] = 0
+    idx = t_build(seqs, lut_bases=7)
+    if build == "host":
+        td = to_device(idx, CPU)
+    elif build == "device":
+        td = device_build_index(idx.codes, idx.entry_starts, lut_bases=7,
+                                device="cpu")
+    else:
+        ci = tch.build_chunked_index(seqs, num_chunks=1, lut_bases=7)
+        td = tch.chunk_to_device(ci, 0, device=CPU)
+    assert td.key_hi.dtype == td.key_lo.dtype == torch.int32
+    n = idx.total_len
+    for t, want in ((td.key_hi, idx.key_hi), (td.key_lo, idx.key_lo)):
+        np.testing.assert_array_equal(u32_from_key32(t[:n]).numpy(), want)
+    assert (idx.key_hi >= 2**31).mean() > 0.4
+    assert (td.key_hi[:n] >= 0).any() and (td.key_hi[:n] < 0).any()
+    rng = np.random.default_rng(k)
+    reads = _reads(seqs, rng).astype(np.int8)
+    reads[7, :40] = 3
+    reads[8, :40] = 0
+    reads[9, :40] = 2                               # G: 0xAAAAAAAA
+    q = tlk.pack_read_kmers(torch.from_numpy(reads), (0, 20, 60), k)
+    assert (q[0] >= 2**31).any() and (q[0] < 2**31).any()
+    start, end = tlk.seed_range_lookup(
+        td.key_hi, td.key_lo, td.lut, td.lut_bases, *q[:4], core_len=k,
+        max_steps=td.max_bsearch_steps)
+    want_s, want_e = _int64_ranges(idx, q)
+    np.testing.assert_array_equal(start.numpy(), want_s)
+    np.testing.assert_array_equal(end.numpy(), want_e)
+    assert (end - start)[7, 0] > 0 and (end - start)[8, 0] > 0
