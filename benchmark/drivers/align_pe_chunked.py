@@ -10,14 +10,17 @@ batches, which capture every chunk's graphs before the window.  A
 program without a resident chunked index fails at that import, in
 set-up.
 
-The window runs AlignPE's loop over `ChunkedPEAligner.launch_pairs` and
-`finish_pairs`, one batch in flight as in the other cells, cycling the
-pool: every pair's mates through every chunk's fast pass and classic
-pass, the exact merge across chunks, pairing and the orphan rescue on
-the anchor's chunk.  The harness copies a sample of pairs from each
-finished batch, and the check judges them against the blocked reference
+The window runs the chunked paired-end loop of `cli._align_chunked`:
+one batch in flight, `ChunkedPEAligner.launch_pairs` of batch k + 1
+enqueued before `finish_pairs` of batch k, cycling the pool: every
+pair's mates through every chunk's fast pass and classic pass, the
+exact merge across chunks, pairing and the orphan rescue on the anchor's
+chunk.  The harness copies a sample of pairs from each finished batch,
+and the check judges them against the blocked reference
 (reference/blocked.py), which finds every placement by a lemma whose
 index fits one card, under the guarantee of the whole genome's length.
+The check also counts the sample's orphans (pairs with one mate unique
+in the reference) and the mates the program placed of those.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 
 from ..genome import make_genome
 from ..reference import blocked
+from ..reference.aligner import answers
 from ..reference.guarantee import guarantee
 from ..reference.judge import FIELDS, judge
 from .align_pe import WARMUP_BATCHES, AlignPE, _sync, draw_sample
@@ -140,5 +144,13 @@ class AlignPEChunked(AlignPE):
         past = int(sum(((p["any_hit"] | p["unique"])
                         & (p["locus"] >= 2**31)).sum() for p in prog))
         self.parts["sample_mates_past_2_31"] = past
-        print(f"sampled mates placed past 2^31: {past}", file=sys.stderr)
+        ref = [answers(h, len(idx), int(a["min_edit_dist"]),
+                       int(a["max_multi"])) for h in hits]
+        orphan = ref[0]["unique"] ^ ref[1]["unique"]
+        placed = orphan & prog[0]["unique"] & prog[1]["unique"]
+        self.parts["sample_orphan_pairs"] = int(orphan.sum())
+        self.parts["sample_orphan_mates_placed"] = int(placed.sum())
+        print(f"sampled mates placed past 2^31: {past}; orphan pairs "
+              f"{int(orphan.sum())}, their mates placed {int(placed.sum())}",
+              file=sys.stderr)
         return out

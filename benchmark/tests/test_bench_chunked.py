@@ -104,7 +104,8 @@ def _add_chunked_cell(root: Path) -> None:
                               "traffic": "tiny_pe_chunked", "chips": 1,
                               "why": "CPU dry run"})
     for m in spec["per_layer"]:
-        if m["name"].startswith("chunked."):
+        if (m["name"].startswith("chunked.")
+                or m["name"] == "pe.pairing_ms_per_mread"):
             m["workloads"].append(CELL)
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
 
@@ -135,10 +136,13 @@ def test_chunked_cell_runs_and_is_correct(chunked_root, trace):
     assert r["timing"]["chunks"] == 3
     # a 90 kb genome: no mate lies past 2^31
     assert r["timing"]["sample_mates_past_2_31"] == 0
+    assert 0 <= r["timing"]["sample_orphan_mates_placed"] <= r["timing"][
+        "sample_orphan_pairs"]
     if trace:
         names = set(r["metrics"])
         assert {"chunked.sweep_ms_per_mread", "chunked.merge_ms_per_mread",
-                "chunked.index_gib"} <= names
+                "chunked.rescue_ms_per_mread", "chunked.index_gib",
+                "pe.pairing_ms_per_mread"} <= names
         gib = r["metrics"]["chunked.index_gib"]["value"]
         assert 0 < gib < 0.1
     else:

@@ -26,6 +26,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import gc
 import math
 
 import numpy as np
@@ -258,12 +259,21 @@ def _cuda_capture(device):
 
     def capture(fn):
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream):
-            g.capture_begin(pool=pool)
-            try:
-                out = fn()
-            finally:
-                g.capture_end()
+        # a graph freed while another is captured invalidates the capture,
+        # and the cyclic collector frees dropped keys' graphs at any time:
+        # it does not run during a capture
+        collect = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(stream):
+                g.capture_begin(pool=pool)
+                try:
+                    out = fn()
+                finally:
+                    g.capture_end()
+        finally:
+            if collect:
+                gc.enable()
         return g.replay, out
 
     return capture
@@ -288,12 +298,12 @@ class _CoreGraphs:
     (`_cuda_capture`); outputs are read after each replay.
 
     Only the seed stage reads the index (the extension, eager, is given
-    it), so one `_CoreGraphs` serves several indexes of one shape, as
-    the engines of a chunked index share it (`AlignEngine`'s `graphs`):
-    `run(didx)` replays that index's seed segments, captured at its first
-    run, which write into the first index's static outputs, and every
-    other segment and static buffer is shared.  The indexes' runs must
-    then follow one another on one stream, as a key's do.
+    it), so one `_CoreGraphs` serves several indexes of one shape
+    (`AlignEngine`'s `graphs`): `run(didx)` replays that index's seed
+    segments, captured at its first run, which write into the first
+    index's static outputs, and every other segment and static buffer is
+    shared.  The indexes' runs must then follow one another on one
+    stream, as a key's do.
     """
 
     def __init__(self, didx: DeviceIndex, ap: AlignParams, dp: DerivedParams,
@@ -552,10 +562,10 @@ class AlignEngine:
 
     @didx.setter
     def didx(self, didx: DeviceIndex) -> None:
-        if self._own_graphs:
-            if self._cores:
-                torch.cuda.synchronize()  # replays may still read the old one
+        if self._own_graphs and self._cores:
+            torch.cuda.synchronize()    # replays may still read the old one
             self._cores.clear()
+            gc.collect()                # free their graphs and pools now
         self._seen.clear()
         self._inflight.clear()
         self._side_ready = False        # the new index may still be built
@@ -693,28 +703,16 @@ class AlignEngine:
                                   cand_cap=fp.cand_cap, dp=fp.dp)
         return (reads, lengths, out, dp, fp)
 
-    def launch_primary(self, reads: np.ndarray, lengths: np.ndarray,
-                       classic_too: bool = False):
+    def launch_primary(self, reads: np.ndarray, lengths: np.ndarray):
         """Enqueue the primary pass (two-level fast pass when available,
-        classic otherwise).  Pair with finish_primary.
-
-        `classic_too`: with a fast pass, enqueue the classic pass of every
-        row behind it now, for a caller most of whose rows the fast pass
-        leaves unresolved (a chunk of a chunked index, where a read's hits
-        lie in one chunk of many): finish_primary then takes each
-        unresolved row's classic result from it, as rows are independent,
-        and nothing waits on the host between the two passes."""
+        classic otherwise).  Pair with finish_primary."""
         self._start_reruns()
         state = self._launch_pass(reads, lengths)
-        if state[4] is None:
-            return state
-        if classic_too:
-            return state + (self.launch(reads, lengths),)
-        if isinstance(state[2], _Fetch):
+        if isinstance(state[2], _Fetch) and state[4] is not None:
             self._inflight.append(state)
         return state
 
-    def _unresolved(self, res: dict, lengths, fp) -> np.ndarray:
+    def unresolved(self, res: dict, lengths, fp) -> np.ndarray:
         """The rows the fast pass left unresolved, for the classic rerun:
         skip-aware, each skipped core weakens the bound by one."""
         bound = fp.resolved_bound(lengths, self.params.min_edit_dist)
@@ -738,7 +736,7 @@ class AlignEngine:
                                              or out.event.query()):
                 continue
             with span("engine.rerun"):
-                rows = self._unresolved(
+                rows = self.unresolved(
                     {k: v.numpy() for k, v in out.tensors().items()},
                     lengths, fp)
                 out.rerun = (rows, None)
@@ -755,7 +753,7 @@ class AlignEngine:
         """Fetch a launch_primary result and complete it to the full
         align_with_rescue semantics: rerun fast-pass-unresolved reads
         through the classic pass, then the rescue ladder."""
-        reads, lengths, out, dp, fp = state[:5]
+        reads, lengths, out, dp, fp = state
         self._inflight = collections.deque(
             (s for s in self._inflight if s is not state),
             maxlen=self._inflight.maxlen)
@@ -764,17 +762,13 @@ class AlignEngine:
         if fp is None:
             self.rescue_pass(reads, lengths, res)
             return res
-        rows = self._unresolved(res, lengths, fp)
+        rows = self.unresolved(res, lengths, fp)
         res["overflow"] = np.zeros_like(res["overflow"])
         res["n_over"] = np.zeros_like(res["n_over"])
         res["cap_trunc"] = np.zeros_like(res["cap_trunc"])
         count("engine.rerun_rows", len(rows))
         self._rerun_last = bool(len(rows))
-        if len(rows) and len(state) > 5:
-            with span("engine.rerun"):
-                res = self._take_classic(reads, lengths, rows, res,
-                                         _to_host(*state[5]))
-        elif len(rows):
+        if len(rows):
             with span("engine.rerun"):
                 early = getattr(out, "rerun", None)
                 if early is not None and early[1] is not None:
@@ -788,25 +782,6 @@ class AlignEngine:
                     res[k][rows] = sub[k][: len(rows)]
         return res
 
-    def _take_classic(self, reads, lengths, rows, res: dict,
-                      sub: dict) -> dict:
-        """finish_primary's rerun from a classic pass of every row
-        (launch_primary's `classic_too`): the rescue ladder over the
-        unresolved `rows` alone (the others' ladder flags cleared); the
-        result is that pass's, with the resolved rows' fast-pass fields
-        put back (few rows where most rerun)."""
-        kept = np.ones(len(reads), bool)
-        kept[rows] = False
-        kept = np.nonzero(kept)[0]
-        sub["n_over"][kept] = 0
-        sub["cap_trunc"][kept] = False
-        self.rescue_pass(reads, lengths, sub)
-        sub["overflow"][kept] = False
-        for k in RESULT_KEYS:
-            sub[k][kept] = res[k][kept]
-        sub["derived"] = res["derived"]
-        return sub
-
     def launch_fast(self, reads: np.ndarray, lengths: np.ndarray):
         """Enqueue only the fast pass (the classic pass where there is no
         fast pass): no unresolved rerun, no rescue.  For chunk sweeps that
@@ -816,7 +791,8 @@ class AlignEngine:
 
     def finish_fast(self, state) -> dict:
         out, dp, _ = state
-        return _to_host(out, dp)
+        with span("engine.fetch"):
+            return _to_host(out, dp)
 
     def align_stream(self, blocks):
         """align_with_rescue over an iterator of (reads, lengths), with the

@@ -671,28 +671,42 @@ def _align_chunked(args, device, input_blocks, log, sw) -> None:
         n_pairs = n_proper = 0
         with open(args.out, "w") as out:
             first = True
+
+            def emit(pending, blk1, blk2):
+                nonlocal first, n_pairs, n_proper
+                res = pea.finish_pairs(pending)
+                nb = len(blk1.names)
+                sub = lambda d: {
+                    k: (v[:nb] if hasattr(v, "__len__") else v)
+                    for k, v in d.items()
+                }
+                write_pe_sam(
+                    out, ci.entry_names, ci.entry_starts,
+                    blk1.names, blk1.codes, blk1.lengths,
+                    blk2.names, blk2.codes, blk2.lengths,
+                    {"res1": sub(res["res1"]), "res2": sub(res["res2"]),
+                     "proper": res["proper"][:nb],
+                     "insert": res["insert"][:nb]},
+                    write_header=first,
+                )
+                first = False
+                n_pairs += nb
+                n_proper += int(res["proper"][:nb].sum())
+
+            # one batch in flight, as in _align_pairs: the next block's
+            # sweep is enqueued before this block is merged, paired,
+            # rescued and written
+            inflight = None
             for p1, p2 in zip(args.inreads, args.pair):
                 for blk1, blk2 in zip(input_blocks(p1), input_blocks(p2)):
                     r1, l1 = pad_rows(blk1.codes, blk1.lengths)
                     r2, l2 = pad_rows(blk2.codes, blk2.lengths)
-                    res = pea.align_pairs(r1, l1, r2, l2)
-                    nb = len(blk1.names)
-                    sub = lambda d: {
-                        k: (v[:nb] if hasattr(v, "__len__") else v)
-                        for k, v in d.items()
-                    }
-                    write_pe_sam(
-                        out, ci.entry_names, ci.entry_starts,
-                        blk1.names, blk1.codes, blk1.lengths,
-                        blk2.names, blk2.codes, blk2.lengths,
-                        {"res1": sub(res["res1"]), "res2": sub(res["res2"]),
-                         "proper": res["proper"][:nb],
-                         "insert": res["insert"][:nb]},
-                        write_header=first,
-                    )
-                    first = False
-                    n_pairs += nb
-                    n_proper += int(res["proper"][:nb].sum())
+                    nxt = (pea.launch_pairs(r1, l1, r2, l2), blk1, blk2)
+                    if inflight is not None:
+                        emit(*inflight)
+                    inflight = nxt
+            if inflight is not None:
+                emit(*inflight)
         log.info("chunk-aligned %d pairs: %d proper (%.2f%%) in %.1fs",
                  n_pairs, n_proper, 100.0 * n_proper / max(n_pairs, 1),
                  sw.elapsed())

@@ -20,11 +20,11 @@ int64 on the host; device tensors stay chunk-local int32.
 Where every chunk fits on the device at once (index/chunked.py
 `ResidentChunks`), `ChunkedAligner` keeps one AlignEngine a chunk, whose
 launch keys share one set of CUDA graphs (`AlignEngine`'s `graphs`), and
-a block's sweep enqueues every chunk's primary pass before it finishes
-the first; otherwise it cycles the chunks through one engine.  Spans
-`chunked.sweep`, `chunked.merge`, `chunked.rescue`; counters
-`chunked.chunk_passes`, `chunked.rows`, `chunked.index_bytes`,
-`chunked.uploads` (utils/trace.py).
+a block's sweep enqueues every chunk's passes before it finishes the
+first; otherwise it cycles the chunks through one engine.  Spans
+`chunked.sweep`, `chunked.merge` (and `ChunkedPEAligner`'s `pe.classify`,
+`pe.rescue`); counters `chunked.chunk_passes`, `chunked.rows`,
+`chunked.index_bytes`, `chunked.uploads` (utils/trace.py).
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..align.params import AlignParams
-from ..align.pipeline import (AlignEngine, ExtendedAligner,
+from ..align.pipeline import (RESULT_KEYS, AlignEngine, ExtendedAligner,
                               _high_priority_stream, pad_rows)
 from ..device import resolve_device
 from ..index.chunked import (ChunkedIndex, ResidentChunks, chunk_to_device,
@@ -353,15 +353,17 @@ class ChunkedPEAligner:
     def _pair_and_rescue(self, res1, res2, reads1, len1, reads2, len2):
         from ..align.pe import classify_pairs
 
-        ca = self.ca
-        starts = ca.entry_starts
-        cls = classify_pairs(res1, res2, len1, len2, starts, self.pe)
+        starts = self.ca.entry_starts
+        with span("pe.classify"):
+            cls = classify_pairs(res1, res2, len1, len2, starts, self.pe)
 
         if self.pe.rescue:
-            with span("chunked.rescue"):
+            with span("pe.rescue"):
                 self._rescue_orphans(cls, res1, res2, reads1, len1, reads2,
                                      len2)
-            cls = classify_pairs(res1, res2, len1, len2, starts, self.pe)
+            with span("pe.classify"):
+                cls = classify_pairs(res1, res2, len1, len2, starts,
+                                     self.pe)
 
         return {"res1": res1, "res2": res2, **cls}
 
@@ -399,6 +401,32 @@ class ChunkedPEAligner:
                 )
                 mres["is_rc"][rows[ok]] = ~a_rc[ok]
                 mres["best_mm"][rows[ok]] = out["mm"][ok]
+                count("pe.rescue_mates", len(rows))
+                count("pe.rescued_mates", int(ok.sum()))
+
+
+def _finish_chunk(e: AlignEngine, reads, lengths, fast, classic) -> dict:
+    """`e.finish_primary`'s result from `ChunkedAligner.launch`'s passes of
+    one chunk: the fast pass's resolved rows, and for the rest the classic
+    pass of every row with the rescue ladder (rows are independent, so
+    the result is align_with_rescue's row for row)."""
+    res = e.finish_fast(fast)
+    if classic is None:
+        e.rescue_pass(reads, lengths, res)
+        return res
+    rows = e.unresolved(res, lengths, fast[2])
+    count("engine.rerun_rows", len(rows))
+    with span("engine.rerun"):
+        sub = e.finish_fast(classic)
+        kept = np.ones(len(reads), bool)
+        kept[rows] = False
+        for k in ("overflow", "n_over", "cap_trunc"):
+            sub[k][kept] = 0
+        e.rescue_pass(reads, lengths, sub)
+        for k in RESULT_KEYS:
+            sub[k][kept] = res[k][kept]
+    sub["derived"] = res["derived"]
+    return sub
 
 
 class ChunkedAligner:
@@ -408,8 +436,8 @@ class ChunkedAligner:
     host `ChunkedIndex`, which is uploaded once when it fits the device
     (`fits_on_device`).  A resident index gets one AlignEngine a chunk,
     the engines sharing one set of CUDA graphs; a block's sweep enqueues
-    every chunk's primary pass, then each chunk's classic rerun, before
-    it finishes the first (the result is align_with_rescue's, chunk for
+    every chunk's fast pass and its classic pass before it finishes the
+    first (the result is align_with_rescue's, chunk for
     chunk).  An index that does not fit cycles the chunks through one
     AlignEngine: `engine_for(k)` points it at chunk k's device index,
     padded to the shapes of every chunk (ChunkedIndex.pad_shapes)."""
@@ -472,20 +500,22 @@ class ChunkedAligner:
 
     def launch(self, reads: np.ndarray, lengths: np.ndarray):
         """Enqueue one padded read block against every resident chunk: each
-        chunk's primary pass and, behind it, its classic pass of every row
-        (AlignEngine.launch_primary's `classic_too`: a read's hits lie in
-        one chunk, so each chunk leaves nearly every row unresolved).
-        Nothing waits for the device.  Pair with `finish`; cycling, the
-        whole sweep runs in `finish`."""
+        chunk's fast pass and, behind it, its classic pass of every row,
+        since a read's hits lie in one chunk of many and each chunk leaves
+        nearly every row unresolved.  Nothing waits for the device.  Pair
+        with `finish`; cycling, the whole sweep runs in `finish`."""
         with span("chunked.sweep"):
             count("chunked.rows", len(reads))
             count("chunked.chunk_passes", self.num_chunks)
             count("chunked.index_bytes", self.index_bytes())
             if self.engines is None:
                 return reads, lengths, None
-            return reads, lengths, [e.launch_primary(reads, lengths,
-                                                     classic_too=True)
-                                    for e in self.engines]
+            states = []
+            for e in self.engines:
+                fast = e.launch_fast(reads, lengths)
+                states.append((fast, None if fast[2] is None
+                               else e.launch(reads, lengths) + (None,)))
+            return reads, lengths, states
 
     def finish(self, pending) -> dict:
         """Every chunk's align_with_rescue result of a launched block,
@@ -497,7 +527,7 @@ class ChunkedAligner:
                     self.engine_for(k).align_with_rescue(reads, lengths)
                     for k in range(self.num_chunks)]
             else:
-                partials = [e.finish_primary(st)
+                partials = [_finish_chunk(e, reads, lengths, *st)
                             for e, st in zip(self.engines, states)]
         with span("chunked.merge"):
             res = merge_chunk_results(partials, self.bases, lengths,

@@ -93,10 +93,13 @@ Phases, each of which raises on failure:
  16. the chunked CLI: `index --chunks 4 --chunk-overlap 2048` of the 4.6
      Mbp genome, then 65,536 reads of phase 14's kind from the SNP sample
      (seed 16) with `align -a 10 -A 50000 -O`, and 65,536 pairs from it
-     with `align -u -d 100 -D 600 --peinsertdist`, with --device cuda
-     (kernels #1-#3 counted) and --device cpu (child processes): SAM and
-     SNP CSV byte for byte, and no insert CSV from either, as from the
-     JAX CLI's chunked branch;
+     with `align -u -d 100 -D 600 --peinsertdist`, with --device cpu
+     (child processes) and twice with --device cuda, kernels #1-#3
+     counted in each: the chunks resident (uploaded once, one engine a
+     chunk), and cycling through one engine (the aligner told the index
+     does not fit); each card run's SAM and SNP CSV byte for byte
+     against the CPU's, and no insert CSV from any, as from the JAX
+     CLI's chunked branch;
  17. long reads: 1,024 reads of 10,000 bp (past the packed extension's
      4,096) through `align` on the 4.6 Mbp index, the dense extension
      path, each of its calls timed with its peak memory, the SAM byte for
@@ -236,6 +239,7 @@ Exits non-zero without CUDA or outside the repository.  Needs one card.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -324,6 +328,7 @@ CHUNKED_CHUNKS = 4
 CHUNKED_SE_READS = 65_536
 CHUNKED_PE_PAIRS = 65_536
 CHUNKED_SE_FLAGS = ["-a", "10", "-A", "50000"]
+CHUNK_PATHS = ("resident", "cycling")     # the chunked aligner's two paths
 # long reads (phase 17): the dense extension, then segments and stitching
 LONG_READS, LONG_LEN, LONG_SUB_RATE = 1_024, 10_000, 0.002
 LR_READS, LR_LEN, LR_SUBS = 64, 100_000, 30
@@ -2327,7 +2332,8 @@ def chunked_cli_start(seqs) -> dict:
     indel, junction and junk-tailed reads, and as 65,536 pairs; `align
     -a 10 -A 50000 -O` and `align -u -d 100 -D 600` on the chunked index.
     The --device cpu runs start as child processes; the --device cuda
-    runs follow in process, with kernels #1-#3 counted."""
+    runs follow in process, on each chunked path (`_chunk_path`), with
+    kernels #1-#3 counted."""
     from biokanga_tpu_torch import cli
     from biokanga_tpu_torch.sim.simreads import simulate_reads
 
@@ -2359,7 +2365,7 @@ def chunked_cli_start(seqs) -> dict:
                     str(WORK / "ck_pe2.fq")],
              [*PE_FLAGS, "--peinsertdist", "INS"])):
         argv = {}
-        for d in ("cpu", "cuda"):
+        for d in ("cpu", *CHUNK_PATHS):
             side = {"SNPS": WORK / f"ck_{kind}_{d}_snps.csv",
                     "INS": WORK / f"ck_{kind}_{d}_ins.csv"}
             for f in side.values():
@@ -2367,23 +2373,63 @@ def chunked_cli_start(seqs) -> dict:
             argv[d] = ["align", *inputs, "-I", str(WORK / "ck.npz"), "-o",
                        str(WORK / f"ck_{kind}_{d}.sam"), "--batch-size",
                        str(BATCH), *[str(side.get(a, a)) for a in flags]]
-        runs[kind] = {"proc": _cpu_child(argv["cpu"], f"ck_{kind}_cpu")}
-        runs[kind]["argv"] = argv["cuda"]
+        runs[kind] = {"proc": _cpu_child(argv["cpu"], f"ck_{kind}_cpu"),
+                      "argv": argv}
     for kind, run in runs.items():
-        _reset_kernel_launches()
-        run["wall"] = _timed_cli(run["argv"] + ["--device", "cuda"])
-        run["launches"] = _align_launches()
-        if min(run["launches"].values()) < 1:
-            raise AssertionError(f"chunked {kind}: launches "
-                                 f"{run['launches']}")
+        for path in CHUNK_PATHS:
+            _reset_kernel_launches()
+            with _chunk_path(path) as seen:
+                wall = _timed_cli(run["argv"][path] + ["--device", "cuda"])
+            run[path] = {"wall": wall, "launches": _align_launches(), **seen}
+            if min(run[path]["launches"].values()) < 1:
+                raise AssertionError(f"chunked {kind} {path}: launches "
+                                     f"{run[path]['launches']}")
+            want = ((1, 0) if path == "resident" else (0, CHUNKED_CHUNKS))
+            got = (seen["resident_sets"], seen["chunk_uploads"])
+            if got[0] != want[0] or got[1] < want[1]:
+                raise AssertionError(f"chunked {kind} {path}: resident sets, "
+                                     f"chunk uploads {got}")
     print(f"chunked CLI: `index --chunks {CHUNKED_CHUNKS}` of the 4.6 Mbp "
-          f"genome in {index_s:.2f} s (data set-up {setup_s:.1f} s); "
-          f"{CHUNKED_SE_READS} SE reads `align {' '.join(CHUNKED_SE_FLAGS)} "
-          f"-O --device cuda` wall {runs['se']['wall']:.2f} s, launches "
-          f"{runs['se']['launches']}; {CHUNKED_PE_PAIRS} pairs `align -u "
-          f"{' '.join(PE_FLAGS)} --device cuda` wall "
-          f"{runs['pe']['wall']:.2f} s, launches {runs['pe']['launches']}")
+          f"genome in {index_s:.2f} s (data set-up {setup_s:.1f} s)")
+    for kind, what in (("se", f"{CHUNKED_SE_READS} SE reads `align "
+                               f"{' '.join(CHUNKED_SE_FLAGS)} -O"),
+                       ("pe", f"{CHUNKED_PE_PAIRS} pairs `align -u "
+                               f"{' '.join(PE_FLAGS)}")):
+        for path in CHUNK_PATHS:
+            r = runs[kind][path]
+            print(f"chunked CLI {path}: {what} --device cuda` wall "
+                  f"{r['wall']:.2f} s, launches {r['launches']}, chunk "
+                  f"uploads {r['chunk_uploads']}")
     return runs
+
+
+@contextlib.contextmanager
+def _chunk_path(path: str):
+    """Count, in the block, the chunked aligner's uploads of a whole
+    resident set and of single chunks; "cycling" tells it that no index
+    fits the card, so that it cycles the chunks through one engine."""
+    from biokanga_tpu_torch.parallel import chunked as par
+
+    seen = {"resident_sets": 0, "chunk_uploads": 0}
+    saved = (par.upload_chunked_index, par.chunk_to_device,
+             par.fits_on_device)
+
+    def upload(*a, **k):
+        seen["resident_sets"] += 1
+        return saved[0](*a, **k)
+
+    def one(*a, **k):
+        seen["chunk_uploads"] += 1
+        return saved[1](*a, **k)
+
+    par.upload_chunked_index, par.chunk_to_device = upload, one
+    if path == "cycling":
+        par.fits_on_device = lambda *a: False
+    try:
+        yield seen
+    finally:
+        (par.upload_chunked_index, par.chunk_to_device,
+         par.fits_on_device) = saved
 
 
 def chunked_cli_finish(runs) -> None:
@@ -2393,19 +2439,22 @@ def chunked_cli_finish(runs) -> None:
     for kind, run in runs.items():
         _wait_child(run["proc"], f"ck_{kind}_cpu")
     for name in ("ck_se_{}.sam", "ck_se_{}_snps.csv", "ck_pe_{}.sam"):
-        a, b = (WORK / name.format("cpu")).read_bytes(), \
-            (WORK / name.format("cuda")).read_bytes()
-        if a != b:
-            raise AssertionError(f"chunked CLI: {name.format('*')} differs "
-                                 f"between --device cpu and cuda")
-    if any((WORK / f"ck_pe_{d}_ins.csv").exists() for d in ("cpu", "cuda")):
+        a = (WORK / name.format("cpu")).read_bytes()
+        for path in CHUNK_PATHS:
+            if a != (WORK / name.format(path)).read_bytes():
+                raise AssertionError(f"chunked CLI: {name.format('*')} "
+                                     f"differs between --device cpu and "
+                                     f"cuda, {path}")
+    if any((WORK / f"ck_pe_{d}_ins.csv").exists()
+           for d in ("cpu", *CHUNK_PATHS)):
         raise AssertionError("the chunked PE branch wrote an insert CSV")
-    se = [r.split("\t") for r in _records(WORK / "ck_se_cuda.sam")]
-    n_calls = (WORK / "ck_se_cuda_snps.csv").read_text().count("\n") - 1
+    se = [r.split("\t") for r in _records(WORK / "ck_se_resident.sam")]
+    n_calls = (WORK / "ck_se_resident_snps.csv").read_text().count("\n") - 1
     ops = sum(any(c in r[5] for c in "DIN") for r in se)
-    proper, at_origin = _pe_origin_fractions(WORK / "ck_pe_cuda.sam",
+    proper, at_origin = _pe_origin_fractions(WORK / "ck_pe_resident.sam",
                                              CHUNKED_PE_PAIRS)
-    print(f"chunked CLI: --device cpu == --device cuda byte for byte: SE "
+    print(f"chunked CLI: --device cpu == --device cuda, resident and "
+          f"cycling, byte for byte: SE "
           f"SAM ({sum(r[4] == '60' for r in se)} of {len(se)} reads unique, "
           f"{ops} with an indel or junction CIGAR), SNP CSV ({n_calls} "
           f"calls), PE SAM (proper {proper:.6f}, both mates at origin "
@@ -5179,8 +5228,9 @@ def main() -> int:
             "replaces": rep, "launches": launches[name],
             **({"launches_se_align": se_launches[name],
                 "launches_se_options": opt_launches[name],
-                "launches_chunked_se": ck_runs["se"]["launches"][name],
-                "launches_chunked_pe": ck_runs["pe"]["launches"][name],
+                **{f"launches_chunked_{kind}_{path}":
+                   ck_runs[kind][path]["launches"][name]
+                   for kind in ("se", "pe") for path in CHUNK_PATHS},
                 "launches_long_reads": long_launches[name],
                 "launches_big_genome": big_launches[name]}
                if name in se_launches else {}),

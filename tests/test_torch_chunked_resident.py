@@ -7,7 +7,8 @@ rescue windows cross each chunk cut, their second mates seed-dead so that
 only the orphan rescue places them, and clean pairs.  The resident set is
 made both ways: a host ChunkedIndex uploaded once, and every chunk built
 on the device (`build_resident_chunks`).  Under a CPU profiler the
-`chunked.*` spans open and their counters equal their quantities.
+`chunked.*` and `pe.*` spans open and their counters equal their
+quantities.
 """
 import numpy as np
 import pytest
@@ -174,9 +175,11 @@ def test_chunked_spans_and_counters(case, resident, monkeypatch):
         spans = _ranges(prof, name)
         inside = [s for s in spans if a <= s[0] <= s[1] <= b]
         assert len(inside) >= 3 and len(inside) == len(spans), name
-    # the orphan rescue: one range a block, after the merge
-    (r0, _), = _ranges(prof, "chunked.rescue")
-    assert m1 <= r0
+    # after the merge, the pairing, one orphan rescue range a block, and
+    # the pairing again
+    (r0, r1_), = _ranges(prof, "pe.rescue")
+    (c0, c1), (c2, _) = sorted(_ranges(prof, "pe.classify"))
+    assert m1 <= c0 <= c1 <= r0 <= r1_ <= c2
     # one PEAligner.rescue call a mate side and anchor chunk holding
     # orphans, each on that chunk's engine
     r1, l1, r2, l2 = args
@@ -189,6 +192,11 @@ def test_chunked_spans_and_counters(case, resident, monkeypatch):
         pe.ca.bases, m["locus"][cls[f"orphan{w}"]])))
         for w, m in ((1, m1_), (2, m2_)))
     assert len(engines) == groups >= 3
+    assert got["pe.rescue_mates"] == cls["orphan1"].sum() + cls[
+        "orphan2"].sum()
+    assert got["pe.rescued_mates"] == (
+        out["res2"]["unique"][cls["orphan1"]].sum()
+        + out["res1"]["unique"][cls["orphan2"]].sum()) > 0
     if resident:
         assert all(any(e is r for r in pe.ca.engines) for e in engines)
         assert "chunked.uploads" not in got

@@ -1601,3 +1601,53 @@ def test_resident_chunks_share_graphs_and_equal_the_cpu(cuda_device,
         assert c["chunked.index_bytes"] == 5 * pea.ca.resident.nbytes()
         pea.ca.close()
     assert sum(int(w["proper"].sum()) for w in want) > 2_000
+
+
+@pytest.mark.cuda
+def test_repointed_engine_frees_its_graphs_outside_captures(cuda_device,
+                                                            monkeypatch):
+    """One engine pointed from index to index, as the cycling chunked path
+    points it: the collector never runs inside a capture (a graph it frees
+    there invalidates the capture), the dropped index's graphs are freed
+    as the engine is re-pointed, and every result equals an engine's with
+    no graph."""
+    import gc
+    import weakref
+
+    from biokanga_tpu_torch.align import pipeline
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.index.build import build_index
+    from biokanga_tpu_torch.index.device import to_device
+
+    seqs = _repeat_genome()
+    didx = to_device(build_index(seqs, lut_bases=8), cuda_device)
+    ap = AlignParams()
+    blocks = []
+    for k in range(3):
+        r1, ln, r2, _ = _graph_pairs(seqs, k)
+        blocks.append((np.concatenate([r1, r2]), np.concatenate([ln, ln])))
+    monkeypatch.setattr(pipeline, "MAX_GRAPH_KEYS", 0)
+    eager = pipeline.AlignEngine(didx, ap)
+    want = [eager.align_with_rescue(*b) for b in blocks]
+    monkeypatch.undo()
+    collecting = []
+    accept = pipeline._accept
+
+    def spy(*a, **k):
+        collecting.append(gc.isenabled())
+        return accept(*a, **k)
+
+    monkeypatch.setattr(pipeline, "_accept", spy)
+    eng = pipeline.AlignEngine(didx, ap)
+    for turn in range(3):
+        got = [eng.align_with_rescue(*b) for b in blocks]
+        for k, (g, w) in enumerate(zip(got, want)):
+            _assert_same(g, w, f"turn {turn} block {k}")
+        old = [weakref.ref(core) for core in eng._cores.values()]
+        assert old
+        eng.didx = didx
+        assert not eng._cores and all(r() is None for r in old)
+    # eager launches call _accept with the collector on, captures with it
+    # off
+    assert True in collecting and False in collecting
+    assert gc.isenabled()
