@@ -1,17 +1,20 @@
 """The aligner pipeline: seed -> candidates -> Hamming extend -> accept.
 
 Counterpart of biokanga_tpu/align/pipeline.py for the single-end path.
-`align_core` runs the five device stages on one batch of reads:
+`align_core` runs the device stages on one batch of reads, a strand at a
+time, then both strands together:
 
-  1. pack the seed cores of both strands (ops/lookup.pack_read_kmers)
-  2. look up their suffix-array ranges (ops/lookup.seed_range_lookup)
-  3. gather up to H loci per core and dedup diagonals with the row sort
-     kernel (ops/sort.sort_rows)
-  4. count packed Hamming mismatches with the extension kernel
+  1. pack each read's seed cores, look up their suffix-array ranges and
+     write up to H diagonals a core into one candidate row
+     (ops/seed_rows.seed_rows)
+  2. sort each row with the row sort kernel (ops/sort.sort_rows), drop
+     repeated diagonals, keep the first cand_cap and pack the read
+     (ops/seed_rows.dedup_pack)
+  3. count packed Hamming mismatches with the extension kernel
      (ops/extend_packed.hamming_extend_packed), or, for an index without
      packed rows or reads past MAX_PACKED_READ_LEN bases, on the dense
      path (ops/extend.hamming_extend)
-  5. accept hits through one two-key row sort (ops/sort.sort2_rows)
+  4. accept hits through one two-key row sort (ops/sort.sort2_rows)
 
 `AlignEngine` drives it from the host exactly as the JAX engine does:
 a two-level fast pass, a classic rerun of unresolved reads, and the
@@ -36,12 +39,13 @@ from ..device import I32_MAX
 from ..index.device import DeviceIndex
 from ..ops.extend import hamming_extend
 from ..ops.extend_packed import (
+    BASES_PER_WORD,
     MAX_PACKED_READ_LEN,
     MM_INVALID,
     hamming_extend_packed,
-    pack_reads,
 )
-from ..ops.lookup import pack_read_kmers, seed_range_lookup
+from ..ops.seed_rows import dedup_pack, seed_rows
+from ..ops.seed_rows import rc_reads as _rc_reads
 from ..ops.sort import sort2_rows, sort_rows
 from ..utils.trace import count, span
 from .params import AlignParams, DerivedParams
@@ -52,92 +56,69 @@ from .params import AlignParams, DerivedParams
 SPLICE_CAND_CAP = 24
 
 
-def _rc_reads(reads: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Per-read reverse complement keeping padding at the tail."""
-    L = reads.shape[1]
-    flipped = reads.flip(1)
-    rc = torch.where(flipped >= 4, flipped, 3 - flipped).to(reads.dtype)
-    # rc has (L - len) pad codes at the front; roll left per read
-    col = (torch.arange(L, device=reads.device)[None, :]
-           + (L - lengths.to(torch.int64))[:, None]) % L
-    return torch.gather(rc, 1, col)
+def _offsets(dp: DerivedParams, device) -> torch.Tensor:
+    return torch.as_tensor(dp.offsets, dtype=torch.int32, device=device)
 
 
-def _seed_diagonals(didx: DeviceIndex, seq: torch.Tensor, dp: DerivedParams,
-                    H: int, owned=None, occ_skip: bool = False, offs=None):
-    """The seed stage of one strand, up to the dedup sort: (B, S*H) int32
-    candidate diagonals, INT32_MAX where a slot holds none, and the (B, S)
-    cores whose range exceeds H.  `offs`: dp.offsets as an int32 tensor
-    on seq's device (made here when None)."""
-    S = len(dp.offsets)
-    B = seq.shape[0]
-    dev = seq.device
-    if offs is None:
-        offs = torch.as_tensor(dp.offsets, dtype=torch.int32, device=dev)
-    qlh, qll, qhh, qhl, has_n = pack_read_kmers(seq, offs, dp.core_len)
-    start, end = seed_range_lookup(
-        didx.key_hi, didx.key_lo, didx.lut, didx.lut_bases, qlh, qll, qhh,
-        qhl, core_len=dp.core_len, max_steps=didx.max_bsearch_steps,
-    )
-    size = end - start
-    # N-containing cores give junk ranges; they never count as over-occurring
-    overflow = (size > H) & ~has_n
-    if occ_skip:
-        size = torch.where(overflow, 0, size)
-    j = torch.arange(H, device=dev)
-    slot = torch.clamp(start[..., None] + j, max=didx.pos_sorted.shape[0] - 1)
-    pos = didx.pos_sorted[slot]                                # (B, S, H)
-    in_range = j < torch.clamp(size, max=H)[..., None]
-    diag = pos - offs[None, :, None]
-    valid = in_range & ~has_n[..., None] & (diag >= 0)
-    if owned is not None:
-        valid = valid & (diag < owned)
-    return torch.where(valid, diag, I32_MAX).reshape(B, S * H), overflow
-
-
-def _dedup(srt: torch.Tensor, overflow: torch.Tensor, cand_cap: int,
-           occ_skip: bool):
-    """The seed stage after the dedup sort: (loci, valid, n_over, trunc)
-    as `_strand_candidates` returns them."""
-    B, SH = srt.shape
-    dev = srt.device
-    dup = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=dev),
-                     srt[:, 1:] == srt[:, :-1]], dim=1)
-    v = (srt != I32_MAX) & ~dup
-    C = min(cand_cap, SH)
-    if C < SH:
-        trunc = v[:, C:].any(dim=1)
-        srt, v = srt[:, :C], v[:, :C]
-    else:
-        trunc = torch.zeros(B, dtype=torch.bool, device=dev)
-    if occ_skip:
-        # skipped cores weaken the pigeonhole bound (inexact_rows)
-        n_over = overflow.sum(dim=1, dtype=torch.int32)
-    else:
-        n_over = torch.zeros(B, dtype=torch.int32, device=dev)
-        trunc = trunc | overflow.any(dim=1)
-    return srt, v, n_over, trunc
-
-
-def _strand_candidates(didx: DeviceIndex, seq: torch.Tensor,
-                       dp: DerivedParams, H: int, cand_cap: int, owned=None,
-                       occ_skip: bool = False):
-    """Candidate loci for one strand: (B, C) int32 loci + validity, with
-    C = min(cand_cap, S*H), the per-read count of skipped cores and the
-    cap-truncation flag.
+def _strand_candidates(didx: DeviceIndex, reads: torch.Tensor,
+                       lengths: torch.Tensor, rc: bool, dp: DerivedParams,
+                       H: int, cand_cap: int, owned=None,
+                       occ_skip: bool = False, offs=None, out=None):
+    """Candidate loci for one strand of (B, L) int8 reads and their (B,)
+    int32 lengths (the reverse complements with `rc`): (B, C) int32 loci
+    + validity, with C = min(cand_cap, S*H), the per-read count of skipped
+    cores, the cap-truncation flag, and the strand's packed read words
+    and N-plane words.
 
     Pack cores -> LUT / binary-search range -> read up to H sorted
-    positions per core -> diagonal dedup (row sort + neighbour mask) ->
-    keep the first cand_cap columns (INT32_MAX sentinels sort last).
+    positions per core (seed_rows) -> diagonal dedup (row sort + neighbour
+    mask) -> keep the first cand_cap columns (INT32_MAX sentinels sort
+    last) and pack the read (dedup_pack).
 
     `occ_skip`: a core whose range exceeds H gives no candidates and is
     counted in n_over (biokanga_tpu/align/pipeline.py:116-126 states the
     rule); without it the range is cut to its first H positions and the
     read is flagged truncated.  `owned`: alignments must start below it.
+    `offs`: dp.offsets as an int32 tensor on the reads' device (made here
+    when None).  `out`: static buffers to write into, a dict with the
+    pair "seed", the tensor "srt" and the tuple "cand" of the kernels'
+    `out=` (`_CoreGraphs`).
     """
-    flat, overflow = _seed_diagonals(didx, seq, dp, H, owned, occ_skip)
+    bufs = out or {}
+    if offs is None:
+        offs = _offsets(dp, reads.device)
+    flat, overflow = seed_rows(didx, reads, lengths, rc, offs, dp.core_len,
+                               H, owned, occ_skip, out=bufs.get("seed"))
+    count("seed.calls", 1)
+    count("seed.slots", flat.numel())
+    count("seed.filled_slots", lambda: flat != I32_MAX)
     # diagonal dedup: one locus found through several cores is one hit
-    return _dedup(sort_rows(flat), overflow, cand_cap, occ_skip)
+    srt = sort_rows(flat) if out is None else sort_rows(flat, out=out["srt"])
+    return dedup_pack(srt, overflow, reads, lengths, rc, cand_cap, occ_skip,
+                      out=bufs.get("cand"))
+
+
+def _strand_mismatches(didx: DeviceIndex, reads, lengths, rc: bool,
+                       dp: DerivedParams, H: int, cand_cap: int,
+                       occ_skip: bool, offs, out=None):
+    """One strand of align_core up to the extension: (loci, mm, n_over,
+    trunc).  `out`: `_strand_candidates`' buffers and "mm", the packed
+    extension's."""
+    loci, vmask, n_over, trunc, rcodes, rnlane = _strand_candidates(
+        didx, reads, lengths, rc, dp, H, cand_cap, didx.owned, occ_skip,
+        offs, out)
+    if didx.packed is not None and reads.shape[1] <= MAX_PACKED_READ_LEN:
+        count("extend.slots", vmask.numel())
+        count("extend.valid_slots", vmask)
+        args = (didx.packed, didx.entry_starts, loci, vmask, rcodes, rnlane,
+                lengths)
+        mm = (hamming_extend_packed(*args) if out is None
+              else hamming_extend_packed(*args, out=out["mm"]))
+    else:
+        seq = _rc_reads(reads, lengths) if rc else reads
+        mm = hamming_extend(didx.genome, didx.entry_starts, loci, vmask, seq,
+                            lengths)
+    return loci, mm, n_over, trunc
 
 
 def _budget_rate(ap: AlignParams, device) -> torch.Tensor:
@@ -208,34 +189,24 @@ def _accept(s_key, s_loci, mm_all, max_tot_mm, n_over, trunc,
     }
 
 
+def _strands(strand: str) -> tuple:
+    """The `rc` flag of each strand align_core runs, sense first."""
+    return {"sense": (False,), "antisense": (True,)}.get(strand,
+                                                          (False, True))
+
+
 def align_core(didx: DeviceIndex, reads: torch.Tensor, lengths: torch.Tensor,
                *, ap: AlignParams, dp: DerivedParams, H: int, cand_cap: int,
                strand: str, occ_skip: bool = True) -> dict:
-    """One batch through the five device stages; returns device tensors
-    keyed as the JAX align_core's result (RESULT_KEYS + ladder keys)."""
+    """One batch through the device stages; returns device tensors keyed
+    as the JAX align_core's result (RESULT_KEYS + ladder keys)."""
     max_tot_mm = mismatch_budget(lengths, ap)
-    strands = []                      # sense columns first (rc_col below)
-    if strand in ("both", "sense"):
-        strands.append(reads)
-    if strand in ("both", "antisense"):
-        strands.append(_rc_reads(reads, lengths))
-
-    use_packed = (didx.packed is not None
-                  and reads.shape[1] <= MAX_PACKED_READ_LEN)
+    offs = _offsets(dp, reads.device)
     loci_parts, mm_parts = [], []
     n_over = trunc = None
-    for seq in strands:
-        loci, vmask, s_over, s_trunc = _strand_candidates(
-            didx, seq, dp, H, cand_cap, didx.owned, occ_skip=occ_skip)
-        if use_packed:
-            count("extend.slots", vmask.numel())
-            count("extend.valid_slots", vmask)
-            rcodes, rnlane = pack_reads(seq, lengths)
-            mm = hamming_extend_packed(didx.packed, didx.entry_starts, loci,
-                                       vmask, rcodes, rnlane, lengths)
-        else:
-            mm = hamming_extend(didx.genome, didx.entry_starts, loci, vmask,
-                                seq, lengths)
+    for rc in _strands(strand):       # sense columns first (rc_col below)
+        loci, mm, s_over, s_trunc = _strand_mismatches(
+            didx, reads, lengths, rc, dp, H, cand_cap, occ_skip, offs)
         loci_parts.append(loci)
         mm_parts.append(mm)
         # a hidden hit lives on one strand: the worst single strand counts
@@ -280,30 +251,28 @@ def _cuda_capture(device):
 
 
 class _CoreGraphs:
-    """`align_core` of one launch key as replays over static buffers.
+    """`align_core` of one launch key: its kernels called into static
+    buffers, and the PyTorch op chains between them replayed from CUDA
+    graphs.
 
-    Its PyTorch op chains are captured between the hand-written kernels,
-    a segment each: a strand's seed stage up to the dedup sort (#1,
-    `sort_rows`); its dedup mask, truncation and read packing up to the
-    extension (#3, `hamming_extend_packed`); the accept key up to the
-    two-key sort (#2, `sort2_rows`); and the result.  The kernels run
-    eagerly between the replays, through this module's names, each into
-    the static input of the next segment (their `out=`), so a kernel is
-    called once a call site as in `align_core`.  The segments replay in
-    the order they were captured, on one stream: `reads` and `lengths`
-    are filled on it before `run`, and the dict `run` returns is
-    overwritten by the next `run`.
+    A strand runs four hand-written kernels eagerly, through this
+    module's names, each into the static input of the next (their
+    `out=`): `seed_rows` writes the candidate rows, #1 `sort_rows` sorts
+    them, `dedup_pack` writes the extension's inputs and #3
+    `hamming_extend_packed` counts the mismatches.  Two segments are
+    captured: the accept key up to the two-key sort (#2, `sort2_rows`),
+    and the result.  So a kernel is called once a call site as in
+    `align_core`.  The segments replay in the order they were captured,
+    on one stream: `reads` and `lengths` are filled on it before `run`,
+    and the dict `run` returns is overwritten by the next `run`.
 
     `capture(fn) -> (replay, outputs)` captures one segment
     (`_cuda_capture`); outputs are read after each replay.
 
-    Only the seed stage reads the index (the extension, eager, is given
-    it), so one `_CoreGraphs` serves several indexes of one shape
-    (`AlignEngine`'s `graphs`): `run(didx)` replays that index's seed
-    segments, captured at its first run, which write into the first
-    index's static outputs, and every other segment and static buffer is
-    shared.  The indexes' runs must then follow one another on one
-    stream, as a key's do.
+    No segment reads the index: the kernels are given it.  So one
+    `_CoreGraphs` serves every index its launches take (`AlignEngine`'s
+    `graphs`: the chunks of a chunked index), `run(didx)`; the indexes'
+    runs must then follow one another on one stream, as a key's do.
     """
 
     def __init__(self, didx: DeviceIndex, ap: AlignParams, dp: DerivedParams,
@@ -320,57 +289,42 @@ class _CoreGraphs:
             self._segments.append(fn)
             return cuda_capture(fn)
 
-        self._capture = capture
         self.didx = didx
+        self.dp, self.H = dp, H
+        self.cand_cap, self.occ_skip = cand_cap, occ_skip
         # all N and of length 0 until the first batch is copied in
         self.reads = torch.full((B, L), 4, dtype=torch.int8, device=dev)
         self.lengths = torch.zeros(B, dtype=torch.int32, device=dev)
         # made by host-to-device copies, so outside the captures
-        offs = torch.as_tensor(dp.offsets, dtype=torch.int32, device=dev)
+        self.offs = _offsets(dp, dev)
         rate = _budget_rate(ap, dev)
+        S = len(dp.offsets)
+        C = min(cand_cap, S * H)
+        W = -(-L // BASES_PER_WORD)
 
-        def seed_of(didx, rc):
-            def seed():
-                seq = (_rc_reads(self.reads, self.lengths) if rc
-                       else self.reads)
-                flat, overflow = _seed_diagonals(didx, seq, dp, H,
-                                                 didx.owned, occ_skip, offs)
-                return seq, flat, overflow
-            return seed
+        def empty(dtype, *shape):
+            return torch.empty(shape, dtype=dtype, device=dev)
 
-        self._seed_of = seed_of
-        self.strands = []
-        for rc in ((False,) if ap.strand == "sense" else
-                   (True,) if ap.strand == "antisense" else (False, True)):
-            st = {"rc": rc}
-            st["seed"], (seq, st["flat"], overflow) = capture(
-                seed_of(didx, rc))
-            st["static"] = (seq, st["flat"], overflow)
-            st["srt"] = torch.empty_like(st["flat"])
-
-            def dedup(st=st, seq=seq, overflow=overflow):
-                loci, v, n_over, trunc = _dedup(st["srt"], overflow,
-                                                cand_cap, occ_skip)
-                rcodes, rnlane = pack_reads(seq, self.lengths)
-                return (loci.contiguous(), v.contiguous(), n_over, trunc,
-                        rcodes, rnlane)
-
-            st["dedup"], (st["loci"], st["valid"], st["n_over"],
-                          st["trunc"], st["rcodes"], st["rnlane"]) = \
-                capture(dedup)
-            st["mm"] = torch.empty(st["loci"].shape, dtype=torch.uint8,
-                                   device=dev)
-            self.strands.append(st)
+        i32 = torch.int32
+        self.strands = [{
+            "rc": rc,
+            "seed": (empty(i32, B, S * H), empty(torch.bool, B, S)),
+            "srt": empty(i32, B, S * H),
+            # loci, valid, n_over, trunc, rcodes, rnlane
+            "cand": (empty(i32, B, C), empty(torch.bool, B, C),
+                     empty(i32, B), empty(torch.bool, B), empty(i32, B, W),
+                     empty(i32, B, W)),
+            "mm": empty(torch.uint8, B, C),
+        } for rc in _strands(ap.strand)]
 
         def key():
             k, loci_all, mm_all = _accept_key(
-                [st["loci"] for st in self.strands],
+                [st["cand"][0] for st in self.strands],
                 [st["mm"] for st in self.strands], ap.strand)
-            n_over, trunc = self.strands[0]["n_over"], \
-                self.strands[0]["trunc"]
+            n_over, trunc = self.strands[0]["cand"][2:4]
             for st in self.strands[1:]:
-                n_over = torch.maximum(n_over, st["n_over"])
-                trunc = trunc | st["trunc"]
+                n_over = torch.maximum(n_over, st["cand"][2])
+                trunc = trunc | st["cand"][3]
             return k, loci_all, mm_all, n_over, trunc
 
         self.key, (self.sort_key, self.sort_loci, mm_all, n_over,
@@ -385,38 +339,15 @@ class _CoreGraphs:
             return out, _pack_result(out)
 
         self.accept, (self.out, self.packed) = capture(accept)
-        # id(index) -> (the index, its seed segments' replays, a strand each)
-        self._seeds = {id(didx): (didx, [st["seed"] for st in self.strands])}
-
-    def _add_index(self, didx: DeviceIndex):
-        """Capture the seed segments of another index of the same shape:
-        each writes its outputs into the first index's static ones."""
-        seeds = []
-        for st in self.strands:
-            def seed(fn=self._seed_of(didx, st["rc"]), static=st["static"]):
-                for dst, src in zip(static, fn()):
-                    if dst.data_ptr() != src.data_ptr():
-                        dst.copy_(src)
-                return static
-            seeds.append(self._capture(seed)[0])
-        self._seeds[id(didx)] = (didx, seeds)
-        return seeds
 
     def run(self, didx: DeviceIndex | None = None):
         """(result dict, its `_pack_result`), both static, for `didx` (the
         index it was made with when None)."""
         didx = self.didx if didx is None else didx
-        known = self._seeds.get(id(didx))
-        seeds = known[1] if known is not None else self._add_index(didx)
-        for st, seed in zip(self.strands, seeds):
-            seed()
-            sort_rows(st["flat"], out=st["srt"])
-            st["dedup"]()
-            count("extend.slots", st["valid"].numel())
-            count("extend.valid_slots", st["valid"])
-            hamming_extend_packed(didx.packed, didx.entry_starts, st["loci"],
-                                  st["valid"], st["rcodes"], st["rnlane"],
-                                  self.lengths, out=st["mm"])
+        for st in self.strands:
+            _strand_mismatches(didx, self.reads, self.lengths, st["rc"],
+                               self.dp, self.H, self.cand_cap, self.occ_skip,
+                               self.offs, st)
         self.key()
         sort2_rows(self.sort_key, self.sort_loci,
                    out=(self.s_key, self.s_loci))
@@ -537,8 +468,8 @@ class AlignEngine:
     (`_start_reruns`).
 
     `graphs`: a dict of launch keys to `_CoreGraphs` that engines over
-    indexes of one shape share (the chunks of a chunked index), so that
-    a key's static buffers and graph pool are held once and not once an
+    several indexes share (the chunks of a chunked index), so that a
+    key's static buffers and graph pool are held once and not once an
     engine.  Their launches must then run one after another, as a sweep
     over the chunks runs them; shared graphs outlive a `didx` setting.
     """
@@ -905,12 +836,11 @@ def scan_fallthrough(didx: DeviceIndex, params: AlignParams,
     dev = reads.device
     scan_args = (didx.packed, didx.entry_starts)
     best = None
+    offs = _offsets(dp, dev)
     for is_rc in (False, True):
-        seq = _rc_reads(reads, lengths) if is_rc else reads
-        loci, vmask, _, _ = _strand_candidates(
-            didx, seq, dp, params.cand_per_core, SPLICE_CAND_CAP,
-            occ_skip=True)
-        rcodes, rnlane = pack_reads(seq, lengths)
+        loci, vmask, _, _, rcodes, rnlane = _strand_candidates(
+            didx, reads, lengths, is_rc, dp, params.cand_per_core,
+            SPLICE_CAND_CAP, occ_skip=True, offs=offs)
         cand = (loci, vmask, rcodes, rnlane, lengths, L)
         outs = []
         if micro_indel_len:

@@ -13,7 +13,8 @@ step of a pass is tensor work:
      the device (index/device_build.device_build_index);
   2. queries = every sequence in both orientations, k-mers at a few
      prefix anchor offsets; one batched range lookup and candidate
-     diagonal dedup (the aligner's own _strand_candidates: kernel #1);
+     diagonal dedup (the aligner's own _strand_candidates: the seed
+     kernels and #1), with the queries' packed words;
   3. a candidate diagonal d implies target entry e, shift = d - start[e],
      overlap ov = len[e] - shift; the first ov query bases are verified
      by the windowed Hamming kernel (ops/extend_packed.
@@ -42,11 +43,7 @@ import torch
 from ..align.params import DerivedParams
 from ..align.pipeline import _strand_candidates
 from ..index.device_build import device_build_index
-from ..ops.extend_packed import (
-    BASES_PER_WORD,
-    hamming_extend_packed_win,
-    pack_reads,
-)
+from ..ops.extend_packed import BASES_PER_WORD, hamming_extend_packed_win
 from ..seq.encode import revcomp
 from ..utils.trace import span
 
@@ -82,14 +79,14 @@ def _sweep_batch(didx, starts32, lens32, qseq, qlen, qid0: int,
     dp = DerivedParams(read_len=int(qseq.shape[1]), max_tot_mm=0,
                        core_len=core_len, core_delta=core_len,
                        max_slides=len(offsets), offsets=tuple(offsets))
-    diag, valid, _, _ = _strand_candidates(didx, qseq, dp, H, cap)
+    diag, valid, _, _, rcodes, rnlane = _strand_candidates(
+        didx, qseq, qlen, False, dp, H, cap)
     i32 = torch.int32
     ent = torch.searchsorted(starts32, diag, right=True).to(i32) - 1
     entc = torch.clamp(ent, 0, lens32.shape[0] - 1).long()
     shift = diag - starts32[entc]
     ov = lens32[entc] - shift
     ovc = torch.clamp(ov, 0, VERIFY_CAP)
-    rcodes, rnlane = pack_reads(qseq, qlen)
     mm = hamming_extend_packed_win(didx.packed, starts32, diag, valid,
                                    rcodes, rnlane, ovc)
     budget = torch.div(ovc * sub_per100, 100, rounding_mode="floor")

@@ -75,6 +75,15 @@ _SIGNATURES = {
     "blitz_chain_shared_max_m": (),
     # (steps, out, stream): one warp of the chain DP's dependent steps
     "blitz_chain_step_probe": (_I, _P, _P),
+    # (reads, lengths, offs, B, L, S, core_len, H, rc, occ_skip, owned,
+    #  key_hi, key_lo, n_keys, lut, lut_bases, steps, pos, n_pos, flat,
+    #  overflow, stream)
+    "seed_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _P, _P, _L, _P,
+                  _I, _I, _P, _L, _P, _P, _P),
+    # (srt, overflow, reads, lengths, B, SH, S, C, L, W, rc, occ_skip, loci,
+    #  valid, n_over, trunc, rcodes, rnlane, stream)
+    "dedup_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                   _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -164,7 +173,11 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    """Raw handle of PyTorch's current stream on `device`."""
+    """Raw handle of PyTorch's current stream on `device`, read without
+    building a `torch.cuda.Stream` (a few microseconds a launch)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

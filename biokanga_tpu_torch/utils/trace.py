@@ -7,13 +7,15 @@
         ...
     count("engine.rows", len(reads))       # a host int
     count("extend.valid_slots", mask)      # or a tensor, summed
+    count("seed.filled_slots", lambda: flat != I32_MAX)   # made if counted
 
 While a profiler records (`torch.autograd._profiler_enabled()`), `span`
 opens a `torch.profiler.record_function` range, on the profiler's clock
 with the device events of its trace, and `count` adds to a named
 counter; a tensor is summed on its device, on the stream it was made on
 and without waiting for it, and its sum is added in `counts()`, so that
-counts from several streams never race.
+counts from several streams never race; a function is called then, and
+only then, for the int or tensor to count.
 Otherwise a span is one shared no-op context and a count does nothing,
 not even the sum: each costs one check of the profiler's state.  There
 is no setting: an operator turns tracing on by running the program
@@ -55,9 +57,12 @@ def spanned(name: str):
 
 
 def count(name: str, n) -> None:
-    """Add `n` to counter `name` while a profiler records: a host int, or
-    a tensor whose elements are summed on its device."""
+    """Add `n` to counter `name` while a profiler records: a host int, a
+    tensor whose elements are summed on its device, or a function called
+    only then that gives either."""
     if torch.autograd._profiler_enabled():
+        if callable(n):
+            n = n()
         if isinstance(n, torch.Tensor):
             _pending.setdefault(name, []).append(n.sum())
         else:

@@ -219,17 +219,23 @@ Phases, each of which raises on failure:
      gathers each run launched; conformation_profile on chromosome IV
      on the card equal to the CPU's exactly, its gather timed beside its
      bound; the three outputs byte for byte against --device cpu
-     children.
+     children;
+ 31. the seed stage's kernels (seed_rows, dedup_pack) against their
+     plain versions on both strands at GRCh38's chunk (237,561,344
+     bases, LUT 13: the fast and the classic pass) and at E. coli's fast
+     pass, 131,072 reads of 100 bp, each timed beside its plain op chain
+     and its bytes bound.
 Phases 16 and 17 run on the card right after phase 6, and 21-22 after
 them; their --device cpu child processes go on beside the phases that
 follow and are compared after phase 18 (16-17) and at the end (21-29).
-Phase 20 runs right after phase 3, 23 after phase 13, 24 after 18,
-25-29 after 24, and 30 last, after the CPU runs of 21-29 are compared.
-Phase 3 also holds the extension kernel at the orphan rescue's shape
-(2,048 windows of 500 consecutive loci, some off the genome's ends).
-The kernels line gives #1-#3 their launches on every path above, #3w
-its launches on the assembly cell, #7 on phase 25's 1 Mbp and node
-sweeps, #8 on phase 26's CLI run, every kernel its launches on phase
+Phase 20 runs right after phase 3, 31 after 20, 23 after phase 13, 24
+after 18, 25-29 after 24, and 30 last, after the CPU runs of 21-29 are
+compared.  Phase 3 also holds the extension kernel at the orphan
+rescue's shape (2,048 windows of 500 consecutive loci, some off the
+genome's ends).  The kernels line gives #1-#3 and the seed kernels
+their launches on every path above, #3w its launches on the assembly
+cell, #7 on phase 25's 1 Mbp and node sweeps, #8 on phase 26's CLI run,
+every kernel its launches on phase
 19's sharded, EC-mesh and swservice paths (summed over the ranks), and
 on the paths of phases 21-24, 28 and 29 where it ran.
 The last two lines are a JSON object per kernel and the result line.
@@ -1704,7 +1710,8 @@ def _pe_origin_fractions(path: Path, n_pairs: int) -> tuple[float, float]:
     return proper / n_pairs, at_origin / max(proper, 1)
 
 
-ALIGN_KERNELS = ("sort_rows", "sort2_rows", "hamming_extend_packed")
+ALIGN_KERNELS = ("seed_rows", "sort_rows", "dedup_pack", "sort2_rows",
+                 "hamming_extend_packed")
 
 
 def _align_launches() -> dict:
@@ -3140,9 +3147,8 @@ def several_ranks(seqs, dev, smi, engine_rate) -> dict:
                    if part in rep)
 
     launches = {}
-    for name in ("sort_rows", "sort2_rows", "hamming_extend_packed",
-                 "banded_sw_moves", "banded_sw_score", "sw_trace",
-                 "stream_gather_consume"):
+    for name in ALIGN_KERNELS + ("banded_sw_moves", "banded_sw_score",
+                                 "sw_trace", "stream_gather_consume"):
         launches[name] = {
             "launches_sharded": sum(total(f"{d}x{s}", name)
                                     for d, s in RANK_LAYOUTS)
@@ -3150,9 +3156,7 @@ def several_ranks(seqs, dev, smi, engine_rate) -> dict:
             "launches_ec_mesh": total("ec", name)
             if name in reports[0]["ec"]["launches"] else 0,
             "launches_swservice": sws_launches.get(name, 0)}
-    for name, want in (("sort_rows", "launches_sharded"),
-                       ("sort2_rows", "launches_sharded"),
-                       ("hamming_extend_packed", "launches_sharded"),
+    for name, want in (*((k, "launches_sharded") for k in ALIGN_KERNELS),
                        ("banded_sw_moves", "launches_ec_mesh"),
                        ("sw_trace", "launches_ec_mesh"),
                        ("banded_sw_score", "launches_swservice")):
@@ -3340,6 +3344,140 @@ def check_extend_win(dev):
     return err, head
 
 
+# ------------------------------------------------- the seed stage (31) ----
+
+# (name, genome bases, LUT bases, pass): GRCh38's chunk of the benchmark
+# (237,561,344 padded bases, LUT 13) at its fast and classic passes, and
+# E. coli's genome (4,641,652 bases, LUT 10) at its fast pass; 100 bp
+# reads in the fused PE batch of 131,072 rows
+SEED_SHAPES = (("grch38_fast", 237_561_344, 13, "fast"),
+               ("grch38_classic", 237_561_344, 13, "classic"),
+               ("ecoli_fast", 4_641_652, 10, "fast"))
+SEED_ROWS = 2 * BATCH
+
+
+def _seed_batch(dev, genome, n_rows, L, seed):
+    """n_rows reads of L bases from a device genome, every other one
+    reverse complemented, 1% substitutions, lengths all L."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = genome.shape[0]
+    at = torch.randint(0, n - L, (n_rows,), device=dev, generator=gen)
+    r = genome[at[:, None] + torch.arange(L, device=dev)]
+    flip = torch.arange(n_rows, device=dev) % 2 == 1
+    r = torch.where(flip[:, None], (3 - r).flip(1), r)
+    sub = torch.rand(r.shape, device=dev, generator=gen) < 0.01
+    r = torch.where(sub, (r + 1) % 4, r).to(torch.int8)
+    return r.contiguous(), torch.full((n_rows,), L, dtype=torch.int32,
+                                      device=dev)
+
+
+def _seed_bytes(didx, reads, S, core_len, flat, overflow, got):
+    """Bytes the two kernels need on these inputs: seed_rows reads the
+    reads, two LUT entries and one key pair a bound a core, the live
+    positions, and writes the rows and flags; dedup_pack reads the filled
+    slots, the flags and the reads, and writes the loci, valid flags,
+    counts and read words.  Each input once, each output once."""
+    B, L = reads.shape
+    filled = int((flat != I32_MAX).sum())
+    search = 2 * 8 * B * S if core_len > didx.lut_bases else 0
+    seed = (B * L + 4 * B + 8 * B * S + search + 4 * filled
+            + _nbytes(flat, overflow))
+    dedup = B * L + 4 * B + 4 * filled + _nbytes(overflow, *got)
+    return seed, dedup, filled
+
+
+def check_seed_kernels(dev, smi):
+    """Phase 31: seed_rows and dedup_pack against their plain versions at
+    GRCh38's and E. coli's pass shapes, both strands, and timed beside
+    the plain op chains and their bytes bounds."""
+    import torch
+
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.index.device_build import device_build_index
+    from biokanga_tpu_torch.ops import seed_rows as sr
+    from biokanga_tpu_torch.ops import sort
+
+    ap = AlignParams()
+    err = {"seed_rows": 0, "dedup_pack": 0}
+    by_shape = {}
+    built = {}
+    for name, n, lut_bases, kind in SEED_SHAPES:
+        if (n, lut_bases) not in built:
+            built.clear()
+            gen = torch.Generator(device=dev).manual_seed(n)
+            g = torch.randint(0, 4, (n,), dtype=torch.int8, device=dev,
+                              generator=gen)
+            didx = device_build_index(g.cpu().numpy(), np.array([0, n]),
+                                      lut_bases, device=dev)
+            built[(n, lut_bases)] = (g, didx)
+            torch.cuda.empty_cache()
+        g, didx = built[(n, lut_bases)]
+        if kind == "fast":
+            fp = ap.derive_fast(READ_LEN, n, lut_bases)
+            dp, H, cap = fp.dp, fp.H, fp.cand_cap
+        else:
+            dp = ap.derive(READ_LEN, n)
+            H, cap = ap.cand_per_core, ap.max_cand_per_strand
+        reads, lengths = _seed_batch(dev, g, SEED_ROWS, READ_LEN, n % 9973)
+        offs = torch.tensor(dp.offsets, dtype=torch.int32, device=dev)
+        S = len(dp.offsets)
+        for rc in (False, True):
+            args = (didx, reads, lengths, rc, offs, dp.core_len, H, None,
+                    True)
+            flat, overflow = sr.seed_rows(*args)
+            want = sr.seed_rows_plain(*args)
+            err["seed_rows"] = max(err["seed_rows"],
+                                   _max_abs_err(flat, want[0]),
+                                   _max_abs_err(overflow, want[1]))
+            del want
+            srt = sort.sort_rows(flat)
+            got = sr.dedup_pack(srt, overflow, reads, lengths, rc, cap, True)
+            for a, b in zip(got, sr.dedup_pack_plain(
+                    srt, overflow, reads, lengths, rc, cap, True)):
+                err["dedup_pack"] = max(err["dedup_pack"], _max_abs_err(a, b))
+        if any(err.values()):
+            raise AssertionError(f"phase 31: the seed kernels disagree with "
+                                 f"their plain versions at {name}: {err}")
+        seed_out = (flat, overflow)
+        got = tuple(t.contiguous() for t in got)
+        t = dict(
+            seed_ms=_timed_ms(lambda: sr.seed_rows(*args, out=seed_out)),
+            seed_plain_ms=_timed_ms(lambda: sr.seed_rows_plain(*args), 3),
+            dedup_ms=_timed_ms(lambda: sr.dedup_pack(
+                srt, overflow, reads, lengths, True, cap, True, out=got)),
+            dedup_plain_ms=_timed_ms(lambda: sr.dedup_pack_plain(
+                srt, overflow, reads, lengths, True, cap, True), 3))
+        seed_b, dedup_b, filled = _seed_bytes(didx, reads, S, dp.core_len,
+                                              flat, overflow, got)
+        t["seed_bound"] = _bound(seed_b, 0)
+        t["dedup_bound"] = _bound(dedup_b, 0)
+        t["filled_share"] = filled / flat.numel()
+        by_shape[name] = t
+        print(f"seed stage at {name} ({SEED_ROWS} x {READ_LEN} bp, {S} "
+              f"cores of {dp.core_len}, H {H}, cap {cap}; "
+              f"{100 * t['filled_share']:.2f}% of slots filled): seed_rows "
+              f"{t['seed_ms']:.4f} ms (plain {t['seed_plain_ms']:.4f}, bound "
+              f"{t['seed_bound'][0]:.4f}), dedup_pack {t['dedup_ms']:.4f} ms "
+              f"(plain {t['dedup_plain_ms']:.4f}, bound "
+              f"{t['dedup_bound'][0]:.4f}) ({smi})")
+        del flat, overflow, srt, got, seed_out, reads
+    del built
+    torch.cuda.empty_cache()
+    head = by_shape["grch38_classic"]
+    timing = {
+        kernel: dict(ms=head[f"{part}_ms"], plain_ms=head[f"{part}_plain_ms"],
+                     bound=head[f"{part}_bound"], library_ms=None,
+                     by_shape={k: {"ms": v[f"{part}_ms"],
+                                   "plain_ms": v[f"{part}_plain_ms"],
+                                   "bound_ms": v[f"{part}_bound"][0],
+                                   "filled_share": v["filled_share"]}
+                               for k, v in by_shape.items()})
+        for kernel, part in (("seed_rows", "seed"), ("dedup_pack", "dedup"))}
+    return err, timing
+
+
 # -------------------------------------- bisulfite, colorspace (21, 22) ----
 
 def _kernel_launches() -> dict:
@@ -3348,6 +3486,7 @@ def _kernel_launches() -> dict:
         banded_sw,
         blitz_chain,
         extend_packed,
+        seed_rows,
         sort,
         sw_trace,
         uhamming_sweep,
@@ -3355,6 +3494,8 @@ def _kernel_launches() -> dict:
 
     return {"uhamming_sweep": uhamming_sweep.uhamming_sweep.launches,
             "blitz_chain": blitz_chain.chain_scan.launches,
+            "seed_rows": seed_rows.seed_rows.launches,
+            "dedup_pack": seed_rows.dedup_pack.launches,
             "sort_rows": sort.sort_rows.launches,
             "sort2_rows": sort.sort2_rows.launches,
             "hamming_extend_packed":
@@ -3371,12 +3512,14 @@ def _reset_kernel_launches() -> None:
         banded_sw,
         blitz_chain,
         extend_packed,
+        seed_rows,
         sort,
         sw_trace,
         uhamming_sweep,
     )
 
     for fn in (uhamming_sweep.uhamming_sweep, blitz_chain.chain_scan,
+               seed_rows.seed_rows, seed_rows.dedup_pack,
                sort.sort_rows, sort.sort2_rows,
                extend_packed.hamming_extend_packed,
                extend_packed.hamming_extend_packed_win,
@@ -4925,6 +5068,12 @@ def main() -> int:
      timing["hamming_extend_packed_win"]) = check_extend_win(dev)
     lap("20")
 
+    # 31. the seed stage's kernels at GRCh38's and E. coli's shapes
+    seed_err, seed_timing = check_seed_kernels(dev, smi)
+    errs.update(seed_err)
+    timing.update(seed_timing)
+    lap("31")
+
     # 4. align end to end through the CLI
     WORK.mkdir(parents=True, exist_ok=True)
     seqs = random_genome([("chr", GENOME_BP)], seed=42)
@@ -5176,6 +5325,11 @@ def main() -> int:
         ("hamming_extend_packed", "hamming_extend.cu",
          "biokanga_tpu/ops/stream_gather.py:179",
          "(65536, 96) loci, 100 bp reads"),
+        ("seed_rows", "seed_rows.cu", "none (XLA ops)",
+         f"GRCh38 chunk, classic pass: {SEED_ROWS} x {READ_LEN} bp, 8 cores "
+         f"of 13, H 48"),
+        ("dedup_pack", "seed_rows.cu", "none (XLA ops)",
+         f"GRCh38 chunk, classic pass: {SEED_ROWS} rows of 384, cap 192"),
         ("banded_sw_moves", "banded_sw.cu",
          "biokanga_tpu/ops/pallas_sw.py:191",
          f"{SW_CHUNK_PAIRS} pairs x {SW_LA}, W {SW_W}"),
@@ -5217,7 +5371,7 @@ def main() -> int:
                                    "wide_bound_ms", "wide_floor_ms",
                                    "wide_shape",
                                    "queries_per_s", "at_origin",
-                                   "big_query_s")
+                                   "big_query_s", "by_shape")
                  if k in t}
         # launches on the paths this slice added, where the kernel ran
         extra.update({path: counts[name]

@@ -1333,9 +1333,143 @@ def test_conformation_gather_on_the_card_equals_cpu(cuda_device, tmp_path):
             (tmp_path / f"cuda_{out}").read_bytes()
 
 
+# ---- the seed stage's kernels (ops/seed_rows.py, csrc/seed_rows.cu) ----
+
+def _seed_index(device):
+    """A 210 kb genome with a 150 bp block in 80 copies (its cores pass
+    H 16 and 48), a 3 kb poly-A run (the widest LUT bucket, where the
+    binary search takes its most steps) and a run of Ns; the host index
+    and the index on `device`."""
+    from biokanga_tpu_torch.index.build import build_index
+    from biokanga_tpu_torch.index.device import to_device
+    from biokanga_tpu_torch.sim.simreads import random_genome
+
+    seqs = random_genome([("chrA", 150_000), ("chrB", 60_000)], seed=41)
+    block = seqs[0][1][5_000:5_150].copy()
+    for i in range(80):
+        seqs[1][1][2_000 + 400 * i: 2_150 + 400 * i] = block
+    seqs[0][1][100_000:103_000] = 0
+    seqs[0][1][120_000:120_050] = 4
+    host = build_index(seqs, lut_bases=8)
+    return host, to_device(host, device)
+
+
+def _seed_reads(host, B, L, seed):
+    """B reads of L bases: from anywhere, the repeat, the poly-A run and
+    the Ns, every other one reverse complemented, 2% substitutions,
+    ragged lengths; then the edge rows: all N, length 0, poly-A (every
+    core over H, in the widest bucket), the repeat exactly (every core
+    over H)."""
+    rng = np.random.default_rng(seed)
+    g = host.codes
+    n = len(g)
+    starts = rng.integers(0, n - L, B)
+    starts[1::7] = 150_000 + 2_000 + 400 * rng.integers(0, 80, len(
+        starts[1::7])) + rng.integers(0, max(1, 150 - L), len(starts[1::7]))
+    starts[2::11] = rng.integers(99_000, 103_000, len(starts[2::11]))
+    starts[3::13] = rng.integers(119_900, 120_050, len(starts[3::13]))
+    starts = np.clip(starts, 0, n - L)
+    r = np.stack([g[s:s + L] for s in starts]).astype(np.int8)
+    r[1::2] = np.where(r[1::2] >= 4, r[1::2], 3 - r[1::2])[:, ::-1]
+    sub = rng.random(r.shape) < 0.02
+    r[sub] = (r[sub] + 1) % 4
+    lengths = np.full(B, L, np.int32)
+    lengths[::5] = rng.integers(1, L + 1, len(lengths[::5]))
+    r[np.arange(L)[None, :] >= lengths[:, None]] = 4
+    r[0], lengths[0] = 4, L
+    r[1], lengths[1] = 4, 0
+    r[2], lengths[2] = 0, L
+    at = 150_000 + 2_000
+    r[3], lengths[3] = g[at:at + L] if L <= 150 else 0, L
+    return r, lengths
+
+
+# (L, core_len, H, cap): fast and classic passes, the ladder's rescue
+# widths, cores of two key words, a long read
+SEED_SHAPES = [(100, 14, 16, 32), (100, 8, 48, 192), (100, 10, 48, 96),
+               (150, 12, 16, 10**6), (100, 20, 256, 1024),
+               (100, 12, 1024, 1024), (37, 6, 48, 10**6),
+               (1000, 12, 1024, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", range(len(SEED_SHAPES)))
+def test_seed_kernels_match_plain(cuda_device, shape):
+    """seed_rows and dedup_pack on the card equal their plain versions on
+    the same card tensors bit for bit, both strands, occ_skip on and
+    off, with an ownership limit and without; each call launches its
+    kernel once."""
+    from biokanga_tpu_torch.ops import seed_rows as sr
+
+    L, k, H, cap = SEED_SHAPES[shape]
+    host, didx = _seed_index(cuda_device)
+    B = 64 if L > 500 else 4_133
+    r, lengths = _seed_reads(host, B, L, seed=shape)
+    rt = torch.from_numpy(r).to(cuda_device)
+    lt = torch.from_numpy(lengths).to(cuda_device)
+    offs = torch.tensor(list(range(0, L - k + 1, max(k, 11))),
+                        dtype=torch.int32, device=cuda_device)
+    seen = {"over": 0, "filled": 0}
+    for rc in (False, True):
+        for occ_skip, owned in ((True, None), (False, 180_000)):
+            args = (didx, rt, lt, rc, offs, k, H, owned, occ_skip)
+            n0 = sr.seed_rows.launches
+            flat, overflow = sr.seed_rows(*args)
+            assert sr.seed_rows.launches == n0 + 1
+            want = sr.seed_rows_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(flat, want[0]), (rc, occ_skip)
+            assert torch.equal(overflow, want[1]), (rc, occ_skip)
+            srt = sort.sort_rows(flat)
+            n0 = sr.dedup_pack.launches
+            got = sr.dedup_pack(srt, overflow, rt, lt, rc, cap, occ_skip)
+            assert sr.dedup_pack.launches == n0 + 1
+            plain = sr.dedup_pack_plain(srt, overflow, rt, lt, rc, cap,
+                                        occ_skip)
+            torch.cuda.synchronize()
+            for i, (g, p) in enumerate(zip(got, plain)):
+                assert torch.equal(g, p), (rc, occ_skip, i)
+            seen["over"] += int(overflow.sum())
+            seen["filled"] += int((flat != I32_MAX).sum())
+    assert seen["filled"] > B and (H > 256 or seen["over"] > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,SH,S,cap", [(4_133, 384, 8, 192),
+                                        (4_133, 128, 8, 32),
+                                        (777, 480, 10, 96),
+                                        (64, 369 * 1_024, 369, 8_192),
+                                        (100, 50, 5, 10**6), (33, 1, 1, 0)])
+def test_dedup_pack_kernel_on_sorted_rows(cuda_device, B, SH, S, cap):
+    """dedup_pack on sorted rows of repeated values, sentinels and
+    full rows equals its plain version bit for bit."""
+    from biokanga_tpu_torch.ops import seed_rows as sr
+
+    rng = np.random.default_rng(SH + cap)
+    x = rng.integers(-3, 40, (B, SH)).astype(np.int32)
+    x[rng.random((B, SH)) < rng.random((B, 1))] = I32_MAX
+    x[: B // 7] = rng.integers(0, 2**31 - 1, (B // 7, SH))   # no sentinel
+    srt = torch.sort(torch.from_numpy(x).to(cuda_device), dim=1).values
+    overflow = torch.from_numpy(rng.random((B, S)) < 0.1).to(cuda_device)
+    L = 150
+    r = torch.from_numpy(rng.integers(0, 5, (B, L)).astype(np.int8)).to(
+        cuda_device)
+    ln = torch.from_numpy(rng.integers(0, L + 1, B).astype(np.int32)).to(
+        cuda_device)
+    for rc in (False, True):
+        for occ_skip in (True, False):
+            got = sr.dedup_pack(srt, overflow, r, ln, rc, cap, occ_skip)
+            want = sr.dedup_pack_plain(srt, overflow, r, ln, rc, cap,
+                                       occ_skip)
+            torch.cuda.synchronize()
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert torch.equal(g, w), (rc, occ_skip, i)
+
+
 # ---- the align engine's CUDA graphs (align/pipeline.py _CoreGraphs) ----
 
-GRAPH_KERNELS = ("sort_rows", "sort2_rows", "hamming_extend_packed")
+GRAPH_KERNELS = ("seed_rows", "sort_rows", "dedup_pack", "sort2_rows",
+                 "hamming_extend_packed")
 
 
 def _repeat_genome():
@@ -1453,7 +1587,8 @@ def test_graph_launches_in_flight_equal_eager(cuda_device, monkeypatch):
     assert trace.counts()["engine.launches"] == 5
     assert len(eng._cores) == 1
     assert graph_calls == eager_calls
-    assert eager_calls[0] == {"sort_rows": 2, "sort2_rows": 1,
+    assert eager_calls[0] == {"seed_rows": 2, "sort_rows": 2,
+                              "dedup_pack": 2, "sort2_rows": 1,
                               "hamming_extend_packed": 2}
     for k, (g, w) in enumerate(zip(got, want)):
         assert g.pop("derived") == fp.dp
@@ -1536,9 +1671,10 @@ def test_resident_chunks_share_graphs_and_equal_the_cpu(cuda_device,
     (`build_resident_chunks`) and uploaded from a host ChunkedIndex, one
     engine a chunk sharing one graph set: batches with one in flight, the
     keys eager, captured and replayed, equal the CPU's resident path field
-    for field, and each chunk's seed segments are captured once."""
+    for field, and a key's graphs serve every chunk."""
     from torch.profiler import ProfilerActivity, profile
 
+    from biokanga_tpu_torch.align import pipeline
     from biokanga_tpu_torch.align.pe import PEParams
     from biokanga_tpu_torch.align.pipeline import pad_rows
     from biokanga_tpu_torch.index import chunked as tch
@@ -1557,6 +1693,14 @@ def test_resident_chunks_share_graphs_and_equal_the_cpu(cuda_device,
         r1, l1, r2, l2 = _graph_pairs(seqs, k)
         batches.append(pad_rows(r1, l1) + pad_rows(r2, l2))
     pe = PEParams(pair_min_len=100, pair_max_len=600)
+    ran = {}                  # a _CoreGraphs -> the indexes it ran for
+    real_run = pipeline._CoreGraphs.run
+
+    def recording(core, didx=None):
+        ran.setdefault(id(core), set()).add(id(didx))
+        return real_run(core, didx)
+
+    monkeypatch.setattr(pipeline._CoreGraphs, "run", recording)
 
     def run(index, device):
         pea = ChunkedPEAligner(ChunkedAligner(index, device=device), pe)
@@ -1582,6 +1726,7 @@ def test_resident_chunks_share_graphs_and_equal_the_cpu(cuda_device,
                                            overlap=1024, device="cpu")
                      if source == "device_built" else ci)
         want, _ = run(cpu_index, "cpu")
+        ran.clear()
         trace.reset_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]):
@@ -1593,14 +1738,81 @@ def test_resident_chunks_share_graphs_and_equal_the_cpu(cuda_device,
         assert all(e.didx.key_hi.dtype == torch.int32 for e in engines)
         cores = engines[0]._cores
         assert all(e._cores is cores for e in engines) and cores
-        # the primary and classic keys hold every chunk's seed segments
-        seeds = sorted(len(core._seeds) for core in cores.values())
-        assert seeds[-2:] == [3, 3] and seeds[0] >= 1
+        # the primary and classic keys ran for every chunk's index
+        served = sorted(len(v) for v in ran.values())
+        assert served[-2:] == [3, 3] and served[0] >= 1
         assert c["engine.graph_launches"] > 0
         assert "chunked.uploads" not in c
         assert c["chunked.index_bytes"] == 5 * pea.ca.resident.nbytes()
         pea.ca.close()
     assert sum(int(w["proper"].sum()) for w in want) > 2_000
+
+
+@pytest.mark.cuda
+def test_two_resident_chunks_replay_one_core_each_key(cuda_device,
+                                                      monkeypatch):
+    """A two-chunk index resident on the card, blocks with one in flight:
+    each launch key's one `_CoreGraphs` replays for both chunks, its two
+    segments captured once, and every block equals the same aligner's
+    with every launch eager."""
+    from biokanga_tpu_torch.align import pipeline
+    from biokanga_tpu_torch.index import chunked as tch
+    from biokanga_tpu_torch.parallel.chunked import ChunkedAligner
+
+    seqs = _repeat_genome()
+    ci = tch.build_chunked_index(seqs, num_chunks=2, overlap=1024,
+                                 lut_bases=8)
+    blocks = []
+    for k in range(5):
+        r1, ln, r2, _ = _graph_pairs(seqs, k)
+        blocks.append(pipeline.pad_rows(np.concatenate([r1, r2]),
+                                        np.concatenate([ln, ln])))
+    ran, captures = {}, []
+    real_run, real_capture = pipeline._CoreGraphs.run, pipeline._cuda_capture
+
+    def recording(core, didx=None):
+        ran.setdefault(id(core), []).append(id(didx))
+        return real_run(core, didx)
+
+    def counting(device):
+        capture = real_capture(device)
+
+        def each(fn):
+            captures.append(fn)
+            return capture(fn)
+
+        return each
+
+    monkeypatch.setattr(pipeline._CoreGraphs, "run", recording)
+    monkeypatch.setattr(pipeline, "_cuda_capture", counting)
+    max_keys = pipeline.MAX_GRAPH_KEYS
+
+    def run(keys):
+        monkeypatch.setattr(pipeline, "MAX_GRAPH_KEYS", keys)
+        ca = ChunkedAligner(ci, device=cuda_device)
+        assert ca.resident is not None and len(ca.engines) == 2
+        out, pending = [], None
+        for b in blocks:
+            cur = ca.launch(*b)
+            if pending is not None:
+                out.append(ca.finish(pending))
+            pending = cur
+        out.append(ca.finish(pending))
+        return out, ca
+
+    want, _ = run(0)
+    assert not ran and not captures
+    got, ca = run(max_keys)
+    for k, (g, w) in enumerate(zip(got, want)):
+        _assert_same(g, w, f"block {k}")
+    cores = ca.engines[0]._cores
+    assert ca.engines[1]._cores is cores and cores
+    chunks = {id(e.didx) for e in ca.engines}
+    # the fast and the classic keys: one core each, both chunks through it
+    assert len(ran) >= 2
+    assert sum(set(v) == chunks for v in ran.values()) >= 2
+    assert len(captures) == 2 * len(cores)
+    ca.close()
 
 
 @pytest.mark.cuda

@@ -1,17 +1,17 @@
 """The align engine's CUDA-graph path, on the CPU: its segments and the
 kernels' `out=`.
 
-`_CoreGraphs` cuts `align_core` at its hand-written kernels into
-segments over static buffers.  Here each segment's capture is emulated
-(the capture runs the segment once; a replay runs it again, if the
-engine still holds it, and copies its outputs into the tensors the
-capture returned, as a CUDA graph writes into the same memory), so the
-cut, the static buffers and the kernels' `out=` wiring are checked
-without a card: a run equals
-`align_core` field for field, batch after batch, and calls each kernel
-as often.  The keyword `out=` of `sort_rows`, `sort2_rows` and
-`hamming_extend_packed` gives what the call without it gives, and their
-positional signatures, which the benchmark unpacks, are unchanged.
+`_CoreGraphs` calls `align_core`'s hand-written kernels into static
+buffers and captures the op chains after them as segments.  Here each
+segment's capture is emulated (the capture runs the segment once; a
+replay runs it again, if the engine still holds it, and copies its
+outputs into the tensors the capture returned, as a CUDA graph writes
+into the same memory), so the cut, the static buffers and the kernels'
+`out=` wiring are checked without a card: a run equals `align_core`
+field for field, batch after batch, and calls each kernel as often.  The keyword `out=` of `seed_rows`, `sort_rows`,
+`dedup_pack`, `sort2_rows` and `hamming_extend_packed` gives what the
+call without it gives, and the positional signatures that the benchmark
+unpacks are unchanged.
 """
 import inspect
 import weakref
@@ -25,13 +25,14 @@ from biokanga_tpu_torch.align.params import AlignParams
 from biokanga_tpu_torch.index.build import build_index
 from biokanga_tpu_torch.index.device import to_device
 from biokanga_tpu_torch.ops import extend_packed as ep
-from biokanga_tpu_torch.ops import sort
+from biokanga_tpu_torch.ops import seed_rows, sort
 from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
 
 torch.set_num_threads(2)
 
 CPU = torch.device("cpu")
-KERNELS = ("sort_rows", "sort2_rows", "hamming_extend_packed")
+KERNELS = ("seed_rows", "sort_rows", "dedup_pack", "sort2_rows",
+           "hamming_extend_packed")
 
 
 def _emulated_capture(fn):
@@ -154,8 +155,9 @@ def test_segments_equal_align_core(didx, seqs, case, monkeypatch):
             np.testing.assert_array_equal(host[k].numpy(), v.numpy())
         assert eager_calls["sort2_rows"] == 1
         n_strands = 2 if ap.strand == "both" else 1
-        assert eager_calls["sort_rows"] == n_strands
-        assert eager_calls["hamming_extend_packed"] == n_strands
+        for name in ("seed_rows", "sort_rows", "dedup_pack",
+                     "hamming_extend_packed"):
+            assert eager_calls[name] == n_strands, name
         assert got.keys() == want.keys()
         for k, v in want.items():
             assert got[k].dtype == v.dtype, k
@@ -227,12 +229,36 @@ def test_hamming_extend_packed_out_equals_the_call_without_it(didx, seqs,
                                                         dtype=torch.int32))
 
 
+@pytest.mark.parametrize("rc", [False, True])
+def test_seed_kernels_out_equals_the_call_without_it(didx, seqs, rc):
+    (reads, lengths), = _batches(seqs, 1, B=40)
+    r, ln = torch.from_numpy(reads), torch.from_numpy(lengths)
+    ap = AlignParams()
+    fp = ap.derive_fast(100, didx.total_len, didx.lut_bases)
+    offs = torch.tensor(fp.dp.offsets, dtype=torch.int32)
+    args = (didx, r, ln, rc, offs, fp.dp.core_len, fp.H, None, True)
+    want = seed_rows.seed_rows(*args)
+    out = tuple(torch.empty_like(t) for t in want)
+    got = seed_rows.seed_rows(*args, out=out)
+    assert all(g is o and torch.equal(g, w)
+               for g, o, w in zip(got, out, want))
+    srt, overflow = sort.sort_rows(want[0]), want[1]
+    want = seed_rows.dedup_pack(srt, overflow, r, ln, rc, fp.cand_cap, True)
+    out = tuple(torch.empty_like(t.contiguous()) for t in want)
+    got = seed_rows.dedup_pack(srt, overflow, r, ln, rc, fp.cand_cap, True,
+                               out=out)
+    assert all(g is o and torch.equal(g, w)
+               for g, o, w in zip(got, out, want))
+    with pytest.raises(ValueError):
+        seed_rows.dedup_pack(srt, overflow, r, ln, rc, fp.cand_cap, True,
+                             out=out[:-1])
+
+
 def test_one_core_serves_indexes_of_one_shape(didx, seqs, monkeypatch):
     """The chunks of a chunked index share a key's `_CoreGraphs`: a second
-    index of the same shape gets its own seed segments, captured at its
-    first run, into the first index's static outputs.  Runs that
-    alternate between the indexes each equal `align_core` on their own
-    index, field for field, and call each kernel as often."""
+    index of the same shape is given to the kernels and captures nothing.
+    Runs that alternate between the indexes each equal `align_core` on
+    their own index, field for field, and call each kernel as often."""
     other = to_device(build_index(
         [(n, np.roll(s, 7_919)) for n, s in seqs], lut_bases=8), CPU)
     assert other.total_len == didx.total_len
@@ -265,8 +291,8 @@ def test_one_core_serves_indexes_of_one_shape(didx, seqs, monkeypatch):
             assert torch.equal(packed, pipeline._pack_result(want))
             for k, v in want.items():
                 assert torch.equal(got[k], v), k
-    # one seed segment a strand for the second index, captured once
-    assert len(captured) == first + 2
+    # the key and the accept segments, captured once for both indexes
+    assert len(captured) == first == 2
     assert not torch.equal(pipeline._pack_result(pipeline.align_core(
         didx, r, ln, ap=ap, dp=fp.dp, H=fp.H, cand_cap=fp.cand_cap,
         strand=ap.strand, occ_skip=True)), packed)

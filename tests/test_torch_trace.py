@@ -9,6 +9,8 @@ core, which only the orphan rescue places).  Under a CPU
 the counters; without a profiler nothing is counted and no range opens;
 the results are the same bits either way.
 """
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ from biokanga_tpu_torch.align.pe import PEAligner, PEParams, classify_pairs
 from biokanga_tpu_torch.align.pipeline import AlignEngine, _to_host
 from biokanga_tpu_torch.index.build import build_index
 from biokanga_tpu_torch.index.device import to_device
+from biokanga_tpu_torch.ops.seed_rows import seed_rows_plain
 from biokanga_tpu_torch.sim.simreads import random_genome, simulate_reads
 from biokanga_tpu_torch.utils import trace
 
@@ -30,7 +33,8 @@ L = 100
 N_PAIRS = 64
 PE = dict(pair_min_len=100, pair_max_len=600)
 COUNTERS = ("engine.rows", "engine.rerun_rows", "extend.slots",
-            "extend.valid_slots", "pe.rescue_mates", "pe.rescued_mates")
+            "extend.valid_slots", "pe.rescue_mates", "pe.rescued_mates",
+            "seed.calls", "seed.slots", "seed.filled_slots")
 
 
 def _kill_seeds(r):
@@ -81,8 +85,10 @@ def _profiled(fn):
     return out, prof
 
 
-def _expected(didx, args, slots):
-    """Each counter's quantity, computed without the counters."""
+def _expected(didx, args, slots, seeds):
+    """Each counter's quantity, computed without the counters; `slots`
+    and `seeds` hold each candidate mask's and each seed row's (all,
+    valid or filled) slot counts."""
     r1, l1, r2, l2 = args
     reads, lengths = np.concatenate([r1, r2]), np.concatenate([l1, l2])
     eng = AlignEngine(didx, AlignParams())
@@ -101,6 +107,9 @@ def _expected(didx, args, slots):
             "engine.rerun_rows": int((~resolved).sum()),
             "extend.slots": sum(s for s, _ in slots),
             "extend.valid_slots": sum(v for _, v in slots),
+            "seed.calls": len(seeds),
+            "seed.slots": sum(s for s, _ in seeds),
+            "seed.filled_slots": sum(f for _, f in seeds),
             "pe.rescue_mates": int(cls["orphan1"].sum()
                                    + cls["orphan2"].sum())}
 
@@ -108,15 +117,22 @@ def _expected(didx, args, slots):
 @pytest.fixture(scope="module")
 def traced(didx, pairs):
     """One batch through launch_pairs / finish_pairs under the profiler,
-    with every candidate mask of the engine recorded apart."""
+    with every candidate mask of the engine, and every seed row made
+    again by the plain version, recorded apart."""
     name, args = pairs
     assert didx.packed is not None
-    slots = []
+    slots, seeds = [], []
     real = pipeline._strand_candidates
 
     def recording(*a, **k):
         out = real(*a, **k)
         slots.append((out[1].numel(), int(out[1].sum())))
+        g = inspect.signature(real).bind(*a, **k).arguments
+        flat, _ = seed_rows_plain(
+            g["didx"], g["reads"], g["lengths"], g["rc"],
+            torch.tensor(g["dp"].offsets, dtype=torch.int32),
+            g["dp"].core_len, g["H"], g.get("owned"), g.get("occ_skip", False))
+        seeds.append((flat.numel(), int((flat != 2**31 - 1).sum())))
         return out
 
     pea = _aligner(didx)
@@ -127,7 +143,7 @@ def traced(didx, pairs):
     finally:
         pipeline._strand_candidates = real
     got = trace.counts()
-    want = _expected(didx, args, slots)
+    want = _expected(didx, args, slots, seeds)
     want["pe.rescued_mates"] = pea.rescued
     return {"name": name, "got": got, "want": want, "prof": prof,
             "res": res}
@@ -142,6 +158,7 @@ def test_counter_equals_its_quantity(traced, counter):
         assert want["engine.rerun_rows"] > 0
         assert want["pe.rescue_mates"] > 0 and want["pe.rescued_mates"] > 0
     assert want["extend.slots"] > want["extend.valid_slots"] > 0
+    assert want["seed.slots"] > want["seed.filled_slots"] > 0
 
 
 def _ranges(prof, name):
@@ -202,17 +219,21 @@ def test_results_are_bit_identical_under_a_profiler(didx, pairs):
 
 
 def test_count_sums_tensors_and_spanned_opens_a_range_a_call():
+    made = []
+
     @trace.spanned("test.call")
     def f(x):
         trace.count("test.n", 3)
         trace.count("test.mask", x > 1)
+        trace.count("test.made", lambda: made.append(1) or x > 2)
         return x.sum()
 
     x = torch.arange(5)
     trace.reset_counts()
-    assert int(f(x)) == 10 and trace.counts() == {}
+    assert int(f(x)) == 10 and trace.counts() == {} and not made
     _, prof = _profiled(lambda: (f(x), f(x)))
-    assert trace.counts() == {"test.n": 6, "test.mask": 6}
+    assert trace.counts() == {"test.n": 6, "test.mask": 6, "test.made": 4}
+    assert len(made) == 2
     assert len(_ranges(prof, "test.call")) == 2
     trace.reset_counts()
     assert trace.counts() == {}
