@@ -7,15 +7,18 @@ libbiokanga/SfxArrayV2.cpp:8247).  Defaults mirror the reference CLI:
 insert size 100..1000 (cDfltPairMinLen/cDfltPairMaxLen, Aligner.h:71-72),
 FR orientation unless pair_same_strand.
 
-Design: both mates run through the SE engine as one fused 2N-row batch;
-pairing classification is a vectorised numpy pass on the host; orphan
-rescue re-extends the unanchored mate against every locus of the anchor's
+Design: both mates run through the SE engine as one fused 2N-row batch
+(where their widths agree, else one after the other); pairing
+classification is a vectorised numpy pass on the host; orphan rescue
+re-extends the unanchored mate against every locus of the anchor's
 insert window with the same packed Hamming extension kernel the engine
 uses (ops/extend_packed.hamming_extend_packed), as one device call per
-mate side.  `PEParams`, `_insert_len` and `classify_pairs` are copied
-(numpy); the JAX package's jitted `_rescue_fn` is `rescue_window` here, a
-plain function on tensors on the engine's device: its jit cache and its
-arrays-as-arguments are TPU workarounds and stay behind.
+mate side and engine holding anchors: the one engine of a single index,
+or each anchor chunk's engine of a chunked one.  `PEParams`,
+`_insert_len` and `classify_pairs` are copied (numpy); the JAX package's
+jitted `_rescue_fn` is `rescue_window` here, a plain function on tensors
+on the engine's device: its jit cache and its arrays-as-arguments are
+TPU workarounds and stay behind.
 """
 from __future__ import annotations
 
@@ -140,17 +143,24 @@ def _orient_mates(mate_reads: np.ndarray, ml: np.ndarray,
 
 
 class PEAligner:
-    """Runs both mates through an AlignEngine and pairs the results."""
+    """Runs both mates through an aligner and pairs the results.
 
-    def __init__(self, engine: AlignEngine, pe: PEParams | None = None):
-        self.engine = engine
+    The aligner is an `AlignEngine` or a chunked one
+    (parallel/chunked.ChunkedAligner); of it the pairing uses `stack`,
+    `launch_primary`/`finish_primary` (the host `align_with_rescue`
+    result, global loci), `params`, `entry_starts_host()` and
+    `engines_of(loci)`, the engines whose indexes hold the anchors."""
+
+    def __init__(self, aligner, pe: PEParams | None = None):
+        self.engine = aligner
         self.pe = pe or PEParams()
-        self.rescue_calls = 0       # rescue_window calls (one mate side)
+        self.rescue_calls = 0       # rescue_window calls
         self.rescued = 0            # mates accepted by the rescue
 
-    def rescue(self, anchor_loc, anchor_rc, anchor_len, mate_reads,
-               mate_lengths):
-        """Rescue unanchored mates within the anchor's insert window.
+    def rescue(self, engine: AlignEngine, anchor_loc, anchor_rc, anchor_len,
+               mate_reads, mate_lengths):
+        """Rescue unanchored mates within the anchor's insert window, on
+        `engine`'s index (anchor loci local to it).
 
         The mate is searched on the strand opposite the anchor (FR), i.e.
         we extend either the mate as given or its revcomp; the caller
@@ -170,7 +180,7 @@ class PEAligner:
             anchor_loc,
             anchor_loc + anchor_len - pe.pair_max_len,
         ).astype(np.int32)
-        ap = self.engine.params
+        ap = engine.params
         if ap.max_subs_per100 == 0:
             mtm = np.zeros(B, np.int32)
         else:
@@ -178,7 +188,7 @@ class PEAligner:
                 np.floor(mate_lengths * ap.max_subs_per100 / 100.0 + 0.5),
                 1, 63,
             ).astype(np.int32)
-        didx = self.engine.didx
+        didx = engine.didx
         dev = didx.device
         step = CPU_RESCUE_ROWS if dev.type == "cpu" else B
         parts = []
@@ -194,92 +204,85 @@ class PEAligner:
                 for k in parts[0]}
 
     def launch_pairs(self, reads1, len1, reads2, len2):
-        """Enqueue the fused 2N-row primary align; pair with finish_pairs.
-        Lets a caller keep one PE batch in flight on the device while it
-        classifies, rescues and writes the previous one on the host."""
+        """Enqueue both mates' primary align, as one fused 2N-row batch
+        where their shapes agree, else one after the other; pair with
+        finish_pairs.  Lets a caller keep one PE batch in flight on the
+        device while it classifies, rescues and writes the previous one
+        on the host."""
+        eng = self.engine
         with span("pe.launch"):
-            eng = self.engine
-            state = eng.launch_primary(eng.stack([reads1, reads2]),
-                                       eng.stack([len1, len2]))
-        return (state, reads1, len1, reads2, len2)
+            if reads1.shape == reads2.shape:
+                states = (eng.launch_primary(eng.stack([reads1, reads2]),
+                                             eng.stack([len1, len2])),)
+            else:
+                states = (eng.launch_primary(reads1, len1),
+                          eng.launch_primary(reads2, len2))
+        return (states, reads1, len1, reads2, len2)
 
     def finish_pairs(self, pending):
         """Resolve a launch_pairs handle: two-level completion + overflow
         rescue + pairing + orphan rescue (host side)."""
-        state, reads1, len1, reads2, len2 = pending
+        states, reads1, len1, reads2, len2 = pending
         with span("pe.finish"):
-            res = self.engine.finish_primary(state)
-        return self._split_pair_and_rescue(res, reads1, len1, reads2, len2)
+            res = [self.engine.finish_primary(s) for s in states]
+        if len(res) == 1:
+            # per-mate views of the fused result (the rescue writes
+            # through them)
+            N = len(reads1)
+            res = [{k: (v[s] if hasattr(v, "__len__") else v)
+                    for k, v in res[0].items()}
+                   for s in (slice(None, N), slice(N, None))]
+        return self._pair_and_rescue(*res, reads1, len1, reads2, len2)
 
     def align_pairs(self, reads1, len1, reads2, len2):
         """Full PE path. reads*: (N, L) int8. Returns a result dict with
-        per-pair fields; loci for rescued mates filled in.
-
-        Both mates run as ONE fused dispatch (the SE engine sees a 2N-row
-        batch) — half the dispatch count of per-mate calls."""
-        eng = self.engine
-        if reads1.shape == reads2.shape:
-            both = eng.align_with_rescue(
-                np.concatenate([reads1, reads2]),
-                np.concatenate([len1, len2]),
-            )
-            return self._split_pair_and_rescue(both, reads1, len1, reads2,
-                                               len2)
-        res1 = eng.align_with_rescue(reads1, len1)
-        res2 = eng.align_with_rescue(reads2, len2)
-        return self._pair_and_rescue(res1, res2, reads1, len1, reads2,
-                                     len2)
-
-    def _split_pair_and_rescue(self, res, reads1, len1, reads2, len2):
-        """Halve a fused 2N-row result into per-mate views (the rescue
-        writes through them) and pair."""
-        N = len(reads1)
-        res1 = {k: (v[:N] if hasattr(v, "__len__") else v)
-                for k, v in res.items()}
-        res2 = {k: (v[N:] if hasattr(v, "__len__") else v)
-                for k, v in res.items()}
-        return self._pair_and_rescue(res1, res2, reads1, len1, reads2,
-                                     len2)
+        per-pair fields; loci for rescued mates filled in."""
+        return self.finish_pairs(self.launch_pairs(reads1, len1, reads2,
+                                                   len2))
 
     def _pair_and_rescue(self, res1, res2, reads1, len1, reads2, len2):
         starts = self.engine.entry_starts_host()
         with span("pe.classify"):
             cls = classify_pairs(res1, res2, len1, len2, starts, self.pe)
+        if not self.pe.rescue:
+            return {"res1": res1, "res2": res2, **cls}
 
-        if self.pe.rescue:
-            for which, (anch, mate_reads, mate_len, mres) in {
-                1: (res1, reads2, len2, res2),
-                2: (res2, reads1, len1, res1),
-            }.items():
-                orph = cls[f"orphan{which}"]
-                rows = np.nonzero(orph)[0]
-                if len(rows) == 0:
+        with span("pe.rescue"):
+            for anch, a_len, mate_reads, mate_len, mres, orph in (
+                    (res1, len1, reads2, len2, res2, cls["orphan1"]),
+                    (res2, len2, reads1, len1, res1, cls["orphan2"])):
+                orphans = np.nonzero(orph)[0]
+                if len(orphans) == 0:
                     continue
-                with span("pe.rescue"):
-                    a_loc = anch["locus"][rows]
+                # one rescue call an engine holding anchors: the window
+                # width comes from each call's shortest mate
+                for at, engine, base in self.engine.engines_of(
+                        anch["locus"][orphans]):
+                    rows = orphans[at]
+                    a_loc = (anch["locus"][rows] - base).astype(np.int32)
                     a_rc = anch["is_rc"][rows]
-                    a_len = (len1 if which == 1 else len2)[rows]
-                    # FR: mate aligns on strand opposite the anchor; orient
-                    # the mate sequence so a forward window scan matches it
-                    # (anchor forward => mate hits reverse strand: scan rc)
+                    # FR: mate aligns on strand opposite the anchor;
+                    # orient the mate sequence so a forward window scan
+                    # matches it (anchor forward => mate hits reverse
+                    # strand: scan rc)
                     ml = mate_len[rows]
                     m = _orient_mates(mate_reads[rows], ml, ~a_rc)
-                    out = self.rescue(a_loc, a_rc, a_len, m, ml)
-                ok = out["ok"]
-                # write back: rescued mate becomes an accepted hit; inst,
-                # next_mm, any_hit and ml_* keep the SE pass's values, as
-                # in the JAX package
-                mres["unique"][rows[ok]] = True
-                mres["locus"][rows[ok]] = out["locus"][ok]
-                mres["is_rc"][rows[ok]] = ~a_rc[ok]
-                mres["best_mm"][rows[ok]] = out["mm"][ok]
-                n = int(ok.sum())
-                self.rescued += n
-                count("pe.rescue_mates", len(rows))
-                count("pe.rescued_mates", n)
-            # reclassify with rescued mates
-            with span("pe.classify"):
-                cls = classify_pairs(res1, res2, len1, len2, starts,
-                                     self.pe)
-
+                    out = self.rescue(engine, a_loc, a_rc, a_len[rows], m,
+                                      ml)
+                    ok = out["ok"]
+                    # write back: rescued mate becomes an accepted hit;
+                    # inst, next_mm, any_hit and ml_* keep the SE pass's
+                    # values, as in the JAX package
+                    mres["unique"][rows[ok]] = True
+                    mres["locus"][rows[ok]] = (
+                        out["locus"][ok].astype(np.int64) + base)
+                    mres["is_rc"][rows[ok]] = ~a_rc[ok]
+                    mres["best_mm"][rows[ok]] = out["mm"][ok]
+                    n = int(ok.sum())
+                    self.rescued += n
+                    count("pe.rescue_mates", len(rows))
+                    count("pe.rescued_mates", n)
+        # reclassify with rescued mates
+        with span("pe.classify"):
+            cls = classify_pairs(res1, res2, len1, len2, starts, self.pe)
         return {"res1": res1, "res2": res2, **cls}

@@ -509,6 +509,11 @@ class AlignEngine:
             self._starts = self.didx.entry_starts.cpu().numpy()
         return self._starts
 
+    def engines_of(self, loci: np.ndarray):
+        """(positions, engine, base) of the engines whose index holds each
+        locus: this engine for all of them, at base 0."""
+        return [(np.arange(len(loci)), self, 0)]
+
     def stack(self, parts) -> np.ndarray:
         """`np.concatenate(parts)`, a batch to `launch`: where launches are
         staged, built in pinned memory by PyTorch's threads, so that the

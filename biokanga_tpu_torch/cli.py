@@ -660,7 +660,6 @@ def _align_chunked(args, device, input_blocks, log, sw) -> None:
                  device)
     if args.pair:
         from .align.pe import PEParams
-        from .align.sam import write_pe_sam
         from .parallel.chunked import ChunkedPEAligner
 
         pea = ChunkedPEAligner(ca, PEParams(
@@ -668,45 +667,10 @@ def _align_chunked(args, device, input_blocks, log, sw) -> None:
             pair_max_len=args.pairmaxlen,
             pair_same_strand=args.pairstrand,
         ))
-        n_pairs = n_proper = 0
-        with open(args.out, "w") as out:
-            first = True
-
-            def emit(pending, blk1, blk2):
-                nonlocal first, n_pairs, n_proper
-                res = pea.finish_pairs(pending)
-                nb = len(blk1.names)
-                sub = lambda d: {
-                    k: (v[:nb] if hasattr(v, "__len__") else v)
-                    for k, v in d.items()
-                }
-                write_pe_sam(
-                    out, ci.entry_names, ci.entry_starts,
-                    blk1.names, blk1.codes, blk1.lengths,
-                    blk2.names, blk2.codes, blk2.lengths,
-                    {"res1": sub(res["res1"]), "res2": sub(res["res2"]),
-                     "proper": res["proper"][:nb],
-                     "insert": res["insert"][:nb]},
-                    write_header=first,
-                )
-                first = False
-                n_pairs += nb
-                n_proper += int(res["proper"][:nb].sum())
-
-            # one batch in flight, as in _align_pairs: the next block's
-            # sweep is enqueued before this block is merged, paired,
-            # rescued and written
-            inflight = None
-            for p1, p2 in zip(args.inreads, args.pair):
-                for blk1, blk2 in zip(input_blocks(p1), input_blocks(p2)):
-                    r1, l1 = pad_rows(blk1.codes, blk1.lengths)
-                    r2, l2 = pad_rows(blk2.codes, blk2.lengths)
-                    nxt = (pea.launch_pairs(r1, l1, r2, l2), blk1, blk2)
-                    if inflight is not None:
-                        emit(*inflight)
-                    inflight = nxt
-            if inflight is not None:
-                emit(*inflight)
+        n_pairs, n_proper = _pe_loop(
+            pea, args.out, ci.entry_names, ci.entry_starts,
+            (blks for p1, p2 in zip(args.inreads, args.pair)
+             for blks in zip(input_blocks(p1), input_blocks(p2))), None)
         log.info("chunk-aligned %d pairs: %d proper (%.2f%%) in %.1fs",
                  n_pairs, n_proper, 100.0 * n_proper / max(n_pairs, 1),
                  sw.elapsed())
@@ -784,27 +748,19 @@ def _chunked_snps(args, ci, ca, blocks, results, log) -> None:
              args.snpfile)
 
 
-def _align_pairs(args, engine, idx, input_blocks, pe_mates, log, sw) -> int:
-    """The paired-end loop of `align` (biokanga_tpu/cli.py:534-603): one
-    batch in flight on the device while the previous one is paired,
-    rescued and written on the host.  PE mode skips multi-hit assignment,
-    as in the JAX CLI."""
-    from .align.pe import PEAligner, PEParams
+def _pe_loop(pe, out_path, entry_names, entry_starts, block_pairs,
+             inserts) -> tuple[int, int]:
+    """Write the SAM of every (mate 1, mate 2) block pair through `pe`, a
+    PEAligner over a single or a chunked index, with one batch in flight:
+    the next pair's align is enqueued before this one's results are
+    fetched, paired, rescued and written on the host.  `inserts`: an
+    AlignStats that takes each block's insert sizes, or None.  Returns
+    (pairs, proper pairs)."""
     from .align.pipeline import pad_rows
-    from .align.reports import AlignStats
     from .align.sam import write_pe_sam
 
-    pe = PEAligner(
-        engine,
-        PEParams(
-            pair_min_len=args.pairminlen,
-            pair_max_len=args.pairmaxlen,
-            pair_same_strand=args.pairstrand,
-        ),
-    )
-    pe_stats = AlignStats()
     n_pairs = n_proper = 0
-    with open(args.out, "w") as out:
+    with open(out_path, "w") as out:
         first = True
 
         def emit(pending, blk1, blk2):
@@ -821,7 +777,7 @@ def _align_pairs(args, engine, idx, input_blocks, pe_mates, log, sw) -> int:
                 "insert": res["insert"][:nb],
             }
             write_pe_sam(
-                out, idx.entry_names, idx.entry_starts,
+                out, entry_names, entry_starts,
                 blk1.names, blk1.codes, blk1.lengths,
                 blk2.names, blk2.codes, blk2.lengths,
                 res_v, write_header=first,
@@ -829,28 +785,45 @@ def _align_pairs(args, engine, idx, input_blocks, pe_mates, log, sw) -> int:
             first = False
             n_pairs += nb
             n_proper += int(res["proper"][:nb].sum())
-            if args.peinsertdist:
-                pe_stats.add_inserts(res["insert"][:nb],
-                                     res["proper"][:nb])
+            if inserts is not None:
+                inserts.add_inserts(res["insert"][:nb], res["proper"][:nb])
 
-        # the next block's fused align is enqueued before this block's
-        # results are fetched, paired, rescued and written on the host
         inflight = None
-        for p1, p2 in zip(args.inreads, args.pair):
-            m1, m2 = pe_mates if pe_mates else (None, None)
-            for blk1, blk2 in zip(
-                input_blocks(p1, mate=m1),
-                input_blocks(p2, mate=m2),
-            ):
-                r1, l1 = pad_rows(blk1.codes, blk1.lengths)
-                r2, l2 = pad_rows(blk2.codes, blk2.lengths)
-                nxt = (pe.launch_pairs(r1, l1, r2, l2), blk1, blk2)
-                if inflight is not None:
-                    emit(*inflight)
-                inflight = nxt
+        for blk1, blk2 in block_pairs:
+            r1, l1 = pad_rows(blk1.codes, blk1.lengths)
+            r2, l2 = pad_rows(blk2.codes, blk2.lengths)
+            nxt = (pe.launch_pairs(r1, l1, r2, l2), blk1, blk2)
+            if inflight is not None:
+                emit(*inflight)
+            inflight = nxt
         if inflight is not None:
             emit(*inflight)
-    if args.peinsertdist:
+    return n_pairs, n_proper
+
+
+def _align_pairs(args, engine, idx, input_blocks, pe_mates, log, sw) -> int:
+    """The paired-end loop of `align` (biokanga_tpu/cli.py:534-603) over a
+    single index.  PE mode skips multi-hit assignment, as in the JAX
+    CLI."""
+    from .align.pe import PEAligner, PEParams
+    from .align.reports import AlignStats
+
+    pe = PEAligner(
+        engine,
+        PEParams(
+            pair_min_len=args.pairminlen,
+            pair_max_len=args.pairmaxlen,
+            pair_same_strand=args.pairstrand,
+        ),
+    )
+    pe_stats = AlignStats() if args.peinsertdist else None
+    m1, m2 = pe_mates if pe_mates else (None, None)
+    n_pairs, n_proper = _pe_loop(
+        pe, args.out, idx.entry_names, idx.entry_starts,
+        (blks for p1, p2 in zip(args.inreads, args.pair)
+         for blks in zip(input_blocks(p1, mate=m1),
+                         input_blocks(p2, mate=m2))), pe_stats)
+    if pe_stats is not None:
         pe_stats.write_csv(args.peinsertdist)
     log.info(
         "paired %d pairs: %d proper (%.2f%%), %d mates rescued in %d window "

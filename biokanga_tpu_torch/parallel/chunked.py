@@ -21,10 +21,11 @@ Where every chunk fits on the device at once (index/chunked.py
 `ResidentChunks`), `ChunkedAligner` keeps one AlignEngine a chunk, whose
 launch keys share one set of CUDA graphs (`AlignEngine`'s `graphs`), and
 a block's sweep enqueues every chunk's passes before it finishes the
-first; otherwise it cycles the chunks through one engine.  Spans
-`chunked.sweep`, `chunked.merge` (and `ChunkedPEAligner`'s `pe.classify`,
-`pe.rescue`); counters `chunked.chunk_passes`, `chunked.rows`,
-`chunked.index_bytes`, `chunked.uploads` (utils/trace.py).
+first; otherwise it cycles the chunks through one engine.  Its
+`launch_primary`, `finish_primary` and `engines_of` are what
+align/pe.PEAligner pairs and rescues over.  Spans `chunked.sweep`,
+`chunked.merge`; counters `chunked.index_bytes`, `chunked.uploads`
+(utils/trace.py).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from ..align.params import AlignParams
+from ..align.pe import PEAligner
 from ..align.pipeline import (RESULT_KEYS, AlignEngine, ExtendedAligner,
                               _high_priority_stream, pad_rows)
 from ..device import resolve_device
@@ -293,12 +295,10 @@ def chunk_of(bases: np.ndarray, glob_loci) -> np.ndarray:
                    len(bases) - 1)
 
 
-class ChunkedPEAligner:
-    """Paired-end alignment against a chunked index: both mates through
-    the chunk-merged SE path (one fused 2N-row sweep where the mates'
-    shapes agree, as PEAligner runs them), global classification, then
-    orphan rescue grouped by the anchor's chunk (that chunk's engine:
-    the resident one, or one chunk upload per chunk holding orphans) —
+class ChunkedPEAligner(PEAligner):
+    """`PEAligner` over a `ChunkedAligner`: the mates through the
+    chunk-merged SE path, global classification, and the orphan rescue
+    on the engine of each anchor's chunk (`ChunkedAligner.engines_of`) —
     the chunked realisation of CAligner::ProcessPairedEnds +
     AlignPairedRead (biokanga/Aligner.cpp:2876; SfxArrayV2.cpp:8247).
 
@@ -308,10 +308,8 @@ class ChunkedPEAligner:
     """
 
     def __init__(self, ca: "ChunkedAligner", pe=None):
-        from ..align.pe import PEParams
-
+        super().__init__(ca, pe)
         self.ca = ca
-        self.pe = pe or PEParams()
         if ca.overlap < self.pe.pair_max_len:
             warnings.warn(
                 f"chunk overlap {ca.overlap} < pair_max_len "
@@ -319,97 +317,12 @@ class ChunkedPEAligner:
                 "cuts will be clipped"
             )
 
-    def launch_pairs(self, reads1, len1, reads2, len2):
-        """Enqueue both mates' sweep over the chunks (ChunkedAligner.launch);
-        pair with finish_pairs, so that a caller can keep one batch in
-        flight on the device while it merges, pairs and rescues the
-        previous one on the host."""
-        ca = self.ca
-        if reads1.shape == reads2.shape:
-            mates = (ca.launch(ca.stack([reads1, reads2]),
-                               ca.stack([len1, len2])),)
-        else:
-            mates = (ca.launch(reads1, len1), ca.launch(reads2, len2))
-        return mates, reads1, len1, reads2, len2
-
-    def finish_pairs(self, pending):
-        """Merge a launch_pairs sweep, pair, and rescue the orphans."""
-        mates, reads1, len1, reads2, len2 = pending
-        ca = self.ca
-        if len(mates) == 1:
-            N = len(reads1)
-            both = ca.finish(mates[0])
-            res1 = {k: v[:N] for k, v in both.items() if k != "derived"}
-            res2 = {k: v[N:] for k, v in both.items() if k != "derived"}
-            res1["derived"] = res2["derived"] = both["derived"]
-        else:
-            res1, res2 = ca.finish(mates[0]), ca.finish(mates[1])
-        return self._pair_and_rescue(res1, res2, reads1, len1, reads2, len2)
-
-    def align_pairs(self, reads1, len1, reads2, len2):
-        return self.finish_pairs(self.launch_pairs(reads1, len1, reads2,
-                                                   len2))
-
-    def _pair_and_rescue(self, res1, res2, reads1, len1, reads2, len2):
-        from ..align.pe import classify_pairs
-
-        starts = self.ca.entry_starts
-        with span("pe.classify"):
-            cls = classify_pairs(res1, res2, len1, len2, starts, self.pe)
-
-        if self.pe.rescue:
-            with span("pe.rescue"):
-                self._rescue_orphans(cls, res1, res2, reads1, len1, reads2,
-                                     len2)
-            with span("pe.classify"):
-                cls = classify_pairs(res1, res2, len1, len2, starts,
-                                     self.pe)
-
-        return {"res1": res1, "res2": res2, **cls}
-
-    def _rescue_orphans(self, cls, res1, res2, reads1, len1, reads2, len2):
-        """Rescue each orphan's mate in its anchor's window, on the engine
-        of the anchor's chunk, one PEAligner.rescue call a mate side and
-        chunk holding anchors; rescued mates are written into res1, res2."""
-        from ..align.pe import PEAligner, _orient_mates
-
-        ca = self.ca
-        for which, (anch, mate_reads, mate_len, mres) in {
-            1: (res1, reads2, len2, res2),
-            2: (res2, reads1, len1, res1),
-        }.items():
-            rows_all = np.nonzero(cls[f"orphan{which}"])[0]
-            if len(rows_all) == 0:
-                continue
-            a_chunk = chunk_of(ca.bases, anch["locus"][rows_all])
-            for k in np.unique(a_chunk):
-                rows = rows_all[a_chunk == k]
-                pea = PEAligner(ca.engine_for(int(k)), self.pe)
-                a_loc = (anch["locus"][rows]
-                         - int(ca.bases[k])).astype(np.int32)
-                a_rc = anch["is_rc"][rows]
-                a_len = (len1 if which == 1 else len2)[rows]
-                ml = mate_len[rows]
-                # FR: the mate of a forward anchor is scanned as its
-                # reverse complement
-                m = _orient_mates(mate_reads[rows], ml, ~a_rc)
-                out = pea.rescue(a_loc, a_rc, a_len, m, ml)
-                ok = out["ok"]
-                mres["unique"][rows[ok]] = True
-                mres["locus"][rows[ok]] = (
-                    out["locus"][ok].astype(np.int64) + int(ca.bases[k])
-                )
-                mres["is_rc"][rows[ok]] = ~a_rc[ok]
-                mres["best_mm"][rows[ok]] = out["mm"][ok]
-                count("pe.rescue_mates", len(rows))
-                count("pe.rescued_mates", int(ok.sum()))
-
 
 def _finish_chunk(e: AlignEngine, reads, lengths, fast, classic) -> dict:
-    """`e.finish_primary`'s result from `ChunkedAligner.launch`'s passes of
-    one chunk: the fast pass's resolved rows, and for the rest the classic
-    pass of every row with the rescue ladder (rows are independent, so
-    the result is align_with_rescue's row for row)."""
+    """`e.finish_primary`'s result from `ChunkedAligner.launch_primary`'s
+    passes of one chunk: the fast pass's resolved rows, and for the rest
+    the classic pass of every row with the rescue ladder (rows are
+    independent, so the result is align_with_rescue's row for row)."""
     res = e.finish_fast(fast)
     if classic is None:
         e.rescue_pass(reads, lengths, res)
@@ -491,22 +404,33 @@ class ChunkedAligner:
         return 0 if self.engine is None else index_nbytes(self.engine.didx)
 
     def stack(self, parts) -> np.ndarray:
-        """`np.concatenate(parts)`, a block to `launch`: in pinned memory
-        where the resident engines stage their launches, so that every
-        chunk's upload copies it as it lies."""
+        """`np.concatenate(parts)`, a block to `launch_primary`: in pinned
+        memory where the resident engines stage their launches, so that
+        every chunk's upload copies it as it lies."""
         if self.engines is None:
             return np.concatenate(parts)
         return self.engines[0].stack(parts)
 
-    def launch(self, reads: np.ndarray, lengths: np.ndarray):
+    def entry_starts_host(self) -> np.ndarray:
+        """The genome's entry starts (global), in host memory."""
+        return self.entry_starts
+
+    def engines_of(self, loci: np.ndarray):
+        """(positions, engine, base) of the chunk holding each global
+        locus, chunk by chunk in ascending order; cycling, each chunk is
+        uploaded as its group is reached, so take them one at a time."""
+        k_of = chunk_of(self.bases, loci)
+        for k in np.unique(k_of):
+            yield (np.nonzero(k_of == k)[0], self.engine_for(int(k)),
+                   int(self.bases[k]))
+
+    def launch_primary(self, reads: np.ndarray, lengths: np.ndarray):
         """Enqueue one padded read block against every resident chunk: each
         chunk's fast pass and, behind it, its classic pass of every row,
         since a read's hits lie in one chunk of many and each chunk leaves
         nearly every row unresolved.  Nothing waits for the device.  Pair
-        with `finish`; cycling, the whole sweep runs in `finish`."""
+        with `finish_primary`; cycling, the whole sweep runs there."""
         with span("chunked.sweep"):
-            count("chunked.rows", len(reads))
-            count("chunked.chunk_passes", self.num_chunks)
             count("chunked.index_bytes", self.index_bytes())
             if self.engines is None:
                 return reads, lengths, None
@@ -517,7 +441,7 @@ class ChunkedAligner:
                                else e.launch(reads, lengths) + (None,)))
             return reads, lengths, states
 
-    def finish(self, pending) -> dict:
+    def finish_primary(self, pending) -> dict:
         """Every chunk's align_with_rescue result of a launched block,
         merged exactly."""
         reads, lengths, states = pending
@@ -537,7 +461,7 @@ class ChunkedAligner:
 
     def align(self, reads: np.ndarray, lengths: np.ndarray) -> dict:
         """One padded read block vs every chunk; exact merged result."""
-        return self.finish(self.launch(reads, lengths))
+        return self.finish_primary(self.launch_primary(reads, lengths))
 
     def align_blocks(self, blocks: list[tuple[np.ndarray, np.ndarray]],
                      checkpoint_dir: str | None = None):

@@ -2650,12 +2650,13 @@ def _rescue_by_chunk(ca, blocks, res1, res2, pe, dev) -> int:
                 orphans.setdefault(int(k), []).extend(
                     (pb, int(r), which) for r in rows[ak == k])
     n_rescued = 0
+    pea = PEAligner(ca, pe)
     for k, items in sorted(orphans.items()):
         _, pg, es_k = ca.packed_chunk(k)
         didx = SimpleNamespace(packed=pg, device=dev,
                                entry_starts=torch.from_numpy(
                                    es_k.astype(np.int32)).to(dev))
-        pea = PEAligner(SimpleNamespace(didx=didx, params=ca.params), pe)
+        engine = SimpleNamespace(didx=didx, params=ca.params)
         L = blocks[0][0].shape[1]
         a_loc = np.empty(len(items), np.int64)
         a_rc = np.empty(len(items), bool)
@@ -2673,7 +2674,8 @@ def _rescue_by_chunk(ca, blocks, res1, res2, pe, dev) -> int:
             row = m_blk[0][r, :ml]
             # FR: the mate of a forward anchor is scanned as its revcomp
             m_reads[j, :ml] = row if a_rc[j] else revcomp(row)
-        out = pea.rescue(a_loc.astype(np.int32), a_rc, a_len, m_reads, m_len)
+        out = pea.rescue(engine, a_loc.astype(np.int32), a_rc, a_len,
+                         m_reads, m_len)
         for j in np.nonzero(out["ok"])[0]:
             pb, r, which = items[j]
             mres = res2[pb] if which == 1 else res1[pb]

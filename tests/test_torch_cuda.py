@@ -1793,11 +1793,11 @@ def test_two_resident_chunks_replay_one_core_each_key(cuda_device,
         assert ca.resident is not None and len(ca.engines) == 2
         out, pending = [], None
         for b in blocks:
-            cur = ca.launch(*b)
+            cur = ca.launch_primary(*b)
             if pending is not None:
-                out.append(ca.finish(pending))
+                out.append(ca.finish_primary(pending))
             pending = cur
-        out.append(ca.finish(pending))
+        out.append(ca.finish_primary(pending))
         return out, ca
 
     want, _ = run(0)

@@ -153,6 +153,21 @@ def test_launch_finish_equals_align_pairs(setup):
     _assert_pe_equal(a, jp.finish_pairs(jp.launch_pairs(*args)))
 
 
+def test_mates_of_different_widths(setup):
+    """Mate 2 trimmed to 90 bases: the mates launch one after the other,
+    and launch_pairs / finish_pairs equal align_pairs and the JAX
+    package's, field for field."""
+    jp, tp = _aligners(setup, pair_min_len=100, pair_max_len=600)
+    s = setup
+    r2 = s["r2"][:, :90].copy()
+    args = (s["r1"], s["len"], r2, np.full(N_PAIRS, 90, np.int32))
+    got = tp.finish_pairs(tp.launch_pairs(*args))
+    assert tp.rescue_calls == 2 and tp.rescued > 0
+    _assert_pe_equal(got, tp.align_pairs(*args))
+    _assert_pe_equal(got, jp.align_pairs(*args))
+    assert got["proper"].sum() > 50
+
+
 def _rescue_inputs(setup, B, rng):
     """Anchors and mates for the rescue alone: true mates inside the
     window, windows below 0 and past the end, across entries, ragged
@@ -200,7 +215,7 @@ def test_rescue_matches_jax_rescue_fn(setup, B, subs, seed):
         jp.engine.didx = jax_to_device(idx)
         tp.engine.didx = to_device(idx, CPU)
     want = jp.rescue(a_loc, a_rc, a_len, m, ml, False)
-    got = tp.rescue(a_loc, a_rc, a_len, m, ml)
+    got = tp.rescue(tp.engine, a_loc, a_rc, a_len, m, ml)
     assert sorted(got) == sorted(want) == ["locus", "mm", "ok"]
     for k in want:
         assert got[k].dtype == want[k].dtype, k
