@@ -538,11 +538,14 @@ class AlignEngine:
                 and L <= MAX_PACKED_READ_LEN)
 
     def launch(self, reads: np.ndarray, lengths: np.ndarray, H=None,
-               cand_cap=None, dp=None, occ_skip: bool = True):
+               cand_cap=None, dp=None, occ_skip: bool = True,
+               fetch: bool = True):
         """Upload one batch and enqueue its alignment; returns (result,
         dp): a dict of device tensors, or a `_Fetch` where the launch is
-        staged.  Read it with `_to_host` or `result_tensors`.  Nothing
-        waits for the device here."""
+        staged and `fetch` is set.  Read it with `_to_host` or
+        `result_tensors`.  Nothing waits for the device here.  A staged
+        launch's device tensors may be a graph's static outputs, which the
+        next launch of its key overwrites."""
         B, L = reads.shape
         if dp is None:
             dp = self.params.derive(int(L), self.didx.total_len)
@@ -557,7 +560,7 @@ class AlignEngine:
         count("engine.launches", 1)
         if self._staged(L):
             return self._launch_staged(reads, lengths, dp, H, int(cand_cap),
-                                       occ_skip), dp
+                                       occ_skip, fetch), dp
         dev = self.didx.device
         with span("engine.upload"):
             r = torch.from_numpy(np.ascontiguousarray(reads, np.int8)).to(dev)
@@ -569,7 +572,8 @@ class AlignEngine:
                              strand=self.params.strand, occ_skip=occ_skip)
         return out, dp
 
-    def _launch_staged(self, reads, lengths, dp, H, cand_cap, occ_skip):
+    def _launch_staged(self, reads, lengths, dp, H, cand_cap, occ_skip,
+                       fetch=True):
         didx, ap = self.didx, self.params
         dev = didx.device
         stream = torch.cuda.current_stream(dev)
@@ -598,7 +602,7 @@ class AlignEngine:
                 packed = None
             else:
                 out, packed = core.run(didx)
-            return _Fetch(out, packed, stream)
+            return _Fetch(out, packed, stream) if fetch else out
 
     def _side_stream(self):
         """align_batch's high-priority stream; it waits once an index for
@@ -629,14 +633,16 @@ class AlignEngine:
         return self.params.derive_fast(
             int(reads.shape[1]), self.didx.total_len, self.didx.lut_bases)
 
-    def _launch_pass(self, reads: np.ndarray, lengths: np.ndarray):
+    def _launch_pass(self, reads: np.ndarray, lengths: np.ndarray,
+                     fetch: bool = True):
         count("engine.rows", len(reads))
         fp = self._fast_params(reads)
         if fp is None:
-            out, dp = self.launch(reads, lengths)
+            out, dp = self.launch(reads, lengths, fetch=fetch)
         else:
             out, dp = self.launch(reads, lengths, H=fp.H,
-                                  cand_cap=fp.cand_cap, dp=fp.dp)
+                                  cand_cap=fp.cand_cap, dp=fp.dp,
+                                  fetch=fetch)
         return (reads, lengths, out, dp, fp)
 
     def launch_primary(self, reads: np.ndarray, lengths: np.ndarray):
@@ -649,13 +655,9 @@ class AlignEngine:
         return state
 
     def unresolved(self, res: dict, lengths, fp) -> np.ndarray:
-        """The rows the fast pass left unresolved, for the classic rerun:
-        skip-aware, each skipped core weakens the bound by one."""
-        bound = fp.resolved_bound(lengths, self.params.min_edit_dist)
-        resolved = (
-            res["best_mm"].astype(np.int32) + res["n_over"] <= bound
-        ) & (~res["cap_trunc"])
-        return np.nonzero(~resolved)[0]
+        """The rows the fast pass left unresolved, for the classic rerun."""
+        return np.nonzero(~resolved_rows(res, lengths, fp,
+                                         self.params.min_edit_dist))[0]
 
     def _start_reruns(self) -> None:
         """Enqueue the classic rerun of each staged primary pass in flight
@@ -718,11 +720,13 @@ class AlignEngine:
                     res[k][rows] = sub[k][: len(rows)]
         return res
 
-    def launch_fast(self, reads: np.ndarray, lengths: np.ndarray):
+    def launch_fast(self, reads: np.ndarray, lengths: np.ndarray,
+                    fetch: bool = True):
         """Enqueue only the fast pass (the classic pass where there is no
         fast pass): no unresolved rerun, no rescue.  For chunk sweeps that
-        resolve reads on the merged result (two_level_chunk_sweep)."""
-        _, _, out, dp, fp = self._launch_pass(reads, lengths)
+        resolve reads on the merged result (two_level_chunk_sweep), or
+        that select and merge on the device (`fetch` off; see `launch`)."""
+        _, _, out, dp, fp = self._launch_pass(reads, lengths, fetch)
         return (out, dp, fp)
 
     def finish_fast(self, state) -> dict:
@@ -900,6 +904,15 @@ def cigar_for(length: int, cigar_op: int, op_len: int, split: int) -> str:
 RESULT_KEYS = ("unique", "any_hit", "best_mm", "next_mm", "inst",
                "locus", "is_rc", "ml_loci", "ml_mm", "ml_rc")
 _LADDER_KEYS = ("overflow", "n_over", "cap_trunc")
+
+
+def resolved_rows(res: dict, lengths, fp, min_edit_dist: int):
+    """Rows the fast pass (FastPassParams `fp`) resolves exactly:
+    skip-aware, each skipped core weakens the bound by one, and no
+    candidate-cap truncation."""
+    bound = fp.resolved_bound(lengths, min_edit_dist)
+    return ((res["best_mm"].astype(np.int32) + res["n_over"] <= bound)
+            & (~res["cap_trunc"]))
 
 
 def inexact_rows(res: dict, lengths, min_edit_dist: int):

@@ -34,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_PP = ctypes.POINTER(_P)        # an array of pointers
+_PL = ctypes.POINTER(_L)
 # C entry points: name -> argument types (all return cudaError_t as int)
 _SIGNATURES = {
     # (x, out, B, C, stream)
@@ -84,6 +86,15 @@ _SIGNATURES = {
     #  valid, n_over, trunc, rcodes, rnlane, stream)
     "dedup_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                    _P, _P, _P, _P),
+    # (fast[13], fast_stride[13], classic[13], classic_stride[13], out[13],
+    #  lengths, B, Kml, fast_core, fast_read_len, core_len, med, flagged,
+    #  unresolved, stream)
+    "select_chunk": (_PP, _PL, _PP, _PL, _PP, _P, _I, _I, _I, _I, _I, _I, _P,
+                     _P, _P),
+    # (stage[13], out[13], base, lengths, K, B, Kml, rate, budget, med, err,
+    #  stream)
+    "merge_chunks": (_PP, _PP, _P, _P, _I, _I, _I, ctypes.c_double, _I, _I,
+                     _P, _P),
 }
 
 _lock = threading.Lock()

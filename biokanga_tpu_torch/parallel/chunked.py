@@ -20,12 +20,16 @@ int64 on the host; device tensors stay chunk-local int32.
 Where every chunk fits on the device at once (index/chunked.py
 `ResidentChunks`), `ChunkedAligner` keeps one AlignEngine a chunk, whose
 launch keys share one set of CUDA graphs (`AlignEngine`'s `graphs`), and
-a block's sweep enqueues every chunk's passes before it finishes the
-first; otherwise it cycles the chunks through one engine.  Its
-`launch_primary`, `finish_primary` and `engines_of` are what
-align/pe.PEAligner pairs and rescues over.  Spans `chunked.sweep`,
-`chunked.merge`; counters `chunked.index_bytes`, `chunked.uploads`
-(utils/trace.py).
+a block's results stay on the device until they are merged: its sweep
+enqueues every chunk's passes, each chunk's select of its fast and
+classic rows into a staging set behind them, and the merge behind the
+last (ops/chunk_merge.py), and its finish fetches the one merged result.
+Otherwise it cycles the chunks through one engine and merges on the
+host's terms (`merge_chunk_results`).  Its `launch_primary`,
+`finish_primary` and `engines_of` are what align/pe.PEAligner pairs and
+rescues over.  Spans `chunked.sweep`, `chunked.merge`; counters
+`chunked.index_bytes`, `chunked.uploads`, `chunked.merges`,
+`chunked.device_merges` (utils/trace.py).
 """
 from __future__ import annotations
 
@@ -37,22 +41,27 @@ import torch
 
 from ..align.params import AlignParams
 from ..align.pe import PEAligner
-from ..align.pipeline import (RESULT_KEYS, AlignEngine, ExtendedAligner,
-                              _high_priority_stream, pad_rows)
+from ..align.pipeline import (AlignEngine, ExtendedAligner, _Fetch,
+                              _high_priority_stream, _pinned, inexact_rows,
+                              pad_rows, result_tensors)
 from ..device import resolve_device
 from ..index.chunked import (ChunkedIndex, ResidentChunks, chunk_to_device,
                              fits_on_device, upload_chunked_index)
 from ..index.device import index_nbytes
-from ..ops.extend import MM_INVALID
+from ..ops.chunk_merge import (FIELDS, max_tot_mm, merge_chunks,
+                               merge_chunks_plain, one_chunk, select_chunk,
+                               staging)
 from ..utils.trace import count, span
 
 
-def _max_tot_mm(lengths: np.ndarray, params: AlignParams) -> np.ndarray:
-    if params.max_subs_per100 == 0:
-        return np.zeros(len(lengths), np.int32)
-    return np.clip(
-        np.floor(lengths * (params.max_subs_per100 / 100.0) + 0.5), 1, 63
-    ).astype(np.int32)
+def _side(device: torch.device):
+    """The high-priority stream's context on a card, so that work there
+    need not wait behind a sweep already enqueued; a no-op on the CPU."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.stream(_high_priority_stream(
+        torch.cuda.current_device() if device.index is None
+        else device.index))
 
 
 def merge_chunk_results(
@@ -69,18 +78,10 @@ def merge_chunk_results(
     Returns the single-index result schema with int64 global loci, as
     host numpy arrays.
     """
-    K = len(partials)
-    if K == 1:
-        p = dict(partials[0])
-        p["locus"] = p["locus"].astype(np.int64) + int(bases[0])
-        ml = p["ml_loci"].astype(np.int64)
-        p["ml_loci"] = np.where(ml >= 0, ml + int(bases[0]), -1)
-        return p
+    if len(partials) == 1:
+        return one_chunk(partials[0], int(bases[0]))
     dev = torch.device(device)
-    on = (torch.cuda.stream(_high_priority_stream(
-        torch.cuda.current_device() if dev.index is None else dev.index))
-        if dev.type == "cuda" else contextlib.nullcontext())
-    with on:
+    with _side(dev):
         out = _merge(partials, bases, lengths, params, dev)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
@@ -99,81 +100,9 @@ def _merge(partials, bases, lengths, params, dev) -> dict:
         return out
 
     base = torch.from_numpy(np.asarray(bases, np.int64)[:K]).to(dev)
-    best = field("best_mm").to(torch.int32)
-    nxt = field("next_mm").to(torch.int32)
-    inst = field("inst")
-    rc = field("is_rc")
-    loc_g = field("locus").to(torch.int64) + base[:, None]
-    ovf = field("overflow").any(dim=0)
-    # skip-aware exactness composition: a hidden hit lives in ONE chunk,
-    # so the per-read pigeonhole charge is the worst chunk's skip count;
-    # cap truncation anywhere taints the row
-    n_over = field("n_over").amax(dim=0)
-    cap_trunc = field("cap_trunc").any(dim=0)
-
-    # winner chunk by lexicographic (mm, strand, global locus), the first
-    # chunk on ties: one argmin over the pair packed in an int64 (global
-    # loci of up to 2^42 bases, past BioKanga's 1,000 Gbp of target)
-    okey = best * 2 + rc                           # (K, B)
-    if int(loc_g.min()) < 0 or int(loc_g.max()) >= 1 << 42:
-        raise ValueError("chunk loci outside [0, 2^42)")
-    kstar = torch.argmin((okey.to(torch.int64) << 42) | loc_g, dim=0)
-
-    def take(t):
-        return t.gather(0, kstar[None]).squeeze(0)
-
-    b_star = take(best)
-    is_best = best == b_star[None, :]
-    inst_star = torch.where(is_best, inst, 0).sum(dim=0, dtype=torch.int64)
-    # rows with NO valid candidate anywhere (best == MM_INVALID): inst is
-    # the invalid-slot count, not a hit count — keep the winner's verbatim
-    # so the merged dict matches the single-index output bit-for-bit
-    inst_star = torch.where(b_star >= MM_INVALID, take(inst).to(torch.int64),
-                            inst_star)
-    # union second-smallest: best* itself when the union holds >= 2 best
-    # instances (matches the single-index sorted-duplicates semantics)
-    next_star = torch.where(is_best, nxt, best).amin(dim=0)
-    next_star = torch.where(inst_star >= 2, b_star, next_star)
-    # per-chunk next_mm arrives saturated at chunk_best + MMDelta; the
-    # min-merge then re-saturates at global best + MMDelta — equal to
-    # saturate(true union second-best) because chunk bests are never
-    # saturated and any sub-margin union value is sub-margin in its own
-    # chunk
-    next_star = torch.minimum(next_star, b_star + params.min_edit_dist)
-
-    mtm = torch.from_numpy(_max_tot_mm(lengths, params)).to(dev)
-    any_hit = b_star <= mtm
-    unique = any_hit & ((next_star - b_star) >= params.min_edit_dist)
-
-    # top-K multi-hit merge: K-smallest of the union by (mm, rc, locus),
-    # ties in chunk order
-    B, Kml = partials[0]["ml_mm"].shape
-
-    def union(t):
-        return t.permute(1, 0, 2).reshape(B, K * Kml)
-
-    ml_mm = union(field("ml_mm"))
-    ml_rc = union(field("ml_rc"))
-    ml_loc = field("ml_loci").to(torch.int64)
-    ml_loc = union(torch.where(ml_loc >= 0, ml_loc + base[:, None, None], -1))
-    comp = (((ml_mm.to(torch.int64) * 2 + ml_rc) << 44)
-            | ml_loc.clamp(0, (1 << 44) - 1))
-    order = torch.sort(comp, dim=1, stable=True).indices[:, :Kml]
-    return {
-        "unique": unique,
-        "any_hit": any_hit,
-        "best_mm": b_star.clamp(max=MM_INVALID).to(torch.uint8),
-        "next_mm": next_star.clamp(max=MM_INVALID).to(torch.uint8),
-        "inst": inst_star.to(inst.dtype),
-        "locus": take(loc_g),
-        "is_rc": (take(okey) & 1).to(torch.bool),
-        "overflow": ovf,
-        "n_over": n_over,
-        "cap_trunc": cap_trunc,
-        "ml_loci": ml_loc.gather(1, order),
-        "ml_mm": ml_mm.gather(1, order),
-        "ml_rc": ml_rc.gather(1, order),
-    }
+    mtm = torch.from_numpy(max_tot_mm(lengths, params.max_subs_per100))
+    return merge_chunks_plain({k: field(k) for k in FIELDS}, base,
+                              mtm.to(dev), params.min_edit_dist)
 
 
 def _scan_every_chunk(ca, micro_indel_len, splice_junct_len, sub_r, sub_l):
@@ -318,41 +247,18 @@ class ChunkedPEAligner(PEAligner):
             )
 
 
-def _finish_chunk(e: AlignEngine, reads, lengths, fast, classic) -> dict:
-    """`e.finish_primary`'s result from `ChunkedAligner.launch_primary`'s
-    passes of one chunk: the fast pass's resolved rows, and for the rest
-    the classic pass of every row with the rescue ladder (rows are
-    independent, so the result is align_with_rescue's row for row)."""
-    res = e.finish_fast(fast)
-    if classic is None:
-        e.rescue_pass(reads, lengths, res)
-        return res
-    rows = e.unresolved(res, lengths, fast[2])
-    count("engine.rerun_rows", len(rows))
-    with span("engine.rerun"):
-        sub = e.finish_fast(classic)
-        kept = np.ones(len(reads), bool)
-        kept[rows] = False
-        for k in ("overflow", "n_over", "cap_trunc"):
-            sub[k][kept] = 0
-        e.rescue_pass(reads, lengths, sub)
-        for k in RESULT_KEYS:
-            sub[k][kept] = res[k][kept]
-    sub["derived"] = res["derived"]
-    return sub
-
-
 class ChunkedAligner:
     """Align read sets against a chunked index on one device.
 
     `index`: a `ResidentChunks` (every chunk already on the device), or a
     host `ChunkedIndex`, which is uploaded once when it fits the device
     (`fits_on_device`).  A resident index gets one AlignEngine a chunk,
-    the engines sharing one set of CUDA graphs; a block's sweep enqueues
-    every chunk's fast pass and its classic pass before it finishes the
-    first (the result is align_with_rescue's, chunk for
-    chunk).  An index that does not fit cycles the chunks through one
-    AlignEngine: `engine_for(k)` points it at chunk k's device index,
+    the engines sharing one set of CUDA graphs; a block's launch enqueues
+    every chunk's fast pass and its classic pass, each chunk's select
+    into a staging set and the exact merge, and its finish waits once
+    for the merged result (each chunk's part of it is align_with_rescue's
+    row for row).  An index that does not fit cycles the chunks through
+    one AlignEngine: `engine_for(k)` points it at chunk k's device index,
     padded to the shapes of every chunk (ChunkedIndex.pad_shapes)."""
 
     def __init__(self, index: ChunkedIndex | ResidentChunks,
@@ -377,6 +283,13 @@ class ChunkedAligner:
             graphs: dict = {}
             self.engines = [AlignEngine(d, self.params, graphs=graphs)
                             for d in res.chunks]
+            dev = res.chunks[0].device
+            self._base = torch.as_tensor(
+                np.asarray(self.bases[:self.num_chunks], np.int64),
+                device=dev)
+            # staging sets of blocks finished, free for the next launch;
+            # each block in flight holds its own
+            self._free: list[dict] = []
         else:
             self.engines = None
             self.pad_shapes = index.pad_shapes()
@@ -428,35 +341,133 @@ class ChunkedAligner:
         """Enqueue one padded read block against every resident chunk: each
         chunk's fast pass and, behind it, its classic pass of every row,
         since a read's hits lie in one chunk of many and each chunk leaves
-        nearly every row unresolved.  Nothing waits for the device.  Pair
-        with `finish_primary`; cycling, the whole sweep runs there."""
+        nearly every row unresolved; behind those the chunk's select into
+        a staging set, before the next chunk's passes replay the shared
+        graphs; and behind the last select the exact merge and its copy to
+        the host.  Nothing waits for the device.  Pair with
+        `finish_primary`; cycling, the whole sweep runs there."""
         with span("chunked.sweep"):
             count("chunked.index_bytes", self.index_bytes())
             if self.engines is None:
                 return reads, lengths, None
-            states = []
-            for e in self.engines:
-                fast = e.launch_fast(reads, lengths)
-                states.append((fast, None if fast[2] is None
-                               else e.launch(reads, lengths) + (None,)))
-            return reads, lengths, states
+            dev = self.engines[0].didx.device
+            B = len(reads)
+            stage = self._staging(B, dev)
+            ln = (_pinned(lengths, np.int32).to(dev, non_blocking=True)
+                  if dev.type == "cuda" else
+                  torch.from_numpy(np.ascontiguousarray(lengths, np.int32)))
+            med = self.params.min_edit_dist
+            passes = []
+            for k, e in enumerate(self.engines):
+                fast, fast_dp, fp = e.launch_fast(reads, lengths,
+                                                  fetch=False)
+                if fp is None:
+                    classic, dp, fast = fast, fast_dp, None
+                else:
+                    classic, dp = e.launch(reads, lengths, fetch=False)
+                with span("engine.rerun"):
+                    select_chunk(stage, k, ln, classic, dp, med, fast, fp)
+                passes.append((fast_dp, dp))
+            count("engine.rerun_rows", stage["counts"][1])
+        with span("chunked.merge"):
+            out = self._merge_stage(stage, ln)
+        return reads, lengths, (out, stage, ln, passes)
+
+    def _staging(self, B: int, dev) -> dict:
+        """A free staging set of B rows (made where none is), its counts
+        zeroed on the stream of the launch."""
+        Kml = max(1, self.params.max_multi)
+        while self._free:
+            stage = self._free.pop()
+            if stage["best_mm"].shape[1] == B:
+                stage["counts"].zero_()
+                return stage
+        return staging(self.num_chunks, B, Kml, dev)
+
+    def _merge_stage(self, stage: dict, ln: torch.Tensor):
+        """Enqueue the merge of a staging set and the copy of its result
+        and counts to the host: a `_Fetch` on a card, else the tensors."""
+        out = merge_chunks(stage, self._base, ln,
+                           self.params.max_subs_per100,
+                           self.params.min_edit_dist)
+        out["counts"] = stage["counts"]
+        if ln.device.type != "cuda":
+            return out
+        return _Fetch(out, None, torch.cuda.current_stream(ln.device))
+
+    def _fetch_merged(self, out) -> tuple[dict, np.ndarray]:
+        """(the merged host result, the staging counts) of `_merge_stage`."""
+        got = {k: v.numpy() for k, v in result_tensors(out).items()}
+        counts = got.pop("counts").copy()
+        if counts[2, 0]:
+            raise ValueError("chunk loci outside [0, 2^42)")
+        return got, counts
 
     def finish_primary(self, pending) -> dict:
         """Every chunk's align_with_rescue result of a launched block,
-        merged exactly."""
-        reads, lengths, states = pending
-        with span("chunked.sweep"):
-            if states is None:
+        merged exactly.  Resident, the merged result of the launch stands
+        unless some chunk holds rows for the rescue ladder: those chunks'
+        slots then take the ladder on the host, and the block is merged
+        again."""
+        reads, lengths, state = pending
+        count("chunked.merges", 1)
+        if state is None:
+            with span("chunked.sweep"):
                 partials = [
                     self.engine_for(k).align_with_rescue(reads, lengths)
                     for k in range(self.num_chunks)]
-            else:
-                partials = [_finish_chunk(e, reads, lengths, *st)
-                            for e, st in zip(self.engines, states)]
-        with span("chunked.merge"):
-            res = merge_chunk_results(partials, self.bases, lengths,
-                                      self.params, self.device)
-        res["derived"] = partials[0].get("derived")
+            with span("chunked.merge"):
+                res = merge_chunk_results(partials, self.bases, lengths,
+                                          self.params, self.device)
+            res["derived"] = partials[0].get("derived")
+            return res
+        out, stage, ln, passes = state
+        with span("engine.fetch"):
+            res, counts = self._fetch_merged(out)
+        ladder = np.nonzero(counts[0])[0]
+        count("chunked.device_merges", int(len(ladder) == 0))
+        if len(ladder):
+            res = self._ladder(reads, lengths, stage, ln, passes, ladder)
+        self._free.append(stage)
+        res["derived"] = passes[0][0]
+        return res
+
+    def _ladder(self, reads, lengths, stage, ln, passes, chunks) -> dict:
+        """The rescue ladder, as `AlignEngine`'s finish takes it (under
+        each chunk's classic pass), on the rows of `chunks` that need it
+        (rows are independent), on the high-priority stream; then the
+        block merged again.  The rows of all those chunks are found,
+        fetched and written back at once."""
+        med = self.params.min_edit_dist
+        dev = ln.device
+        with _side(dev):
+            with span("chunked.sweep"), span("engine.rerun"):
+                ks = torch.from_numpy(chunks).to(dev)
+                keys = {key: stage[key][ks].cpu().numpy()
+                        for key in ("best_mm", "n_over", "cap_trunc")}
+                rows = [np.nonzero(inexact_rows(
+                    {key: v[i] for key, v in keys.items()}
+                    | {"derived": passes[k][1]}, lengths, med))[0]
+                    for i, k in enumerate(chunks)]
+                kk = torch.from_numpy(np.repeat(
+                    chunks, [len(r) for r in rows])).to(dev)
+                rr = torch.from_numpy(np.concatenate(rows)).to(dev)
+                got = {key: stage[key][kk, rr].cpu().numpy()
+                       for key in FIELDS}
+                end = 0
+                for k, r in zip(chunks, rows):
+                    at = slice(end, end + len(r))
+                    end += len(r)
+                    part = {key: v[at] for key, v in got.items()}
+                    part["derived"] = passes[k][1]
+                    self.engines[k].rescue_pass(reads[r], lengths[r], part)
+                    for key in FIELDS:
+                        got[key][at] = part[key]
+                for key in FIELDS:
+                    stage[key][kk, rr] = torch.from_numpy(got[key]).to(dev)
+                # inside the ladder's spans: `chunked.merge` opens once a
+                # block, and chunked.index_gib counts blocks by it
+                res, _ = self._fetch_merged(self._merge_stage(stage, ln))
         return res
 
     def align(self, reads: np.ndarray, lengths: np.ndarray) -> dict:
@@ -502,8 +513,10 @@ class ChunkedAligner:
         return out
 
     def close(self) -> None:
-        """Drop every engine, its graphs and the chunk indexes."""
+        """Drop every engine, its graphs, the chunk indexes and the staging
+        sets."""
         self.engines = self.engine = self.resident = None
+        self._free, self._base = [], None
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()

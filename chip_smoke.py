@@ -96,10 +96,12 @@ Phases, each of which raises on failure:
      with `align -u -d 100 -D 600 --peinsertdist`, with --device cpu
      (child processes) and twice with --device cuda, kernels #1-#3
      counted in each: the chunks resident (uploaded once, one engine a
-     chunk), and cycling through one engine (the aligner told the index
-     does not fit); each card run's SAM and SNP CSV byte for byte
-     against the CPU's, and no insert CSV from any, as from the JAX
-     CLI's chunked branch;
+     chunk; the PE run's blocks through select_chunk and merge_chunks,
+     counted), and cycling through one engine (the aligner told the
+     index does not fit; neither kernel runs there, nor on the SE run,
+     which streams blocks chunk by chunk); each card run's SAM and SNP
+     CSV byte for byte against the CPU's, and no insert CSV from any, as
+     from the JAX CLI's chunked branch;
  17. long reads: 1,024 reads of 10,000 bp (past the packed extension's
      4,096) through `align` on the 4.6 Mbp index, the dense extension
      path, each of its calls timed with its peak memory, the SAM byte for
@@ -224,16 +226,25 @@ Phases, each of which raises on failure:
      plain versions on both strands at GRCh38's chunk (237,561,344
      bases, LUT 13: the fast and the classic pass) and at E. coli's fast
      pass, 131,072 reads of 100 bp, each timed beside its plain op chain
-     and its bytes bound.
+     and its bytes bound;
+ 32. the chunked index's select and merge kernels (select_chunk,
+     merge_chunks) against their plain versions at GRCh38's block, 13
+     chunks of 131,072 rows: seeded fast and classic passes whose loci
+     are strided columns, with and without a fast pass, rows for the
+     rescue ladder in every chunk, loci past 2^31, keys tied across
+     chunks, and the flag of a locus past 2^42; each timed beside its
+     plain version (the select's on the host, as the chunked path ran
+     it, the merge's on the card) and its bytes bound.
 Phases 16 and 17 run on the card right after phase 6, and 21-22 after
 them; their --device cpu child processes go on beside the phases that
 follow and are compared after phase 18 (16-17) and at the end (21-29).
-Phase 20 runs right after phase 3, 31 after 20, 23 after phase 13, 24
+Phase 20 runs right after phase 3, 31 and 32 after 20, 23 after phase 13, 24
 after 18, 25-29 after 24, and 30 last, after the CPU runs of 21-29 are
 compared.  Phase 3 also holds the extension kernel at the orphan
 rescue's shape (2,048 windows of 500 consecutive loci, some off the
 genome's ends).  The kernels line gives #1-#3 and the seed kernels
-their launches on every path above, #3w its launches on the assembly
+their launches on every path above, select_chunk and merge_chunks
+theirs on phase 16's resident PE run, #3w its launches on the assembly
 cell, #7 on phase 25's 1 Mbp and node sweeps, #8 on phase 26's CLI run,
 every kernel its launches on phase
 19's sharded, EC-mesh and swservice paths (summed over the ranks), and
@@ -1712,6 +1723,8 @@ def _pe_origin_fractions(path: Path, n_pairs: int) -> tuple[float, float]:
 
 ALIGN_KERNELS = ("seed_rows", "sort_rows", "dedup_pack", "sort2_rows",
                  "hamming_extend_packed")
+# the resident chunked path's own kernels (phase 16, the resident PE run)
+CHUNK_MERGE_KERNELS = ("select_chunk", "merge_chunks")
 
 
 def _align_launches() -> dict:
@@ -2387,10 +2400,20 @@ def chunked_cli_start(seqs) -> dict:
             _reset_kernel_launches()
             with _chunk_path(path) as seen:
                 wall = _timed_cli(run["argv"][path] + ["--device", "cuda"])
-            run[path] = {"wall": wall, "launches": _align_launches(), **seen}
+            counts = _kernel_launches()
+            merge = {k: counts[k] for k in CHUNK_MERGE_KERNELS}
+            run[path] = {"wall": wall, "launches": _align_launches(),
+                         "merge_launches": merge, **seen}
             if min(run[path]["launches"].values()) < 1:
                 raise AssertionError(f"chunked {kind} {path}: launches "
                                      f"{run[path]['launches']}")
+            # the select and the merge run on the resident path of the PE
+            # run alone: the SE run streams blocks chunk by chunk
+            # (`align_blocks`) and merges on the host
+            on = kind == "pe" and path == "resident"
+            if any((n > 0) != on for n in merge.values()):
+                raise AssertionError(f"chunked {kind} {path}: select and "
+                                     f"merge launches {merge}")
             want = ((1, 0) if path == "resident" else (0, CHUNKED_CHUNKS))
             got = (seen["resident_sets"], seen["chunk_uploads"])
             if got[0] != want[0] or got[1] < want[1]:
@@ -2405,8 +2428,9 @@ def chunked_cli_start(seqs) -> dict:
         for path in CHUNK_PATHS:
             r = runs[kind][path]
             print(f"chunked CLI {path}: {what} --device cuda` wall "
-                  f"{r['wall']:.2f} s, launches {r['launches']}, chunk "
-                  f"uploads {r['chunk_uploads']}")
+                  f"{r['wall']:.2f} s, launches {r['launches']} "
+                  f"{r['merge_launches']}, chunk uploads "
+                  f"{r['chunk_uploads']}")
     return runs
 
 
@@ -3480,6 +3504,134 @@ def check_seed_kernels(dev, smi):
     return err, timing
 
 
+# ------------------------------------ the chunked select and merge (32) ----
+
+def _chunk_merge_bytes(stage, n_unresolved, merged):
+    """Bytes the two kernels need at a staging set's shape, each input and
+    output once: select_chunk with a fast pass reads the lengths, the fast
+    pass's resolve keys (best_mm, n_over, cap_trunc), a row's result
+    fields from the pass it takes and, on an unresolved row, the classic
+    pass's ladder keys, and writes the chunk's slot; merge_chunks reads
+    every slot, the lengths and the bases, and writes `merged`."""
+    from biokanga_tpu_torch.ops import chunk_merge as cm
+
+    K, B = stage["best_mm"].shape
+    slot = _nbytes(*(stage[f][0] for f in cm.FIELDS))
+    res = _nbytes(*(stage[f][0] for f in cm.FIELDS[:10])) // B
+    lad = slot // B - res
+    keys = _nbytes(*(stage[f][0] for f in ("best_mm", "n_over",
+                                           "cap_trunc")))
+    read = (keys + (B - n_unresolved) * (res - 1)
+            + n_unresolved * (res + lad))
+    select = 4 * B + read + slot
+    merge = K * slot + 4 * B + 8 * K + _nbytes(*merged.values())
+    return select, merge
+
+
+def check_chunk_merge(dev, smi):
+    """Phase 32: select_chunk and merge_chunks against their plain versions
+    at GRCh38's block (13 chunks of 131,072 rows), timed beside the plain
+    versions and their bytes bounds."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import chunk_merge_cases as cases
+
+    from biokanga_tpu_torch.align.params import AlignParams
+    from biokanga_tpu_torch.ops import chunk_merge as cm
+
+    ap = AlignParams()
+    fp = ap.derive_fast(READ_LEN, cases.CHUNK_LEN, 13)
+    dp = ap.derive(READ_LEN, cases.CHUNK_LEN)
+    med, subs = ap.min_edit_dist, ap.max_subs_per100
+    K, B, Kml = cases.GRCH38_K, cases.GRCH38_B, 5
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(32)
+    lengths = rng.integers(0, READ_LEN + 1, B).astype(np.int32)
+    ln = {d: torch.from_numpy(lengths).to(d) for d in (dev, cpu)}
+    # the bases of GRCh38's chunks: global loci past 2^31
+    base = np.arange(K, dtype=np.int64) * (cases.CHUNK_LEN - 2048)
+    bases = {d: torch.from_numpy(base).to(d) for d in (dev, cpu)}
+    passes = cases.grch38_passes(rng, dev)
+    err = {"select_chunk": 0, "merge_chunks": 0}
+
+    def cmp(name, got, want, keys):
+        for f in keys:
+            err[name] = max(err[name], _max_abs_err(got[f].cpu(), want[f]))
+
+    staged = {}
+    for fast_pass in (True, False):
+        st = {d: cm.staging(K, B, Kml, d) for d in (dev, cpu)}
+        for k, (fast, classic) in enumerate(passes):
+            for d, stage in st.items():
+                def on(p):
+                    return {f: v.to(d) for f, v in p.items()}
+                cm.select_chunk(stage, k, ln[d], on(classic), dp, med,
+                                on(fast) if fast_pass else None,
+                                fp if fast_pass else None)
+        cmp("select_chunk", st[dev], st[cpu], cm.FIELDS + ("counts",))
+        if int(st[cpu]["counts"][0].min()) < 1:
+            raise AssertionError("phase 32: a chunk without rows for the "
+                                 "rescue ladder")
+        staged[fast_pass] = st
+    st = staged[True]
+    for s, m in ((subs, med), (0, 2)):
+        cmp("merge_chunks", cm.merge_chunks(st[dev], bases[dev], ln[dev], s,
+                                            m),
+            cm.merge_chunks(st[cpu], bases[cpu], ln[cpu], s, m), cm.FIELDS)
+    parts, tie_base = cases.partials(rng, K, B, "overlap")
+    tie_base = torch.from_numpy(tie_base)
+    cmp("merge_chunks", cm.merge_chunks(cases.stage_of(parts, dev),
+                                        tie_base.to(dev), ln[dev], subs, med),
+        cm.merge_chunks(cases.stage_of(parts), tie_base, ln[cpu], subs, med),
+        cm.FIELDS)
+    flagged = cases.stage_of(parts, dev)
+    far = torch.tensor([0] + [(1 << 42) - 10] * (K - 1), dtype=torch.int64,
+                       device=dev)
+    cm.merge_chunks(flagged, far, ln[dev], subs, med)
+    flags = (int(st[dev]["counts"][2, 0]), int(flagged["counts"][2, 0]))
+    if any(err.values()) or flags != (0, 1):
+        raise AssertionError(f"phase 32: the chunk merge kernels disagree "
+                             f"with their plain versions: {err}, 2^42 "
+                             f"flags {flags}")
+    # timed on the main path's layout: contiguous pass outputs, one
+    # chunk's select and the merge of the block
+    fast, classic = ({f: v.contiguous() for f, v in p.items()}
+                     for p in passes[0])
+    host = [{f: v.cpu() for f, v in p.items()} for p in (fast, classic)]
+    stage = st[dev]
+    merged = cm.merge_chunks(stage, bases[dev], ln[dev], subs, med)
+    mtm = torch.from_numpy(cm.max_tot_mm(lengths, subs)).to(dev)
+    n_unres = int(st[cpu]["counts"][1, 0])
+    sel_b, merge_b = _chunk_merge_bytes(stage, n_unres, merged)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        cm.select_chunk(st[cpu], 0, ln[cpu], host[1], dp, med, host[0], fp)
+    sel_host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    timing = {
+        "select_chunk": dict(
+            ms=_timed_ms(lambda: cm.select_chunk(
+                stage, 0, ln[dev], classic, dp, med, fast, fp)),
+            plain_ms=sel_host_ms, plain_on="host", bound=_bound(sel_b, 0),
+            library_ms=None, unresolved_share=n_unres / B),
+        "merge_chunks": dict(
+            ms=_timed_ms(lambda: cm.merge_chunks(stage, bases[dev], ln[dev],
+                                                 subs, med)),
+            plain_ms=_timed_ms(lambda: cm.merge_chunks_plain(
+                {f: stage[f] for f in cm.FIELDS}, bases[dev], mtm, med), 3),
+            plain_on="card", bound=_bound(merge_b, 0), library_ms=None)}
+    sel, mrg = timing["select_chunk"], timing["merge_chunks"]
+    print(f"chunked select and merge at GRCh38's block ({K} chunks x {B} "
+          f"rows, -R {Kml}; {100 * n_unres / B:.2f}% of a chunk's rows "
+          f"unresolved): select_chunk {sel['ms']:.4f} ms a chunk (host "
+          f"plain {sel['plain_ms']:.4f}, bound {sel['bound'][0]:.4f}), "
+          f"merge_chunks {mrg['ms']:.4f} ms (plain on the card "
+          f"{mrg['plain_ms']:.4f}, bound {mrg['bound'][0]:.4f}) ({smi})")
+    del staged, st, stage, passes, flagged, merged
+    torch.cuda.empty_cache()
+    return err, timing
+
+
 # -------------------------------------- bisulfite, colorspace (21, 22) ----
 
 def _kernel_launches() -> dict:
@@ -3487,6 +3639,7 @@ def _kernel_launches() -> dict:
     from biokanga_tpu_torch.ops import (
         banded_sw,
         blitz_chain,
+        chunk_merge,
         extend_packed,
         seed_rows,
         sort,
@@ -3495,6 +3648,8 @@ def _kernel_launches() -> dict:
     )
 
     return {"uhamming_sweep": uhamming_sweep.uhamming_sweep.launches,
+            "select_chunk": chunk_merge.select_chunk.launches,
+            "merge_chunks": chunk_merge.merge_chunks.launches,
             "blitz_chain": blitz_chain.chain_scan.launches,
             "seed_rows": seed_rows.seed_rows.launches,
             "dedup_pack": seed_rows.dedup_pack.launches,
@@ -3513,6 +3668,7 @@ def _reset_kernel_launches() -> None:
     from biokanga_tpu_torch.ops import (
         banded_sw,
         blitz_chain,
+        chunk_merge,
         extend_packed,
         seed_rows,
         sort,
@@ -3521,6 +3677,7 @@ def _reset_kernel_launches() -> None:
     )
 
     for fn in (uhamming_sweep.uhamming_sweep, blitz_chain.chain_scan,
+               chunk_merge.select_chunk, chunk_merge.merge_chunks,
                seed_rows.seed_rows, seed_rows.dedup_pack,
                sort.sort_rows, sort.sort2_rows,
                extend_packed.hamming_extend_packed,
@@ -5076,6 +5233,12 @@ def main() -> int:
     timing.update(seed_timing)
     lap("31")
 
+    # 32. the chunked index's select and merge at GRCh38's block
+    merge_err, merge_timing = check_chunk_merge(dev, smi)
+    errs.update(merge_err)
+    timing.update(merge_timing)
+    lap("32")
+
     # 4. align end to end through the CLI
     WORK.mkdir(parents=True, exist_ok=True)
     seqs = random_genome([("chr", GENOME_BP)], seed=42)
@@ -5317,6 +5480,8 @@ def main() -> int:
                  "launches_ec_checkpoint": pb_run["ec_launches"]}
     launches["hamming_extend_packed_win"] = \
         asm_run["launches"]["hamming_extend_packed_win"]
+    for name in CHUNK_MERGE_KERNELS:
+        launches[name] = ck_runs["pe"]["resident"]["merge_launches"][name]
 
     src = "biokanga_tpu_torch/csrc/"
     rows = [
@@ -5332,6 +5497,12 @@ def main() -> int:
          f"of 13, H 48"),
         ("dedup_pack", "seed_rows.cu", "none (XLA ops)",
          f"GRCh38 chunk, classic pass: {SEED_ROWS} rows of 384, cap 192"),
+        ("select_chunk", "chunk_merge.cu",
+         "none (host numpy: biokanga_tpu/parallel/chunked.py)",
+         f"GRCh38 block: one chunk's select of {SEED_ROWS} rows"),
+        ("merge_chunks", "chunk_merge.cu",
+         "biokanga_tpu/parallel/chunked.py:40 (host)",
+         f"GRCh38 block: 13 chunks x {SEED_ROWS} rows, -R 5"),
         ("banded_sw_moves", "banded_sw.cu",
          "biokanga_tpu/ops/pallas_sw.py:191",
          f"{SW_CHUNK_PAIRS} pairs x {SW_LA}, W {SW_W}"),
@@ -5373,7 +5544,8 @@ def main() -> int:
                                    "wide_bound_ms", "wide_floor_ms",
                                    "wide_shape",
                                    "queries_per_s", "at_origin",
-                                   "big_query_s", "by_shape")
+                                   "big_query_s", "by_shape", "plain_on",
+                                   "unresolved_share")
                  if k in t}
         # launches on the paths this slice added, where the kernel ran
         extra.update({path: counts[name]
@@ -5390,6 +5562,10 @@ def main() -> int:
                 "launches_long_reads": long_launches[name],
                 "launches_big_genome": big_launches[name]}
                if name in se_launches else {}),
+            **({f"launches_chunked_{kind}_{path}":
+                ck_runs[kind][path]["merge_launches"][name]
+                for kind in ("se", "pe") for path in CHUNK_PATHS}
+               if name in CHUNK_MERGE_KERNELS else {}),
             **rank_launches.get(name, {}),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": bound_ms,

@@ -158,25 +158,41 @@ def test_chunked_spans_and_counters(case, resident, monkeypatch):
     monkeypatch.setattr(PEAligner, "rescue", spy)
     out, prof, got = _profiled(lambda: pe.align_pairs(*args))
     _assert_same(out, plain, "under the profiler")
-    # the launch's and the finish's sweep ranges, then the merge
-    (l0, l1), (f0, f1) = sorted(_ranges(prof, "chunked.sweep"))
+    sweeps = sorted(_ranges(prof, "chunked.sweep"))
     (m0, m1), = _ranges(prof, "chunked.merge")
-    assert l1 <= f0 <= f1 <= m0
-    # the engines' spans nest in the sweep: resident, the launches in the
-    # launch's range and the fetches in the finish's; cycling, all in the
-    # finish's
-    sweeps = {"engine.upload": (l0, l1) if resident else (f0, f1),
-              "engine.enqueue": (l0, l1) if resident else (f0, f1),
-              "engine.fetch": (f0, f1)}
-    for name, (a, b) in sweeps.items():
+    if resident:
+        # one sweep, the launch's: every chunk's passes and its select
+        # (`engine.rerun`); behind it the merge's enqueue, then the one
+        # fetch of the merged result
+        (l0, l1), = sweeps
+        (f0, f1), = _ranges(prof, "engine.fetch")
+        assert l1 <= m0 <= m1 <= f0 <= f1
+        nested = {"engine.upload": (l0, l1), "engine.enqueue": (l0, l1),
+                  "engine.rerun": (l0, l1)}
+        done = f1
+    else:
+        # the launch's and the finish's sweep ranges, then the merge; the
+        # engines' spans all in the finish's
+        (l0, l1), (f0, f1) = sweeps
+        assert l1 <= f0 <= f1 <= m0
+        nested = {"engine.upload": (f0, f1), "engine.enqueue": (f0, f1),
+                  "engine.fetch": (f0, f1)}
+        done = m1
+    for name, (a, b) in nested.items():
         spans = _ranges(prof, name)
         inside = [s for s in spans if a <= s[0] <= s[1] <= b]
         assert len(inside) >= 3 and len(inside) == len(spans), name
-    # after the merge, the pairing, one orphan rescue range a block, and
-    # the pairing again
+    # after the merged result, the pairing, one orphan rescue range a
+    # block, and the pairing again
     (r0, r1_), = _ranges(prof, "pe.rescue")
     (c0, c1), (c2, _) = sorted(_ranges(prof, "pe.classify"))
-    assert m1 <= c0 <= c1 <= r0 <= r1_ <= c2
+    assert done <= c0 <= c1 <= r0 <= r1_ <= c2
+    # one block merged; resident, on the device with no ladder fallback
+    assert got["chunked.merges"] == 1
+    if resident:
+        assert got["chunked.device_merges"] == 1
+    else:
+        assert "chunked.device_merges" not in got
     # one PEAligner.rescue call a mate side and anchor chunk holding
     # orphans, each on that chunk's engine
     r1, l1, r2, l2 = args
@@ -205,3 +221,9 @@ def test_chunked_spans_and_counters(case, resident, monkeypatch):
     trace.reset_counts()
     pe.align_pairs(*args)
     assert trace.counts() == {}
+    if resident:
+        # the unresolved rows, counted on the device, as the cycling
+        # engines count them
+        _, _, cyc = _profiled(
+            lambda: _cycling(ci, monkeypatch).align_pairs(*args))
+        assert got["engine.rerun_rows"] == cyc["engine.rerun_rows"] > 0

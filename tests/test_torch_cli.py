@@ -406,7 +406,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
               root / "tests" / "bs_reads.py",
               root / "tests" / "win_edge_cases.py",
               root / "tests" / "readprep_reads.py",
-              root / "tests" / "chromatin_inputs.py"]
+              root / "tests" / "chromatin_inputs.py",
+              root / "tests" / "chunk_merge_cases.py"]
     assert len(files) > 30
     bad = [(str(f.relative_to(root)), m) for f in files
            for m in _imported_modules(f)
